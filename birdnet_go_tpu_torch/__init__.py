@@ -1,10 +1,12 @@
-"""birdnet_go_tpu_torch — the realtime BirdNET v2.4 device step in PyTorch.
+"""birdnet_go_tpu_torch — the realtime mel-CNN device step in PyTorch.
 
 A port of the JAX package ``birdnet_go_tpu`` to PyTorch and CUDA on an
-NVIDIA H100. It covers the per-window device step of the realtime server:
-int16 PCM megabatch → fused mel spectrogram (a CUDA kernel for Hopper,
-``csrc/melspec.cu``) → EfficientNet-B0 backbone → sigmoid · sensitivity,
-range mask and top-K, driven by the JAX package's host loop
+NVIDIA H100. It covers the per-window device step of the realtime server
+for BirdNET v2.4 (EfficientNet-B0), BirdNET v3.0 and Perch v2 (B1): int16
+PCM megabatch → fused mel spectrogram (a CUDA kernel for Hopper,
+``csrc/melspec.cu``) → EfficientNet backbone, whose stride-1 blocks may run
+through the fused MBConv kernels (``csrc/mbconv.cu``) → sigmoid ·
+sensitivity, range mask and top-K, driven by the JAX package's host loop
 (``birdnet_go_tpu.scheduler.loop.DeviceLoop``) through
 ``scheduler.loop.TorchModelBatcher``.
 

@@ -37,8 +37,9 @@ def _to_torch_layout(a: np.ndarray) -> np.ndarray:
 def params_from_jax(tree: Any) -> dict[str, torch.Tensor]:
     """Nested dicts/lists of numpy arrays → a float32 state dict whose keys
     are the pytree paths joined by dots (``blocks.3.dw.w``)."""
-    return {k: torch.from_numpy(np.ascontiguousarray(
-                _to_torch_layout(v), dtype=np.float32))
+    # a copy: the arrays of a JAX tree are read-only, and torch warns
+    return {k: torch.from_numpy(np.array(_to_torch_layout(v),
+                                         dtype=np.float32, order="C"))
             for k, v in _flatten(tree)}
 
 

@@ -22,6 +22,9 @@ class MelCnnModel(nn.Module):
     """
 
     spec = None
+    # route the stride-1 blocks through the fused MBConv kernels; off, as in
+    # the JAX package
+    fused_blocks = False
 
     def __init__(self, num_species: int, mel: MelConfig,
                  net: EfficientNetConfig,
@@ -44,8 +47,10 @@ class MelCnnModel(nn.Module):
 
     def apply(self, pcm: torch.Tensor) -> dict[str, torch.Tensor]:
         """float32 PCM [B, T] → {"logits", "embedding"} through the plain
-        mel, as the JAX XLA path runs."""
-        return self.backbone(self.features(pcm).to(self.compute_dtype))
+        mel, as the JAX XLA path runs. `fused_blocks` reaches the backbone
+        here and in ``apply_int16``."""
+        return self.backbone(self.features(pcm).to(self.compute_dtype),
+                             self.fused_blocks)
 
     def _fused_ok(self) -> bool:
         """The mel config fits the fused kernel (n_fft 2048, hop % 128 == 0,
@@ -59,7 +64,7 @@ class MelCnnModel(nn.Module):
         plain version for one on the CPU. Other configs take ``apply``."""
         if self._fused_ok():
             m = melspec_fused(pcm_i16, self.mel, out_dtype=self.compute_dtype)
-            return self.backbone(m[..., None])
+            return self.backbone(m[..., None], self.fused_blocks)
         return self.apply(pcm16_to_float32(pcm_i16))
 
     def forward(self, pcm: torch.Tensor) -> dict[str, torch.Tensor]:

@@ -4,6 +4,10 @@
 A stem conv, a schedule of MBConv stages, a 1×1 head conv, global average
 pool → embedding, and a dense classifier head. The public input keeps the
 JAX layout, NHWC [B, frames, mels, C]; the module runs NCHW inside.
+
+``forward(x, fused_blocks=True)`` routes each block that
+``fused_block_ok`` admits through the two fused kernels
+(``ops/pallas_mbconv.py``), as ``apply_efficientnet`` does.
 """
 
 from __future__ import annotations
@@ -14,6 +18,10 @@ import torch
 from torch import nn
 
 from birdnet_go_tpu_torch.models import layers as L
+from birdnet_go_tpu_torch.ops.pallas_mbconv import (
+    fused_block_ok,
+    mbconv_fused,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,12 +101,24 @@ class EfficientNet(nn.Module):
         self.classifier.init(generator)
         return self
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, fused_blocks: bool = False
+                ) -> dict[str, torch.Tensor]:
         dt = self.compute_dtype
         h = x.permute(0, 3, 1, 2)              # NHWC → NCHW (channels_last)
         h = L.swish(self.stem_bn(self.stem_conv(h, dt)))
+        channels_last = False
         for blk in self.blocks:
-            h = blk(h, dt)
+            if (fused_blocks and fused_block_ok(blk.dw.stride, h.shape[2],
+                                                h.shape[3], False)):
+                if not channels_last:
+                    # the kernels read [B, H·W, C], a view of channels_last
+                    # memory; the convolutions of the unfused blocks keep
+                    # that format, so this is the only copy
+                    h = h.contiguous(memory_format=torch.channels_last)
+                    channels_last = True
+                h = mbconv_fused(blk, h, kernel=blk.dw.k, compute_dtype=dt)
+            else:
+                h = blk(h, dt)
         h = L.swish(self.head_bn(self.head_conv(h, dt)))
         emb = h.mean(dim=(2, 3))               # global average pool
         logits = self.classifier(emb, dt)

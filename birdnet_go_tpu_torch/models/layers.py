@@ -89,8 +89,10 @@ class BatchNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """y = x @ wᵀ + b with float32 output. In bf16 the product is rounded
-    to bf16 before the cast (JAX keeps its float32 accumulator)."""
+    """y = x @ wᵀ + b in float32: the float32 sum of products of operands
+    rounded to `compute_dtype`, as JAX's ``apply_dense`` with its float32
+    accumulator. The rounded operands are multiplied in float32, which is
+    exact for bf16 operands while TF32 stays off."""
 
     def __init__(self, cin: int, cout: int, bias: bool = True):
         super().__init__()
@@ -105,8 +107,8 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-        y = F.linear(x.to(compute_dtype), self.w.to(compute_dtype))
-        y = y.to(torch.float32)
+        y = F.linear(x.to(compute_dtype).float(),
+                     self.w.to(compute_dtype).float())
         return y + self.b if self.b is not None else y
 
 

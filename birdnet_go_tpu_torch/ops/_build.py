@@ -63,6 +63,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.melspec_fused_launch.argtypes = [p, i, i, i, i, p, p, p, p, p, i, i,
                                          i, f, p, i, p]
     lib.melspec_fused_launch.restype = i
+    lib.expand_dw_pool_launch.argtypes = [p, i, p, p, p, p, p, p, p, i, p, p,
+                                          i, i, i, i, i, i, i, i, p]
+    lib.expand_dw_pool_launch.restype = i
+    lib.scale_project_launch.argtypes = [p, i, p, p, p, p, p, i, p, i, i, i,
+                                         i, i, i, p]
+    lib.scale_project_launch.restype = i
     lib.birdnet_cuda_error_string.argtypes = [i]
     lib.birdnet_cuda_error_string.restype = ctypes.c_char_p
 

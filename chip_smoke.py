@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's realtime BirdNET v2.4 device step on one CUDA card.
+"""Drive the PyTorch port's realtime device step on one CUDA card: BirdNET
+v2.4 (EfficientNet-B0), and BirdNET v3.0 and Perch v2 (B1) through the fused
+MBConv kernels.
 
     python3 chip_smoke.py
 
@@ -9,22 +11,37 @@ Phases, in order; any failure propagates and exits non-zero:
 2. the build: compiles ``birdnet_go_tpu_torch/csrc/*.cu`` for sm_90a into
    ``build/torch_kernels/``;
 3. the mel kernel against its plain PyTorch version on the card, at the
-   main path's shape [256, 144000] and on the other configs the JAX
-   kernel's tests use, with CUDA-event times of both;
-4. the full-width BirdNET v2.4 step (B0, 6,522 classes, bf16, random
-   weights from a seed) through the kernel, checked finite and compared
-   with the plain mel on field-level audio, in bf16 and again with the
-   same weights in float32; then float32 on the card against the CPU;
-5. the server's device loop: ``DeviceLoop.run_tick`` over a few hundred
+   main path's shape [256, 144000], at v3.0's and Perch v2's configs at
+   [256, 160000], and on the other configs the JAX kernel's tests use, with
+   CUDA-event times of both;
+4. the fused MBConv kernels A (``expand_dw_pool``) and B
+   (``scale_project``) against their plain versions at B = 256 at each
+   distinct fused block shape of the v2.4, v3.0 and Perch v2 steps (read
+   off the models) and one float32 case, with CUDA-event times of both;
+5. the full-width BirdNET v2.4 step (B0, 6,522 classes, bf16, random
+   weights from a seed) through the mel kernel, checked finite and compared
+   with the plain mel on field-level audio, in bf16 and again with the same
+   weights in float32; then float32 on the card against the CPU; then the
+   same step with fused blocks against the CPU's plain fused path, in
+   float32 and bf16; then one full-width fused step each of v3.0 and
+   Perch v2, held against the CPU's plain fused path in bf16, and the
+   fused and unfused step times of the three models;
+6. the server's device loop: ``DeviceLoop.run_tick`` over a few hundred
    ``AnalysisBuffer`` streams into one ``TorchModelBatcher``, with every
-   window's top-10 checked and the kernel's launches counted.
+   window's top-10 checked and the kernel's launches counted; once for
+   v2.4 (48 kHz), and once for v3.0 with fused blocks (32 kHz), where the
+   MBConv kernels must run 13 times per batch.
 
-The last lines are one JSON object for the kernels, the card's
-``name, power.limit`` line and ``{"ok": true, "device": {...}}``.
+The last lines are one JSON object for the kernels (the MBConv kernels'
+times and errors summed over the fused blocks of one v3.0 step, whose loop
+counts their launches), the card's ``name, power.limit`` line and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import subprocess
 import time
@@ -36,24 +53,50 @@ from birdnet_go_tpu.audio.buffers import AnalysisBuffer
 from birdnet_go_tpu.scheduler.loop import DeviceLoop
 from birdnet_go_tpu.utils.tracing import GLOBAL_SPANS
 from birdnet_go_tpu_torch.inference.backend import TorchClassifier
+from birdnet_go_tpu_torch.models import efficientnet
+from birdnet_go_tpu_torch.models.birdnet_v3 import BirdNETv3
 from birdnet_go_tpu_torch.models.birdnet_v24 import BirdNETv24
+from birdnet_go_tpu_torch.models.layers import BatchNorm
+from birdnet_go_tpu_torch.models.perch_v2 import PerchV2
 from birdnet_go_tpu_torch.ops import _build
 from birdnet_go_tpu_torch.ops.melspec import MelConfig
+from birdnet_go_tpu_torch.ops.pallas_mbconv import (
+    expand_dw_pool,
+    expand_dw_pool_plain,
+    fold_bn,
+    scale_project,
+    scale_project_plain,
+)
 from birdnet_go_tpu_torch.ops.pallas_melspec import (
     melspec_fused,
     melspec_fused_plain,
+)
+from birdnet_go_tpu_torch.ops.postprocess import (
+    sigmoid_confidence,
+    top_k_results,
 )
 from birdnet_go_tpu_torch.scheduler.loop import TorchModelBatcher
 
 SEED = 0
 BATCH = 256                  # realtime.max_batch default
 CLIP = 144000                # 3 s at 48 kHz
+CLIP32 = 160000              # 5 s at 32 kHz (v3.0, Perch v2)
 V24 = dict(sample_rate=48000, n_fft=2048, hop=512, n_mels=96, fmax=15000.0,
            mag_scale="nonlinear")
+V3 = dict(sample_rate=32000, n_fft=2048, hop=640, n_mels=128, fmax=15000.0,
+          mag_scale="nonlinear")
+PERCH = dict(sample_rate=32000, n_fft=2048, hop=640, n_mels=160, fmin=60.0,
+             fmax=10000.0, mag_scale="log")
 N_STREAMS = 640
 N_TICKS = 8
+V3_STREAMS = 512
+V3_TICKS = 4
+V3_FUSED = 13                # fused blocks of the full-width B1 step
+# float32 step with fused blocks on bf16 operands, card vs CPU: how many of
+# its 2 x 6,522 logits may differ by 1e-3 of their scale or more
+BF16_OPERAND_OUTLIERS = 130
 REPS = 10
-
+FAMILIES = (BirdNETv24, BirdNETv3, PerchV2)
 
 def _run(cmd: list[str]) -> str:
     return subprocess.run(cmd, capture_output=True, text=True,
@@ -61,8 +104,9 @@ def _run(cmd: list[str]) -> str:
 
 
 def pcm_batch(shape: tuple[int, int], seed: int, tone: float = 0.05,
-              noise: float = 0.01) -> np.ndarray:
-    """One tone (200 Hz to 12 kHz) plus white noise per row, 48 kHz int16.
+              noise: float = 0.01, rate: int = 48000) -> np.ndarray:
+    """One tone (200 Hz to 12 kHz) plus white noise per row, int16 at
+    `rate`.
 
     The default levels (a -26 dBFS tone over -40 dBFS noise) are those of
     field recordings. Louder input drives the random-weight network into a
@@ -71,7 +115,7 @@ def pcm_batch(shape: tuple[int, int], seed: int, tone: float = 0.05,
     levels feed only the kernel-vs-plain comparison.
     """
     rng = np.random.default_rng(seed)
-    t = np.arange(shape[1], dtype=np.float32) / 48000.0
+    t = np.arange(shape[1], dtype=np.float32) / rate
     f = rng.uniform(200.0, 12000.0, (shape[0], 1)).astype(np.float32)
     x = tone * np.sin(2 * np.pi * f * t)
     x += rng.standard_normal(shape, dtype=np.float32) * noise
@@ -140,10 +184,16 @@ def phase_kernel(dev: torch.device, card: str) -> dict:
     log = dict(sample_rate=48000, n_fft=2048, hop=512, n_mels=64,
                fmax=12000.0, mag_scale="log")
     short = torch.from_numpy(pcm_batch((1, 48000), SEED + 1)).to(dev)
+    pcm32 = torch.from_numpy(pcm_batch((BATCH, CLIP32), SEED + 4,
+                                       rate=32000)).to(dev)
     cases = [("v24 f32", V24, pcm, torch.float32),
              ("v24 f32 loud tones", V24, loud, torch.float32),
              ("fullband f32 loud tones", full, loud, torch.float32),
              ("log n_mels64 [1,48000]", log, short, torch.float32),
+             ("v3.0 f32", V3, pcm32, torch.float32),
+             ("v3.0 bf16", V3, pcm32, torch.bfloat16),
+             ("perch f32", PERCH, pcm32, torch.float32),
+             ("perch bf16", PERCH, pcm32, torch.bfloat16),
              ("v24 bf16 (main path)", V24, pcm, torch.bfloat16)]
     main = {}
     for name, kw, x, dt in cases:
@@ -155,7 +205,12 @@ def phase_kernel(dev: torch.device, card: str) -> dict:
         assert torch.isfinite(got.float()).all(), name
         abs_err = float((ref.float() - got.float()).abs().max())
         rel = rel_err(ref, got)
-        if kw["mag_scale"] == "log":
+        if kw["mag_scale"] == "log" and dt == torch.bfloat16:
+            # log output: the f32 bound plus one bf16 step of the largest
+            # magnitude
+            lim = 2e-4 + 2.0 ** -7 * float(ref.float().abs().max())
+            ok, tol = abs_err < lim, f"abs < {lim:.3e}"
+        elif kw["mag_scale"] == "log":
             ok, tol = abs_err < 2e-4, "abs < 2e-4"
         elif dt == torch.bfloat16:
             # one bf16 step (2^-7 relative) on top of the f32 tolerance
@@ -169,9 +224,155 @@ def phase_kernel(dev: torch.device, card: str) -> dict:
               f"max_rel_err={rel:.3e} ({tol}) kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} [{card}]")
         assert ok, f"melspec kernel disagrees with plain ({name})"
-        if dt == torch.bfloat16:
+        if name == "v24 bf16 (main path)":
             main = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
     return main
+
+
+def _bn_consts(c: int, gen: torch.Generator, dev: torch.device):
+    """Folded BN (k, b) [1, c] from random statistics."""
+    bn = BatchNorm(c)
+    with torch.no_grad():
+        for p, lo, hi in ((bn.scale, 0.5, 1.5), (bn.var, 0.5, 2.0)):
+            p.copy_(lo + (hi - lo) * torch.rand(c, generator=gen))
+        for p in (bn.bias, bn.mean):
+            p.copy_(0.1 * torch.randn(c, generator=gen))
+    return tuple(t.to(dev) for t in fold_bn(bn))
+
+
+def mbconv_inputs(shape: tuple, seed: int, dev: torch.device,
+                  dt: torch.dtype) -> tuple[dict, dict]:
+    """Random inputs of kernels A and B at one block shape, batch BATCH."""
+    c, cm, k, h, w, c2 = shape
+    gen = torch.Generator().manual_seed(seed)
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*size, scale=1.0):
+        return torch.randn(size, generator=dgen, device=dev) * scale
+
+    kexp, bexp = _bn_consts(cm, gen, dev)
+    kdw, bdw = _bn_consts(cm, gen, dev)
+    kpr, bpr = _bn_consts(c2, gen, dev)
+    a = dict(x=randn(BATCH, h * w, c).to(dt),
+             wexp=randn(c, cm, scale=c ** -0.5) if cm != c else None,
+             kexp=kexp, bexp=bexp, dwk=randn(k * k, cm, scale=1.0 / k),
+             kdw=kdw, bdw=bdw)
+    b = dict(y=randn(BATCH, h * w, cm).to(dt),
+             se=torch.sigmoid(randn(BATCH, cm)),
+             wproj=randn(cm, c2, scale=cm ** -0.5), kpr=kpr, bpr=bpr,
+             res=randn(BATCH, h * w, c2).to(dt) if c2 == c else None)
+    return a, b
+
+
+def _mbconv_err(ref: torch.Tensor, got: torch.Tensor, dt: torch.dtype
+                ) -> tuple[float, float, float]:
+    """(max |Δ|, the normalised error, its limit): one bf16 step for bf16;
+    1e-4 · (|ref| + 0.1) for float32, whose sums cuBLAS takes in another
+    order than the kernels."""
+    ref, got = ref.float(), got.float()
+    d = (ref - got).abs()
+    if dt == torch.bfloat16:
+        return float(d.max()), float((d / (ref.abs() + 1e-3)).max()), \
+            2.0 ** -7 + 1e-3
+    return float(d.max()), float((d / (ref.abs() + 0.1)).max()), 1e-4
+
+
+def fused_block_shapes(cls) -> list[tuple[tuple, int]]:
+    """(C, Cm, k, H, W, C') of each distinct fused block of a full-width
+    step of `cls`, in order, and how many blocks have it (Cm == C: no
+    expand; C' == C: identity residual). Read off one step on meta tensors,
+    with the unfused block standing in for the fused one."""
+    model = cls().to("meta")
+    shapes: dict[tuple, int] = {}
+
+    def record(blk, h, *, kernel, compute_dtype):
+        key = (h.shape[1], blk.dw.w.shape[0], kernel, h.shape[2],
+               h.shape[3], blk.project_conv.w.shape[0])
+        shapes[key] = shapes.get(key, 0) + 1
+        return blk(h, compute_dtype)
+
+    frames = model.mel.num_frames(model.spec.clip_samples)
+    orig = efficientnet.mbconv_fused
+    efficientnet.mbconv_fused = record
+    try:
+        model.backbone(torch.zeros((1, frames, model.mel.n_mels, 1),
+                                   dtype=model.compute_dtype, device="meta"),
+                       fused_blocks=True)
+    finally:
+        efficientnet.mbconv_fused = orig
+    return list(shapes.items())
+
+
+def phase_mbconv(dev: torch.device, card: str) -> dict:
+    """Kernels A and B vs their plain versions at every distinct fused
+    block shape of the three models. Returns, per model and kernel, the
+    largest bf16 error and the times summed over the fused blocks of one
+    step."""
+    cases = []
+    for cls in FAMILIES:
+        model_id = cls.spec.model_id
+        shapes = fused_block_shapes(cls)
+        cases += [(model_id, shape, n, torch.bfloat16)
+                  for shape, n in shapes]
+        if cls is BirdNETv24:
+            f32_shape = shapes[2][0]          # (40, 240, k5, 35x12)
+    cases.append(("BirdNET_V2.4 f32 and f32 dot", f32_shape, 0,
+                  torch.float32))
+    out = {cls.spec.model_id: {
+        name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, blocks=0)
+        for name in ("expand_dw_pool", "scale_project")}
+        for cls in FAMILIES}
+    for seed, (label, shape, n_blocks, dt) in enumerate(cases):
+        c, cm, k, h, w, c2 = shape
+        a, b = mbconv_inputs(shape, SEED + seed, dev, dt)
+        kw = dict(height=h, width=w, kernel=k, out_dtype=dt, dot_dtype=dt)
+        args_a = [a[n] for n in ("x", "wexp", "kexp", "bexp", "dwk", "kdw",
+                                 "bdw")]
+        args_b = [b[n] for n in ("y", "se", "wproj", "kpr", "bpr", "res")]
+        y, pool = expand_dw_pool(*args_a, **kw)
+        y_ref, pool_ref = expand_dw_pool_plain(*args_a, **kw)
+        o = scale_project(*args_b, out_dtype=dt, dot_dtype=dt)
+        o_ref = scale_project_plain(*args_b, out_dtype=dt, dot_dtype=dt)
+        torch.cuda.synchronize()
+        assert y.shape == y_ref.shape and y.dtype == dt and o.dtype == dt
+        pool_err = (pool - pool_ref).abs()
+        pool_rel = float((pool_err / (pool_ref.abs() + h * w * 1e-3)).max())
+        if seed == 0:
+            # the pool is summed in a fixed order: a second run is equal
+            assert torch.equal(pool, expand_dw_pool(*args_a, **kw)[1]), \
+                "kernel A's pool differs between two runs"
+        kinds = (("expand_dw_pool", _mbconv_err(y_ref, y, dt),
+                  lambda: expand_dw_pool_plain(*args_a, **kw),
+                  lambda: expand_dw_pool(*args_a, **kw)),
+                 ("scale_project", _mbconv_err(o_ref, o, dt),
+                  lambda: scale_project_plain(*args_b, out_dtype=dt,
+                                              dot_dtype=dt),
+                  lambda: scale_project(*args_b, out_dtype=dt,
+                                        dot_dtype=dt)))
+        for name, (abs_err, err, lim), plain, kern in kinds:
+            plain_ms, ms = median_ms_pair(plain, kern)
+            extra = (f", pool {pool_rel:.3e} (< 1e-4)"
+                     if name == "expand_dw_pool" else "")
+            print(f"mbconv {name} {label} x{n_blocks} {dt} (C {c}, Cm {cm}, "
+                  f"k{k}, {h}x{w}, C' {c2}) [{BATCH}]: max_abs_err="
+                  f"{abs_err:.3e} err={err:.3e} (< {lim:.3e}){extra} "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} [{card}]")
+            assert err < lim, f"{name} disagrees with plain ({label})"
+            if n_blocks:
+                r = out[label][name]
+                r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+                r["ms"] += n_blocks * ms
+                r["plain_ms"] += n_blocks * plain_ms
+                r["blocks"] += n_blocks
+        assert pool_rel < 1e-4, f"kernel A's pool disagrees ({label})"
+    for model_id, kernels in out.items():
+        for name, r in kernels.items():
+            n = r.pop("blocks")
+            print(f"mbconv {name}: {r['ms']:.4f} ms against plain "
+                  f"{r['plain_ms']:.4f} ms over the {n} fused blocks of one "
+                  f"{model_id} step, max_abs_err {r['max_abs_err']:.3e} "
+                  f"[{card}]")
+    return out
 
 
 def _agreement(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -182,6 +383,36 @@ def _agreement(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     overlap = float(np.mean([len(set(x) & set(y)) / 10.0
                              for x, y in zip(ia, ib)]))
     return dconf, overlap
+
+
+def _device_step(model, pcm: torch.Tensor, fused: bool):
+    """The batcher's step without the host: int16 → top-10 on the card."""
+    model.fused_blocks = fused
+    logits = model.apply_int16(pcm)["logits"]
+    return top_k_results(sigmoid_confidence(logits, 1.0), 10)
+
+
+@contextlib.contextmanager
+def _dot_dtype(dot_dtype: torch.dtype | None):
+    """Run the backbone's fused blocks with `dot_dtype` matrix operands
+    (the backbone, as the JAX one, always takes bf16); None changes
+    nothing."""
+    orig = efficientnet.mbconv_fused
+    if dot_dtype is not None:
+        efficientnet.mbconv_fused = functools.partial(orig,
+                                                      dot_dtype=dot_dtype)
+    try:
+        yield
+    finally:
+        efficientnet.mbconv_fused = orig
+
+
+def _cpu_copy(model, compute_dtype: torch.dtype):
+    """The same weights on the CPU, with fused blocks (plain versions)."""
+    m = type(model)(compute_dtype=compute_dtype)
+    m.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    m.fused_blocks = True
+    return m.eval()
 
 
 def phase_slice(dev: torch.device, card: str) -> None:
@@ -208,10 +439,17 @@ def phase_slice(dev: torch.device, card: str) -> None:
         m32.to(dev)
         l32 = m32.backbone(mel32[..., None])["logits"]
         dfl, ofl = _agreement(lp, l32)
+        # the fused blocks (MBConv kernels) against the unfused step
+        model.fused_blocks = True
+        lf = model.apply_int16(pcm)["logits"]
+        model.fused_blocks = False
+        assert torch.isfinite(lf).all()
+        dfu, ofu = _agreement(lf, lk)
         print(f"slice v2.4 B0 bf16 [{BATCH},{CLIP}]: first step {dt:.2f} s; "
               f"kernel vs plain mel: max post-sigmoid diff {d16:.3e} "
               f"(< 0.02), top-10 overlap {o16:.4f} (>= 0.9); bf16 vs f32 "
-              f"backbone on the plain mel: {dfl:.3e}, {ofl:.4f} [{card}]")
+              f"backbone on the plain mel: {dfl:.3e}, {ofl:.4f}; fused vs "
+              f"unfused blocks: {dfu:.3e}, {ofu:.4f} [{card}]")
         # the same check with the float32 backbone (TF32 off)
         k32 = m32.apply_int16(pcm)["logits"]
         assert torch.isfinite(k32).all()
@@ -222,30 +460,94 @@ def phase_slice(dev: torch.device, card: str) -> None:
     assert d16 < 0.02 and o16 >= 0.9, "bf16 slice: kernel vs plain mel"
     assert d32 < 0.02 and o32 >= 0.9, "f32 slice: kernel vs plain mel"
 
-    # float32 on the card (kernel mel) vs the same weights on the CPU
-    # (plain mel), which the CPU tests tie to the JAX package
+    # float32 on the card (kernels) vs the same weights on the CPU (plain
+    # versions), which the CPU tests tie to the JAX package, within 1e-3 of
+    # the logits' scale: unfused, with fused blocks on float32 matrix
+    # operands, and with fused blocks as the JAX backbone runs them, on
+    # bf16 operands. There a float32 value one ulp apart on the two devices
+    # now and then rounds to the other bf16 neighbour, which moves that
+    # product by one bf16 step (2^-7): that case is held to 1e-3 for all
+    # but BF16_OPERAND_OUTLIERS of the logits, and to 2^-7 for those.
     x = pcm[:2].cpu()
+    cpu32 = _cpu_copy(m32, torch.float32)
+    for fused, dot in ((False, None), (True, torch.float32),
+                       (True, torch.bfloat16)):
+        m32.fused_blocks = cpu32.fused_blocks = fused
+        with torch.inference_mode(), _dot_dtype(dot):
+            got = m32.apply_int16(x.to(dev))["logits"].cpu()
+            want = cpu32.apply_int16(x)["logits"]
+        d = (got - want).abs()
+        err = float(d.max())
+        scale = max(1.0, float(want.abs().max()))
+        n_out = int((d >= 1e-3 * scale).sum())
+        allowed = BF16_OPERAND_OUTLIERS if dot == torch.bfloat16 else 0
+        what = f"fused blocks, {dot} operands" if fused else "unfused"
+        print(f"slice v2.4 f32 card vs CPU [2,{CLIP}], {what}: max |dlogit| "
+              f"{err:.3e}, {n_out} of {d.numel()} logits >= 1e-3 x "
+              f"{scale:.2f} (<= {allowed}; all < 2^-7 x {scale:.2f})")
+        assert torch.isfinite(got).all() and n_out <= allowed
+        assert err < 2.0 ** -7 * scale
+
+    # bf16 with fused blocks: the card against the CPU's plain fused path
+    x8 = pcm[:8].cpu()
     with torch.inference_mode():
-        got = m32.apply_int16(x.to(dev))["logits"].cpu()
-        want = m32.cpu().apply_int16(x)["logits"]
-    err = float((got - want).abs().max())
-    scale = max(1.0, float(want.abs().max()))
-    print(f"slice v2.4 f32 card vs CPU [2,{CLIP}]: max |dlogit| {err:.3e} "
-          f"(< 1e-3 x {scale:.2f})")
-    assert torch.isfinite(got).all() and err < 1e-3 * scale
+        want = _cpu_copy(model, torch.bfloat16).apply_int16(x8)["logits"]
+    dcpu, ocpu = _agreement(lf[:8].cpu(), want)
+    print(f"slice v2.4 bf16 fused card vs CPU [8,{CLIP}]: max post-sigmoid "
+          f"diff {dcpu:.3e} (< 0.02), top-10 overlap {ocpu:.4f} (>= 0.9)")
+    assert dcpu < 0.02 and ocpu >= 0.9, "bf16 fused slice: card vs CPU"
+
+    # one full-width fused step of each B1 family, then the step times
+    pcm32 = torch.from_numpy(pcm_batch((BATCH, CLIP32), SEED + 5,
+                                       rate=32000)).to(dev)
+    steps = [("v2.4", model, pcm)]
+    for cls in (BirdNETv3, PerchV2):
+        m = cls().init(torch.Generator().manual_seed(SEED)).to(dev).eval()
+        m.fused_blocks = True
+        with torch.inference_mode():
+            o = m.apply_int16(pcm32)
+        assert o["logits"].shape == (BATCH, m.spec.num_species)
+        assert o["embedding"].shape == (BATCH, 1280)
+        assert torch.isfinite(o["logits"]).all()
+        assert torch.isfinite(o["embedding"]).all()
+        # the card against the CPU's plain fused path, as for v2.4
+        with torch.inference_mode():
+            want = _cpu_copy(m, torch.bfloat16).apply_int16(
+                pcm32[:8].cpu())["logits"]
+        dcpu, ocpu = _agreement(o["logits"][:8].cpu(), want)
+        print(f"slice {m.spec.model_id} bf16 fused [{BATCH},{CLIP32}]: "
+              f"logits {tuple(o['logits'].shape)}, embedding "
+              f"{tuple(o['embedding'].shape)}, finite; card vs CPU [8]: max "
+              f"post-sigmoid diff {dcpu:.3e} (< 0.02), top-10 overlap "
+              f"{ocpu:.4f} (>= 0.9) [{card}]")
+        assert dcpu < 0.02 and ocpu >= 0.9, \
+            f"{m.spec.model_id} bf16 fused step: card vs CPU"
+        steps.append((m.spec.model_id, m, pcm32))
+    with torch.inference_mode():
+        for label, m, x in steps:
+            unfused_ms, fused_ms = median_ms_pair(
+                lambda: _device_step(m, x, False),
+                lambda: _device_step(m, x, True))
+            print(f"step {label} bf16 [{BATCH},{x.shape[1]}]: unfused "
+                  f"{unfused_ms:.4f} ms, fused blocks {fused_ms:.4f} ms "
+                  f"[{card}]")
 
 
-def phase_loop(dev: torch.device, card: str) -> int:
-    """Returns the kernel's launches during the loop run."""
-    model = BirdNETv24().init(torch.Generator().manual_seed(SEED))
+KERNELS = (melspec_fused, expand_dw_pool, scale_project)
+
+
+def phase_loop(model, dev: torch.device, card: str, n_streams: int,
+               n_ticks: int) -> tuple[dict, int]:
+    """Returns each kernel's launches during the loop run, and the number
+    of batches."""
     batcher = TorchModelBatcher(TorchClassifier(model, dev), max_batch=BATCH,
                                 top_k=10, pipeline_depth=2)
     spec = batcher.spec
     overlap, read = (n // 2 for n in spec.buffer_dimensions())   # samples
     bufs = {f"mic{i:03d}": AnalysisBuffer(overlap, read)
-            for i in range(N_STREAMS)}
+            for i in range(n_streams)}
     pos = dict.fromkeys(bufs, 0.0)
-    pool = pcm_batch((32, read), SEED + 3)
+    pool = pcm_batch((32, read), SEED + 3, rate=spec.sample_rate)
     offered, results = [], {}
 
     def provider():
@@ -266,29 +568,31 @@ def phase_loop(dev: torch.device, card: str) -> int:
     loop.add_provider(provider)
     warm = batcher.warmup()
 
-    melspec_fused.launches = 0
+    for k in KERNELS:
+        k.launches = 0
     n_spans = GLOBAL_SPANS.total
     t0 = time.monotonic()
-    for tick in range(N_TICKS):
+    for tick in range(n_ticks):
         for i, buf in enumerate(bufs.values()):
             buf.write(pool[(i + tick) % len(pool)])
         loop.run_tick()
     loop.drain()
     torch.cuda.synchronize()
     elapsed = time.monotonic() - t0
-    launches = melspec_fused.launches
+    launches = {k.__name__: k.launches for k in KERNELS}
 
     n = len(offered)
-    assert n == N_STREAMS * N_TICKS and loop.windows_dropped == 0
+    assert n == n_streams * n_ticks and loop.windows_dropped == 0
     assert set(results) == set(offered), "windows missing from the results"
     for vals, idx in results.values():
         assert vals.shape == (10,) and idx.shape == (10,)
         assert np.isfinite(vals).all() and (vals >= 0).all() and (
             vals <= 1).all()
         assert np.all(np.diff(vals) <= 0)
-        assert (idx >= 0).all() and (idx < 6522).all()
+        assert (idx >= 0).all() and (idx < spec.num_species).all()
     batches = batcher.stats.batches_dispatched
-    assert batches > 0 and launches == batches, (launches, batches)
+    assert batches > 0 and launches["melspec_fused"] == batches, (
+        launches, batches)
     lat = sorted(s["duration_ms"] for s in GLOBAL_SPANS.recent(
         GLOBAL_SPANS.total - n_spans))
     wps = n / elapsed
@@ -306,15 +610,21 @@ def phase_loop(dev: torch.device, card: str) -> int:
         batcher._to_device(staged)
         torch.cuda.synchronize()
         h2d.append((time.perf_counter() - t1) * 1e3)
-    print(f"step [{BATCH},{CLIP}] on the card: {step_ms:.4f} ms "
-          f"({BATCH / step_ms * 1e3:.1f} windows/s device-bound); H2D "
-          f"{float(np.median(h2d)):.4f} ms per batch [{card}]")
-    print(f"loop: {N_STREAMS} streams x {N_TICKS} ticks = {n} windows in "
-          f"{batches} batches, warmup {warm:.2f} s, {elapsed:.3f} s -> "
-          f"{wps:.1f} windows/s, streams = {wps * 1.5:.1f}, batch latency "
-          f"p50 {lat[len(lat) // 2]:.2f} ms, dropped "
-          f"{loop.windows_dropped}, mel kernel launches {launches} [{card}]")
-    return launches
+    label = f"{spec.model_id}{' fused blocks' if model.fused_blocks else ''}"
+    print(f"step {label} [{BATCH},{spec.clip_samples}] on the card: "
+          f"{step_ms:.4f} ms ({BATCH / step_ms * 1e3:.1f} windows/s "
+          f"device-bound); H2D {float(np.median(h2d)):.4f} ms per batch "
+          f"[{card}]")
+    # a stream yields a window every clip/2 seconds (1.5 s for v2.4's 3 s
+    # clips, 2.5 s for v3.0's 5 s)
+    print(f"loop {label}: {n_streams} streams x {n_ticks} ticks = {n} "
+          f"windows in {batches} batches, warmup {warm:.2f} s, "
+          f"{elapsed:.3f} s -> {wps:.1f} windows/s, streams = "
+          f"{wps * spec.buffer_interval_seconds:.1f}, batch latency p50 "
+          f"{lat[len(lat) // 2]:.2f} ms, "
+          f"dropped {loop.windows_dropped}, kernel launches {launches} "
+          f"[{card}]")
+    return launches, batches
 
 
 def main() -> None:
@@ -328,15 +638,37 @@ def main() -> None:
     t0 = time.monotonic()
     phase_device(card)
     phase_build()
-    main_path = phase_kernel(dev, card)
+    main_path = {"melspec_fused": phase_kernel(dev, card)}
+    mbconv = phase_mbconv(dev, card)
+    # the MBConv kernels' launches are counted on the v3.0 loop, so their
+    # times and errors in the kernels line are those of a v3.0 step
+    main_path.update(mbconv[BirdNETv3.spec.model_id])
+    assert sum(n for _, n in fused_block_shapes(BirdNETv3)) == V3_FUSED
     phase_slice(dev, card)
-    launches = phase_loop(dev, card)
+    # v2.4 as the server runs it (unfused blocks): the mel kernel's path
+    v24 = BirdNETv24().init(torch.Generator().manual_seed(SEED))
+    launches, _ = phase_loop(v24, dev, card, N_STREAMS, N_TICKS)
+    # v3.0 with fused blocks: the MBConv kernels' path
+    v3 = BirdNETv3().init(torch.Generator().manual_seed(SEED))
+    v3.fused_blocks = True
+    fused, batches = phase_loop(v3, dev, card, V3_STREAMS, V3_TICKS)
+    for name in ("expand_dw_pool", "scale_project"):
+        assert fused[name] == V3_FUSED * batches, (fused, batches)
+        launches[name] = fused[name]
     print(f"total {time.monotonic() - t0:.1f} s")
+    print(f"kernels line: melspec_fused at the v2.4 main path's [{BATCH}, "
+          f"{CLIP}] bf16; expand_dw_pool and scale_project summed over the "
+          f"{V3_FUSED} fused blocks of one v3.0 step [{BATCH}, {CLIP32}] "
+          f"bf16 (ms, plain_ms) and their largest error there")
+    sources = {"melspec_fused": ("melspec.cu", "pallas_melspec.py:149"),
+               "expand_dw_pool": ("mbconv.cu", "pallas_mbconv.py:87"),
+               "scale_project": ("mbconv.cu", "pallas_mbconv.py:168")}
     print(json.dumps({"kernels": [{
-        "name": "melspec_fused", "route": "cuda",
-        "source": "birdnet_go_tpu_torch/csrc/melspec.cu",
-        "replaces": "birdnet_go_tpu/ops/pallas_melspec.py:149",
-        "launches": launches, **main_path}]}))
+        "name": name, "route": "cuda",
+        "source": f"birdnet_go_tpu_torch/csrc/{src}",
+        "replaces": f"birdnet_go_tpu/ops/{tpu}",
+        "launches": launches[name], **main_path[name]}
+        for name, (src, tpu) in sources.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

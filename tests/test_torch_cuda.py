@@ -1,15 +1,21 @@
-"""Card-only tests of the port: the CUDA mel kernel against its plain
-version, the wrapper's checks, and the torch batcher's CUDA events.
+"""Card-only tests of the port: the CUDA mel and MBConv kernels against
+their plain versions, the wrappers' checks, and the torch batcher's CUDA
+events.
 
 Every test needs a CUDA card and skips without one. The file imports no
 JAX, so it also runs where JAX is missing:
 
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 
-Tolerances are those of the TPU kernel's parity tests
-(``tests/test_pallas_melspec.py``); bf16 output adds one bf16 step.
+Tolerances of the mel kernel are those of the TPU kernel's parity tests
+(``tests/test_pallas_melspec.py``); bf16 output adds one bf16 step. The
+MBConv kernels see the same rounded operands as their plain versions and
+sum in another order (cuBLAS blocks its sums; the kernels sum in sequence,
+over up to 1,152 terms): float32 output within 1e-4 · (|ref| + 0.1), bf16
+output within one bf16 step, the pool within 1e-4 · (|ref| + S · 1e-3).
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -23,6 +29,8 @@ from birdnet_go_tpu_torch.models.efficientnet import (
     BlockSpec,
     EfficientNetConfig,
 )
+from birdnet_go_tpu_torch.models.layers import MBConv
+from birdnet_go_tpu_torch.ops import pallas_mbconv as M
 from birdnet_go_tpu_torch.ops.melspec import MelConfig
 from birdnet_go_tpu_torch.ops.pallas_melspec import (
     melspec_fused,
@@ -139,3 +147,124 @@ def test_kernel_matches_plain_on_loud_tones(dev):
         ref = melspec_fused_plain(pcm, cfg)
         rel = ((got - ref).abs() / (ref.abs() + 1e-3)).max().item()
         assert rel < 1e-3, rel
+
+
+# (C, Cm, k, H, W, C'): Cm == C means no expand, C' == C a residual
+MBCONV_SHAPES = [
+    (24, 144, 3, 23, 3, 24),       # ragged S = 69, W = 3, odd H
+    (20, 100, 5, 9, 8, 28),        # Cm not a multiple of the 32-channel slice
+    (192, 1152, 5, 22, 3, 192),    # stage-6-like, at a longer input
+    (16, 16, 3, 31, 16, 16),       # no expand, residual
+    (32, 32, 3, 139, 48, 16),      # v2.4 block 0: several bands per image
+]
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _mbconv_inputs(shape, dev, x_dt, seed=0):
+    c, cm, k, h, w, c2 = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*size, scale=1.0):
+        return torch.randn(size, generator=g, device=dev) * scale
+
+    def bn(n):
+        return (0.5 + torch.rand((1, n), generator=g, device=dev),
+                0.2 * randn(1, n))
+
+    a = [randn(2, h * w, c).to(x_dt),
+         randn(c, cm, scale=c ** -0.5) if cm != c else None, *bn(cm),
+         randn(k * k, cm, scale=1.0 / k), *bn(cm)]
+    b = [randn(2, h * w, cm).to(x_dt), torch.rand((2, cm), generator=g,
+                                                  device=dev),
+         randn(cm, c2, scale=cm ** -0.5), *bn(c2),
+         randn(2, h * w, c2).to(x_dt) if c2 == c else None]
+    return a, b
+
+
+def _assert_mbconv_close(ref, got, dt):
+    ref, got = ref.float(), got.float()
+    d = (ref - got).abs()
+    if dt == BF16:
+        assert (d / (ref.abs() + 1e-3)).max().item() < 2.0 ** -7 + 1e-3
+    else:
+        assert (d / (ref.abs() + 0.1)).max().item() < 1e-4
+
+
+@pytest.mark.parametrize("x_dt,out_dt,dot_dt", [
+    (BF16, BF16, BF16), (F32, F32, F32), (BF16, F32, F32), (F32, BF16, BF16),
+])
+@pytest.mark.parametrize("shape", MBCONV_SHAPES)
+def test_mbconv_kernels_match_plain(dev, shape, x_dt, out_dt, dot_dt):
+    _, _, k, h, w, _ = shape
+    a, b = _mbconv_inputs(shape, dev, x_dt)
+    kw = dict(height=h, width=w, kernel=k, out_dtype=out_dt, dot_dtype=dot_dt)
+    before = (M.expand_dw_pool.launches, M.scale_project.launches)
+    y, pool = M.expand_dw_pool(*a, **kw)
+    out = M.scale_project(*b, out_dtype=out_dt, dot_dtype=dot_dt)
+    torch.cuda.synchronize()
+    assert (M.expand_dw_pool.launches, M.scale_project.launches) == (
+        before[0] + 1, before[1] + 1)
+    y_ref, pool_ref = M.expand_dw_pool_plain(*a, **kw)
+    assert y.dtype == out.dtype == out_dt and y.shape == y_ref.shape
+    _assert_mbconv_close(y_ref, y, out_dt)
+    _assert_mbconv_close(M.scale_project_plain(
+        *b, out_dtype=out_dt, dot_dtype=dot_dt), out, out_dt)
+    err = (pool - pool_ref).abs() / (pool_ref.abs() + h * w * 1e-3)
+    assert err.max().item() < 1e-4
+
+
+@pytest.mark.parametrize("shape", [MBCONV_SHAPES[0], MBCONV_SHAPES[4]])
+def test_mbconv_pool_is_deterministic(dev, shape):
+    _, _, k, h, w, _ = shape
+    a, _ = _mbconv_inputs(shape, dev, BF16, seed=1)
+    kw = dict(height=h, width=w, kernel=k)
+    y1, p1 = M.expand_dw_pool(*a, **kw)
+    y2, p2 = M.expand_dw_pool(*a, **kw)
+    assert torch.equal(p1, p2) and torch.equal(y1, y2)
+
+
+def test_mbconv_glue_on_card_matches_cpu(dev):
+    blk = MBConv(24, 24, 5, 6)
+    blk.init(torch.Generator().manual_seed(0))
+    on_card = copy.deepcopy(blk).to(dev)
+    x = torch.randn((2, 24, 17, 12), generator=torch.Generator().manual_seed(
+        1)).contiguous(memory_format=torch.channels_last)
+    for dt in (F32, BF16):
+        want = M.mbconv_fused(blk, x.to(dt), kernel=5, compute_dtype=dt)
+        got = M.mbconv_fused(on_card, x.to(dev, dt), kernel=5,
+                             compute_dtype=dt)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        scale = max(1.0, want.float().abs().max().item())
+        assert (got.cpu().float() - want.float()).abs().max().item() < (
+            2.0 ** -7 + 1e-3) * scale
+
+
+def test_mbconv_wrappers_reject_what_the_kernels_do_not_take(dev):
+    shape = MBCONV_SHAPES[0]
+    _, _, k, h, w, _ = shape
+    (x, *ca), (y, *cb) = _mbconv_inputs(shape, dev, BF16)
+    kw = dict(height=h, width=w, kernel=k)
+    nchw = x.view(2, h, w, -1).permute(0, 3, 1, 2).contiguous()
+    for bad in (nchw.permute(0, 2, 3, 1).view(2, h * w, -1),
+                x.to(torch.float16), x.transpose(0, 1)):
+        with pytest.raises(ValueError):
+            M.expand_dw_pool(bad, *ca, **kw)
+    with pytest.raises(ValueError):
+        M.expand_dw_pool(x, *ca, **kw, dot_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        M.expand_dw_pool(x, *(t.cpu() for t in ca), **kw)
+    with pytest.raises(ValueError):
+        M.expand_dw_pool(x, *ca, **dict(kw, kernel=7))
+    for bad in (y.transpose(1, 2).contiguous().transpose(1, 2),
+                y.to(torch.float16)):
+        with pytest.raises(ValueError):
+            M.scale_project(bad, *cb)
+    with pytest.raises(ValueError):
+        M.scale_project(y, cb[0].to(BF16), *cb[1:])
+    # a row too wide for kernel A's shared memory: the launcher refuses it
+    wide = (192, 1152, 5, 3, 200, 192)
+    (x, *ca), _ = _mbconv_inputs(wide, dev, BF16)
+    before = M.expand_dw_pool.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        M.expand_dw_pool(x, *ca, height=3, width=200, kernel=5)
+    assert M.expand_dw_pool.launches == before

@@ -1,0 +1,319 @@
+"""The port's fused MBConv path against the JAX package's, on the CPU.
+
+On a CPU tensor ``expand_dw_pool`` and ``scale_project`` take their plain
+versions; the JAX side runs the Pallas kernels in interpret mode. Inputs and
+parameters are made with numpy from a seed (the JAX init for whole blocks)
+and handed to both packages. The shapes are those of
+``tests/test_pallas_mbconv.py`` plus B1's expand-less residual block.
+
+Tolerances:
+- float32 with float32 dot: |Δ| <= 1e-5 · |ref| + 1e-6. The float32 sums
+  are taken in another order (and XLA may contract a multiply and an add),
+  which leaves about 1e-7 of absolute noise on values of order 1; near a
+  zero of the output that noise is 4e-5 to 2e-4 of (|ref| + 1e-3), so a
+  relative bound alone cannot hold there;
+- bf16: < 2^-7 + 1e-3, one bf16 step (a float32 value one ulp off may round
+  to the next bf16 value);
+- pool (float32 sum over S): |Δ| < 1e-4 · (|ref| + S · 1e-3).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import birdnet_go_tpu.ops.pallas_mbconv as JM
+from birdnet_go_tpu.models import layers as JL
+from birdnet_go_tpu_torch.inference.params import load_jax_params
+from birdnet_go_tpu_torch.models import layers as TL
+from birdnet_go_tpu_torch.ops import pallas_mbconv as TM
+
+torch.set_num_threads(1)
+
+CASES = [
+    # (cin, cout, kernel, expand, H, W)
+    (32, 16, 3, 1, 20, 12),     # stage-1-like (no expand, cin != cout)
+    (24, 24, 3, 6, 17, 12),     # small-C residual block (odd H)
+    (40, 40, 5, 6, 9, 6),       # 5×5 depthwise
+    (80, 112, 5, 6, 6, 6),      # channel change (no residual)
+    (16, 16, 3, 1, 12, 8),      # B1 stage 1, repeat 2: no expand, residual
+]
+MODES = {  # name: (activation dtype, dot dtype) in JAX and torch
+    "f32": ((jnp.float32, jnp.float32), (torch.float32, torch.float32)),
+    "bf16": ((jnp.bfloat16, jnp.bfloat16), (torch.bfloat16, torch.bfloat16)),
+}
+BATCH = 2
+
+
+def _assert_close(ref, got, mode):
+    ref = np.asarray(ref, np.float32)
+    got = np.asarray(got, np.float32)
+    assert ref.shape == got.shape
+    if mode == "f32":
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    else:
+        rel = np.abs(ref - got) / (np.abs(ref) + 1e-3)
+        assert rel.max() < 2.0 ** -7 + 1e-3, rel.max()
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+
+def _bn_consts(rng, c):
+    return (rng.uniform(0.5, 1.5, (1, c)).astype(np.float32),
+            rng.normal(0.0, 0.2, (1, c)).astype(np.float32))
+
+
+def _case_a(case):
+    cin, _, k, expand, h, w = case
+    rng = np.random.default_rng(sum(case))
+    cm = cin * expand
+    x = rng.standard_normal((BATCH, h * w, cin)).astype(np.float32)
+    wexp = (rng.standard_normal((cin, cm)) / np.sqrt(cin)).astype(
+        np.float32) if expand > 1 else None
+    kexp, bexp = _bn_consts(rng, cm)
+    dwk = (rng.standard_normal((k * k, cm)) / k).astype(np.float32)
+    kdw, bdw = _bn_consts(rng, cm)
+    return x, wexp, kexp, bexp, dwk, kdw, bdw
+
+
+def _case_b(case):
+    cin, cout, *_ = case
+    expand = case[3]
+    rng = np.random.default_rng(100 + sum(case))
+    cm = cin * expand
+    y = rng.standard_normal((BATCH, case[4] * case[5], cm)).astype(np.float32)
+    se = rng.uniform(0.0, 1.0, (BATCH, cm)).astype(np.float32)
+    wproj = (rng.standard_normal((cm, cout)) / np.sqrt(cm)).astype(np.float32)
+    kpr, bpr = _bn_consts(rng, cout)
+    res = (rng.standard_normal((BATCH, case[4] * case[5], cout)).astype(
+        np.float32) if cin == cout else None)
+    return y, se, wproj, kpr, bpr, res
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_a(case, mode):
+    """JAX kernel A in interpret mode: (y, pool) as float32 numpy."""
+    x, wexp, *consts = _case_a(case)
+    (adt, ddt), _ = MODES[mode]
+    _, _, k, _, h, w = case
+    fn = jax.jit(lambda x, wexp, *c: JM.expand_dw_pool(
+        x, wexp, *c, height=h, width=w, kernel=k, out_dtype=adt,
+        dot_dtype=ddt, interpret=True))
+    y, pool = fn(jnp.asarray(x).astype(adt), wexp, *consts)
+    return np.asarray(y.astype(jnp.float32)), np.asarray(pool)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_b(case, mode):
+    y, se, wproj, kpr, bpr, res = _case_b(case)
+    (adt, ddt), _ = MODES[mode]
+    fn = jax.jit(lambda y, se, w, k, b, r: JM.scale_project(
+        y, se, w, k, b, r, out_dtype=adt, dot_dtype=ddt, interpret=True))
+    out = fn(jnp.asarray(y).astype(adt), se, wproj, kpr, bpr,
+             None if res is None else jnp.asarray(res).astype(adt))
+    return np.asarray(out.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("case", CASES)
+def test_expand_dw_pool_matches_jax(case, mode):
+    x, wexp, *consts = _case_a(case)
+    _, (adt, ddt) = MODES[mode]
+    _, _, k, _, h, w = case
+    y, pool = TM.expand_dw_pool(
+        _t(x, adt), None if wexp is None else _t(wexp),
+        *map(_t, consts), height=h, width=w, kernel=k, out_dtype=adt,
+        dot_dtype=ddt)
+    assert y.dtype == adt and pool.dtype == torch.float32
+    ref_y, ref_pool = _jax_a(case, mode)
+    _assert_close(ref_y, y.float(), mode)
+    err = np.abs(pool.numpy() - ref_pool)
+    assert (err < 1e-4 * (np.abs(ref_pool) + h * w * 1e-3)).all(), err.max()
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("case", CASES)
+def test_scale_project_matches_jax(case, mode):
+    y, se, wproj, kpr, bpr, res = _case_b(case)
+    _, (adt, ddt) = MODES[mode]
+    out = TM.scale_project(_t(y, adt), _t(se), _t(wproj), _t(kpr), _t(bpr),
+                           None if res is None else _t(res, adt),
+                           out_dtype=adt, dot_dtype=ddt)
+    assert out.dtype == adt
+    _assert_close(_jax_b(case, mode), out.float(), mode)
+
+
+def _random_bn(tree, rng):
+    """Non-trivial BN statistics for every BN dict of a block's pytree."""
+    if isinstance(tree, dict):
+        if set(tree) == {"scale", "bias", "mean", "var"}:
+            c = len(tree["scale"])
+            return {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+                    "bias": rng.normal(0, 0.1, c).astype(np.float32),
+                    "mean": rng.normal(0, 0.1, c).astype(np.float32),
+                    "var": rng.uniform(0.5, 2.0, c).astype(np.float32)}
+        return {k: _random_bn(v, rng) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def _block(case):
+    cin, cout, k, expand, h, w = case
+    p = _random_bn(JL.init_mbconv(jax.random.PRNGKey(sum(case)), cin, cout,
+                                  k, expand), np.random.default_rng(7))
+    x = np.random.default_rng(8).standard_normal(
+        (BATCH, h, w, cin)).astype(np.float32)
+    return p, x, load_jax_params(TL.MBConv(cin, cout, k, expand), p)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", [CASES[1], CASES[4]])
+def test_glue_matches_jax(case, dt):
+    """mbconv_fused, SE mid included, with bf16 dot operands in both
+    dtypes (the JAX backbone never passes dot_dtype). A float32 value one
+    ulp off may round to the next bf16 operand, so both dtypes are held to
+    one bf16 step of the output's scale."""
+    p, x, blk = _block(case)
+    (jdt, _), (tdt, _) = MODES[dt]
+    k = case[2]
+    ref = np.asarray(jax.jit(functools.partial(
+        JM.mbconv_fused, kernel=k, compute_dtype=jdt, interpret=True))(
+        p, jnp.asarray(x).astype(jdt)).astype(jnp.float32))
+    xt = _t(x, tdt).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    got = TM.mbconv_fused(blk, xt, kernel=k, compute_dtype=tdt)
+    assert got.dtype == tdt and got.shape == (BATCH, case[1], *case[4:])
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    got = got.permute(0, 2, 3, 1).float().numpy()
+    err = np.abs(got - ref).max()
+    assert err < (2.0 ** -7 + 1e-3) * max(1.0, np.abs(ref).max()), err
+    # the unfused block computes the same function
+    unfused = blk(xt, tdt).permute(0, 2, 3, 1).float().numpy()
+    assert np.abs(unfused - got).max() < 0.1 * max(1.0, np.abs(ref).max())
+
+
+def _nhwc_to_channels_last(x):
+    return _t(x).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("case", [CASES[1], CASES[4]])
+def test_glue_folds_its_constants_once(case, monkeypatch):
+    """Folded BN and the weights in the kernels' layouts are made on the
+    first call only. Made in inference mode, they serve a later call
+    outside it too."""
+    _, x, blk = _block(case)
+    folds = []
+    orig = TM.fold_bn
+    monkeypatch.setattr(TM, "fold_bn",
+                        lambda bn: folds.append(bn) or orig(bn))
+    xt = _nhwc_to_channels_last(x)
+    kw = dict(kernel=case[2], compute_dtype=torch.float32)
+    with torch.inference_mode():
+        first = TM.mbconv_fused(blk, xt, **kw)
+    assert len(folds) == (2 if blk.expand_conv is None else 3)
+    second = TM.mbconv_fused(blk, xt, **kw)
+    assert len(folds) == (2 if blk.expand_conv is None else 3)
+    assert torch.equal(first, second)
+    assert not any(t.is_inference() for t in blk._fused_consts[1]
+                   if t is not None)
+
+
+def test_glue_folds_again_after_the_weights_change():
+    """An in-place write (``load_state_dict``) and a new tensor behind a
+    parameter both refold: the result equals a fresh block's."""
+    case = CASES[1]
+    cin, cout, k, expand = case[:4]
+    p, x, blk = _block(case)
+    xt = _nhwc_to_channels_last(x)
+    kw = dict(kernel=k, compute_dtype=torch.float32)
+    before = TM.mbconv_fused(blk, xt, **kw)
+    other = load_jax_params(TL.MBConv(cin, cout, k, expand),
+                            _random_bn(p, np.random.default_rng(9)))
+    blk.load_state_dict(other.state_dict())
+    got = TM.mbconv_fused(blk, xt, **kw)
+    assert torch.equal(got, TM.mbconv_fused(other, xt, **kw))
+    assert not torch.equal(got, before)
+    for m in (blk, other):
+        m.dw.w.data = m.dw.w.data * 2.0
+    doubled = TM.mbconv_fused(blk, xt, **kw)
+    assert torch.equal(doubled, TM.mbconv_fused(other, xt, **kw))
+    assert not torch.equal(doubled, got)
+
+
+def test_glue_folds_inference_mode_parameters_on_every_call(monkeypatch):
+    """A block made in inference mode has parameters that keep no version:
+    its constants are folded on each call, and the result is the same."""
+    case = CASES[1]
+    cin, cout, k, expand = case[:4]
+    _, x, blk = _block(case)
+    xt = _nhwc_to_channels_last(x)
+    kw = dict(kernel=k, compute_dtype=torch.float32)
+    with torch.inference_mode():
+        made_inside = TL.MBConv(cin, cout, k, expand)
+        made_inside.load_state_dict(blk.state_dict())
+        folds = []
+        orig = TM.fold_bn
+        monkeypatch.setattr(TM, "fold_bn",
+                            lambda bn: folds.append(bn) or orig(bn))
+        got = [TM.mbconv_fused(made_inside, xt, **kw) for _ in range(2)]
+    assert len(folds) == 6
+    want = TM.mbconv_fused(blk, xt, **kw)
+    assert all(torch.equal(g, want) for g in got)
+
+
+def test_fold_bn_matches_jax():
+    rng = np.random.default_rng(3)
+    p = _random_bn(JL.init_bn(24), rng)
+    bn = load_jax_params(TL.BatchNorm(24), p)
+    for got, want in zip(TM.fold_bn(bn), JM._fold_bn(p)):
+        assert got.shape == (1, 24) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def test_fused_block_ok_equals_jax():
+    for stride in (1, 2):
+        for h in (1, 7, 8, 9, 21, 22, 139):
+            for w in (1, 3, 6, 8, 48):
+                for train in (False, True):
+                    assert (TM.fused_block_ok(stride, h, w, train)
+                            == JM.fused_block_ok(stride, h, w, train))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    x, wexp, *consts = _case_a(CASES[1])
+    h, w = CASES[1][4:]
+    xt, wt, ct = _t(x), _t(wexp), list(map(_t, consts))
+    kw = dict(height=h, width=w, kernel=3)
+    # an NCHW-contiguous activation seen as [B, S, C] is not contiguous
+    nchw = xt.view(BATCH, h, w, -1).permute(0, 3, 1, 2).contiguous()
+    bad = [
+        (nchw.permute(0, 2, 3, 1).view(BATCH, h * w, -1), wt, kw),
+        (xt.to(torch.float16), wt, kw),
+        (xt, wt, dict(kw, kernel=7)),
+        (xt, wt, dict(kw, height=h + 1)),
+        (xt, wt[:, :-1], kw),
+        (xt, None, kw),                       # Cm != C without an expand
+    ]
+    for xa, wa, kwa in bad:
+        with pytest.raises(ValueError):
+            TM.expand_dw_pool(xa, wa, *ct, **kwa)
+    with pytest.raises(ValueError):
+        TM.expand_dw_pool(xt, wt, *ct, **kw, out_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        TM.expand_dw_pool(xt.to("meta"), wt.to("meta"),
+                          *(c.to("meta") for c in ct), **kw)
+
+    y, se, wproj, kpr, bpr, res = map(
+        lambda a: None if a is None else _t(a), _case_b(CASES[1]))
+    for args in ((y.transpose(1, 2).contiguous().transpose(1, 2), se),
+                 (y.to(torch.float16), se), (y, se.to(torch.bfloat16)),
+                 (y, se[:1])):
+        with pytest.raises(ValueError):
+            TM.scale_project(*args, wproj, kpr, bpr, res)
+    with pytest.raises(ValueError):
+        TM.scale_project(y, se, wproj, kpr, bpr, res[:, :-1])

@@ -6,12 +6,13 @@ for BirdNET v2.4 (EfficientNet-B0), BirdNET v3.0 and Perch v2 (B1): int16
 PCM megabatch → fused mel spectrogram (a CUDA kernel for Hopper,
 ``csrc/melspec.cu``) → EfficientNet backbone, whose stride-1 blocks may run
 through the fused MBConv kernels (``csrc/mbconv.cu``) → sigmoid ·
-sensitivity, range mask and top-K, driven by the JAX package's host loop
-(``birdnet_go_tpu.scheduler.loop.DeviceLoop``) through
-``scheduler.loop.TorchModelBatcher``.
+sensitivity, range mask and top-K, driven by the port's own copy of the
+host loop (``scheduler.loop.DeviceLoop``, ``audio.AnalysisBuffer``,
+``utils.tracing``) through ``scheduler.loop.TorchModelBatcher``.
 
-It imports torch and numpy and never JAX. Importing it builds nothing: the
-kernels are compiled on first launch (``ops/_build.py``).
+It imports torch and numpy, never JAX and nothing of ``birdnet_go_tpu``.
+Importing it builds nothing: the kernels are compiled on first launch
+(``ops/_build.py``).
 """
 
-__all__ = ["inference", "models", "ops", "scheduler"]
+__all__ = ["audio", "inference", "models", "ops", "scheduler", "utils"]

@@ -1,1 +1,1 @@
-"""The device step for the JAX package's host loop."""
+"""The host loop and the per-model device step of the port."""

@@ -1,28 +1,264 @@
-"""The per-model device step on a torch device (port of ``ModelBatcher`` in
-``birdnet_go_tpu/scheduler/loop.py``).
+"""Megabatch packer, pipelined device loop and the per-model device step
+on a torch device.
 
-``TorchModelBatcher`` reuses the JAX package's host plane unchanged
-(``HostBatcher``: staging, pipelining and result fan-out; ``DeviceLoop``
-drives it) and supplies only the device interaction.
+``PendingWindow``, ``BatcherStats``, ``HostBatcher`` and ``DeviceLoop`` are
+copies of the JAX package's host plane (``birdnet_go_tpu/scheduler/loop.py``),
+so that the port imports nothing of it; ``tests/test_torch_hostplane.py``
+holds them to the originals. Two things differ: a batch's span goes to the
+port's ``utils.tracing.GLOBAL_SPANS``, and a persistent tick failure is a log
+line (the JAX package tags an error record, whose module comes with the app
+wiring). ``TorchModelBatcher`` supplies only the device interaction.
+
+Per model: a fixed batch shape [B, clip_samples] int16 (int16 halves the
+host→device transfer vs float32; conversion happens on the device inside the
+step). Each tick collects every ready window from every stream's
+AnalysisBuffer, packs them (padding the remainder), and dispatches the step,
+pipelined `pipeline_depth` batches deep. A tick drains its whole ready set,
+up to `max_dispatches_per_tick` device batches per model; overflow lands in
+a bounded retry backlog with drop accounting. A window is overdue if its
+dispatch→result latency exceeds ClipLength/2; overruns are counted.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import threading
 import time
 from typing import Callable
 
 import numpy as np
 import torch
 
-from birdnet_go_tpu.scheduler.loop import HostBatcher
 from birdnet_go_tpu_torch.inference.backend import TorchClassifier
 from birdnet_go_tpu_torch.ops.postprocess import (
     sigmoid_confidence,
     top_k_results,
 )
+from birdnet_go_tpu_torch.utils.tracing import GLOBAL_SPANS
 
 log = logging.getLogger("birdnet_tpu.scheduler")
+
+
+@dataclasses.dataclass
+class PendingWindow:
+    source_id: str
+    start_time: float
+    end_time: float
+    # Deep-copy discipline (process.go:388-396): AnalysisBuffer.read()
+    # returns a fresh array per window, so holding the reference here IS the
+    # reference's PCM copy — it feeds clip-export fallback and any host-side
+    # validation downstream.
+    pcm: np.ndarray | None = None
+    pcm_rate: int = 0
+    # On-device ultrasonic-band CV for raw-rate (bat) models; None otherwise.
+    ultrasonic_cv: float | None = None
+
+
+@dataclasses.dataclass
+class BatcherStats:
+    windows_processed: int = 0
+    batches_dispatched: int = 0
+    windows_deferred: int = 0          # ready but didn't fit this tick
+    overruns: int = 0
+    last_batch_fill: float = 0.0
+    last_latency_ms: float = 0.0
+
+
+class HostBatcher:
+    """Host-plane staging + pipelining + result fan-out. Subclasses provide
+    only the device interaction: `_launch(staged, n) -> handle`
+    (non-blocking) and `_collect(handle, meta) -> (vals, idx, cv)`."""
+
+    def _init_host(self, spec, max_batch: int, top_k: int,
+                   on_result, pipeline_depth: int) -> None:
+        self.spec = spec
+        self.max_batch = max_batch
+        self.top_k = top_k
+        self.on_result = on_result
+        # optional batch fan-out: on_batch(meta, vals[n,k], idx[n,k], cv)
+        # once per harvested batch — takes precedence over on_result
+        self.on_batch: Callable[..., None] | None = None
+        self.stats = BatcherStats()
+        self.budget_seconds = spec.buffer_interval_seconds
+        # Multi-buffered staging: a device step may still read its staging
+        # buffer after dispatch returns, so writes after a dispatch must land in a DIFFERENT buffer than any in-flight
+        # batch reads. With `pipeline_depth` batches in flight at once,
+        # depth+1 buffers cycle: a buffer is reused only after its batch
+        # has been harvested.
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self._staged_bufs = [
+            np.zeros((max_batch, spec.clip_samples), np.int16)
+            for _ in range(self.pipeline_depth + 1)
+        ]
+        self._buf_idx = 0
+        self._staged = self._staged_bufs[0]
+        self._meta: list[PendingWindow] = []
+        # FIFO of in-flight batches: (handle, meta, t_dispatch)
+        self._inflight: list[tuple] = []
+
+    # -- device interaction (subclass responsibility) -----------------------------
+
+    def _launch(self, staged: np.ndarray, n: int):
+        raise NotImplementedError
+
+    def _collect(self, handle, meta):
+        raise NotImplementedError
+
+    def _ready(self, handle):
+        """Non-blocking completion probe for an in-flight handle: True =
+        harvest will not block, False = still running, None = unknown
+        (subclass cannot probe — the loop falls back to depth-based
+        harvesting only)."""
+        return None
+
+    def warmup(self) -> float:
+        return 0.0
+
+    # -- producer side -----------------------------------------------------------
+
+    def offer(self, pcm_i16: np.ndarray, source_id: str,
+              start_time: float, pcm_rate: int = 0) -> bool:
+        """Stage one ready window; False if this tick's batch is full."""
+        n = len(self._meta)
+        if n >= self.max_batch:
+            self.stats.windows_deferred += 1
+            return False
+        self._staged[n, :] = pcm_i16
+        rate = pcm_rate or self.spec.sample_rate
+        self._meta.append(PendingWindow(
+            source_id=source_id, start_time=start_time,
+            end_time=start_time + len(pcm_i16) / rate,
+            pcm=pcm_i16, pcm_rate=rate))
+        return True
+
+    def offer_block(self, pcm_block: np.ndarray, source_ids: list[str],
+                    start_times, keep_pcm: bool = True) -> int:
+        """Stage a contiguous [k, clip_samples] int16 block (the C++
+        ingest plane's packed output) with one vectorized copy instead of
+        k row copies; returns how many rows fit this batch. At thousands
+        of streams, `keep_pcm=False` skips retaining per-window PCM
+        references (clip export falls back to the capture ring)."""
+        n = len(self._meta)
+        k = min(len(pcm_block), self.max_batch - n)
+        if k <= 0:
+            # NOT counted as deferred: the device loop immediately
+            # dispatches and re-offers the same rows within this tick
+            # (or bounds them in the counted retry backlog) — bumping
+            # windows_deferred here would inflate the telemetry by
+            # multiples exactly under overload
+            return 0
+        self._staged[n:n + k] = pcm_block[:k]
+        rate = self.spec.sample_rate
+        dur = self.spec.clip_samples / rate
+        for j in range(k):
+            st = float(start_times[j])
+            self._meta.append(PendingWindow(
+                source_id=source_ids[j], start_time=st, end_time=st + dur,
+                pcm=pcm_block[j] if keep_pcm else None, pcm_rate=rate))
+        return k
+
+    # zero-copy ingest: the C++ farm packs windows STRAIGHT into the
+    # device staging buffer (one memcpy fewer per window than the
+    # offer_block path — the staging copy was ~1/3 of the measured
+    # per-window host cost at 5k streams)
+
+    def staging_view(self) -> np.ndarray:
+        """Contiguous free rows of the current staging buffer. A filler
+        (StreamFarm.collect) may write them directly; commit_block()
+        afterwards makes the rows real."""
+        return self._staged[len(self._meta):]
+
+    def commit_block(self, k: int, source_ids, start_times) -> None:
+        """Declare k rows written into staging_view() as staged windows
+        (metadata only — the PCM is already in place)."""
+        rate = self.spec.sample_rate
+        dur = self.spec.clip_samples / rate
+        for j in range(k):
+            st = float(start_times[j])
+            self._meta.append(PendingWindow(
+                source_id=source_ids[j], start_time=st, end_time=st + dur,
+                pcm_rate=rate))
+
+    # -- device loop --------------------------------------------------------------
+
+    @property
+    def inflight_depth(self) -> int:
+        return len(self._inflight)
+
+    def dispatch(self) -> int:
+        """Send the staged batch to the device (non-blocking); returns
+        the number of real windows dispatched. If the pipeline is already
+        `pipeline_depth` deep, harvests the oldest in-flight batch first
+        — so compute of batch i overlaps H2D of batch i+1 and staging of
+        batch i+2."""
+        if len(self._inflight) >= self.pipeline_depth:
+            self.harvest()
+        n = len(self._meta)
+        if n == 0:
+            return 0
+        handle = self._launch(self._staged, n)
+        self._inflight.append((handle, self._meta, time.monotonic()))
+        self._meta = []
+        # rotate staging buffers: the batch just dispatched aliases the
+        # current buffer; subsequent offer() calls write the next one
+        self._buf_idx = (self._buf_idx + 1) % len(self._staged_bufs)
+        self._staged = self._staged_bufs[self._buf_idx]
+        self.stats.batches_dispatched += 1
+        self.stats.last_batch_fill = n / self.max_batch
+        return n
+
+    def harvest(self) -> int:
+        """Block on the OLDEST in-flight batch (if any) and fan out
+        results; newer batches keep running on device."""
+        if not self._inflight:
+            return 0
+        handle, meta, t0 = self._inflight.pop(0)
+        vals_np, idx_np, cv_np = self._collect(handle, meta)
+        latency = time.monotonic() - t0
+        self.stats.last_latency_ms = latency * 1000.0
+        # prediction span (tracing.go startPredictSpan analogue): one span
+        # per device batch, ring-buffered for /system/inference/spans
+        GLOBAL_SPANS.record(self.spec.model_id, len(meta),
+                            len(meta) / self.max_batch, latency * 1000.0)
+        if latency > self.budget_seconds:
+            self.stats.overruns += 1
+            log.warning("%s batch latency %.0f ms exceeds realtime budget"
+                        " %.0f ms", self.spec.model_id, latency * 1000,
+                        self.budget_seconds * 1000)
+        if self.on_batch is not None:
+            # vectorized fan-out: one callback per device batch (pairs
+            # with Processor.submit_batch) — no per-window Python
+            self.stats.windows_processed += len(meta)
+            self.on_batch(meta, vals_np[:len(meta)], idx_np[:len(meta)],
+                          cv_np[:len(meta)] if cv_np is not None else None)
+            return len(meta)
+        for j, w in enumerate(meta):
+            self.stats.windows_processed += 1
+            if cv_np is not None:
+                w.ultrasonic_cv = float(cv_np[j])
+            if self.on_result is not None:
+                self.on_result(w, vals_np[j], idx_np[j])
+        return len(meta)
+
+    def harvest_all(self) -> int:
+        n = 0
+        while self._inflight:
+            n += self.harvest()
+        return n
+
+    def harvest_ready(self) -> int:
+        """Harvest every in-flight batch that has already completed,
+        oldest-first, WITHOUT blocking. This is the end-to-end-latency
+        lever: without it a batch dispatched at tick T waits until the
+        pipeline refills to depth (T+depth ticks) before fan-out — +200 ms
+        at a 100 ms tick, the dominant term in the r4 soak's 270-320 ms
+        pipeline p50 against a ~10 ms device step."""
+        n = 0
+        while self._inflight and self._ready(self._inflight[0][0]) is True:
+            n += self.harvest()
+        return n
+
 
 
 class TorchModelBatcher(HostBatcher):
@@ -95,3 +331,302 @@ class TorchModelBatcher(HostBatcher):
         # the CPU step ran synchronously inside _launch
         event = handle[2]
         return True if event is None else bool(event.query())
+
+
+class DeviceLoop:
+    """Tick loop: drains ready windows from registered window sources into
+    each model's batcher, dispatches, repeats. One thread for all models
+    (device work is async; the thread only stages/harvests)."""
+
+    def __init__(self, tick_seconds: float = 0.1,
+                 max_dispatches_per_tick: int = 8,
+                 min_tick_seconds: float | None = None):
+        self.tick_seconds = tick_seconds
+        # Adaptive cadence floor: when the host plane is idle the loop
+        # ticks this fast (collect-wait and harvest-wait both quantize to
+        # the tick period, so a 100 ms tick alone puts ~150 ms on every
+        # window's end-to-end latency). As tick busy time grows the
+        # period stretches back toward tick_seconds (duty cycle ≤ ~50%),
+        # so saturated throughput behavior is byte-identical to a fixed
+        # tick. None disables (fixed tick).
+        self.min_tick_seconds = (min(min_tick_seconds, tick_seconds)
+                                 if min_tick_seconds else tick_seconds)
+        self.max_dispatches_per_tick = max(1, int(max_dispatches_per_tick))
+        self.batchers: dict[str, HostBatcher] = {}
+        # window providers: callables returning iterable of
+        # (model_id, pcm_i16, source_id, start_time)
+        self._providers: list[Callable[[], list]] = []
+        # block providers (native ingest plane): callables returning
+        # (pcm_block [n, clip] int16, source_ids, start_times) for one
+        # model — staged via the vectorized offer_block fast path
+        self._block_providers: list[tuple[str, Callable[[], tuple]]] = []
+        # zero-copy fillers: fill(view) → (n, source_ids, start_times)
+        # writes windows DIRECTLY into the batcher's staging buffer
+        self._fill_providers: list[tuple[str, Callable]] = []
+        # windows that didn't fit a tick's megabatch: the provider already
+        # consumed them from the AnalysisBuffer, so they MUST be retried
+        # next tick, not dropped (bounded; beyond the cap they're counted)
+        self._backlog: dict[str, list] = {}
+        self.windows_dropped = 0
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self.ticks = 0
+        # tick-duration telemetry (EWMA + high-water): a busy tick longer
+        # than tick_seconds means the loop is over capacity
+        self.tick_busy_ms = 0.0
+        self.tick_busy_ms_max = 0.0
+        # host-stall high-water: the largest gap between consecutive tick
+        # STARTS beyond the nominal period — a scheduler steal / GC pause
+        # / swap storm shows up here even when every individual tick is
+        # cheap. Adaptive ring sizing keys on this (VERDICT r3 weak #2:
+        # a 25 s firecracker steal blew a 27 s capture ring at 6.5k
+        # streams); surfaced at /system/scheduler.
+        self.stall_ms_max = 0.0
+        self._last_tick_start: float | None = None
+        self._cur_period = tick_seconds   # adaptive period actually used
+        # device-failure breaker: consecutive run_tick exceptions (an
+        # unreachable accelerator fails every tick)
+        self.consecutive_tick_failures = 0
+
+    def add_batcher(self, batcher: HostBatcher) -> None:
+        self.batchers[batcher.spec.model_id] = batcher
+
+    def add_provider(self, provider: Callable[[], list]) -> None:
+        self._providers.append(provider)
+
+    def add_block_provider(self, model_id: str,
+                           provider: Callable[[], tuple]) -> None:
+        """Register a packed-block window source (the C++ stream farm):
+        per tick, provider() → (pcm_block, source_ids, start_times). The
+        block is consumed via HostBatcher.offer_block with immediate
+        pipelined dispatch when a megabatch fills — no per-window Python
+        objects until results fan out."""
+        self._block_providers.append((model_id, provider))
+
+    def add_fill_provider(self, model_id: str, fill: Callable) -> None:
+        """Register a zero-copy window source: per call, fill(view) must
+        write up to len(view) packed windows into the staging-buffer view
+        and return (n, source_ids, start_times). Backpressure lives in
+        the source's own rings (accounted overwrites) — nothing is ever
+        consumed that didn't fit, so there is no retry backlog on this
+        path."""
+        self._fill_providers.append((model_id, fill))
+
+    def run_tick(self) -> int:
+        """One scheduling tick; returns windows dispatched. Drains the
+        whole ready set: a batcher that fills mid-tick is dispatched
+        immediately (pipelined on device) and filling continues, up to
+        max_dispatches_per_tick batches per model; only beyond that does
+        overflow land in the bounded retry backlog."""
+        t_tick = time.monotonic()
+        if self._last_tick_start is not None:
+            stall = (t_tick - self._last_tick_start
+                     - self._cur_period) * 1000.0
+            if stall > self.stall_ms_max:
+                self.stall_ms_max = stall
+        self._last_tick_start = t_tick
+        items = []
+        for model_id, backlog in self._backlog.items():
+            items.extend(backlog)           # retry last tick's overflow first
+        self._backlog = {}
+        for provider in self._providers:
+            items.extend(provider())
+        dispatched = 0
+        # snapshot: runtime model load/unload (API threads) mutates the
+        # dict while this thread iterates
+        batchers = dict(self.batchers)
+        budget = {m: self.max_dispatches_per_tick for m in batchers}
+        # zero-copy fillers first: the farm packs directly into staging;
+        # a full batch dispatches and filling continues into the rotated
+        # buffer until the source runs dry or the budget is spent
+        for model_id, fill in list(self._fill_providers):
+            b = batchers.get(model_id)
+            if b is None:
+                continue
+            while True:
+                view = b.staging_view()
+                if len(view) == 0:
+                    if budget.get(model_id, 0) <= 0:
+                        break
+                    budget[model_id] -= 1
+                    dispatched += b.dispatch()
+                    continue
+                n, sids, sts = fill(view)
+                if n == 0:
+                    break
+                b.commit_block(n, sids, sts)
+        # packed blocks from the native ingest plane first (bulk traffic)
+        for model_id, provider in list(self._block_providers):
+            b = batchers.get(model_id)
+            block, sids, sts = provider()
+            n_rows = len(block)
+            if n_rows == 0:
+                continue
+            if b is None:
+                self.windows_dropped += n_rows
+                continue
+            pos = 0
+            while pos < n_rows:
+                k = b.offer_block(block[pos:], sids[pos:], sts[pos:],
+                                  keep_pcm=False)
+                pos += k
+                if pos >= n_rows:
+                    break
+                if budget.get(model_id, 0) > 0:
+                    budget[model_id] -= 1
+                    dispatched += b.dispatch()
+                else:
+                    # out of dispatch budget: remaining rows must be
+                    # COPIED into the retry backlog (the provider reuses
+                    # its block buffer next tick)
+                    q = self._backlog.setdefault(model_id, [])
+                    for j in range(pos, n_rows):
+                        if len(q) < 4 * b.max_batch:
+                            q.append((model_id, block[j].copy(),
+                                      sids[j], float(sts[j])))
+                        else:
+                            self.windows_dropped += 1
+                    break
+        for item in items:
+            model_id, pcm, source_id, start_time = item[:4]
+            rate = item[4] if len(item) > 4 else 0
+            b = batchers.get(model_id)
+            if b is None:
+                # model unloaded (or warmup failed) while windows were in
+                # flight: still a loss — count it (CLAUDE.md: every queue
+                # drop is accounted)
+                self.windows_dropped += 1
+                continue
+            if not b.offer(pcm, source_id, start_time, rate):
+                # full megabatch: dispatch it now and retry into the
+                # fresh staging buffer (dispatch budget permitting)
+                retried = False
+                if budget.get(model_id, 0) > 0:
+                    budget[model_id] -= 1
+                    dispatched += b.dispatch()
+                    retried = b.offer(pcm, source_id, start_time, rate)
+                if not retried:
+                    q = self._backlog.setdefault(model_id, [])
+                    if len(q) < 4 * b.max_batch:
+                        q.append(item)
+                    else:                   # overload: drop WITH accounting
+                        self.windows_dropped += 1
+        for model_id, b in batchers.items():
+            n = b.dispatch() if budget.get(model_id, 0) > 0 else 0
+            dispatched += n
+            # eager harvest: fan out every batch the device already
+            # finished (non-blocking probe) — without this a batch waits
+            # for the pipeline to refill to depth before its results move
+            if hasattr(b, "harvest_ready"):
+                b.harvest_ready()
+            # low-traffic latency: a batch dispatched on a quiet tick would
+            # otherwise wait for the NEXT dispatch to push the pipeline to
+            # depth before being harvested — up to a full window hop later.
+            # When a model dispatched nothing this tick, harvest one
+            # in-flight batch instead (device is draining, not filling).
+            if n == 0 and getattr(b, "inflight_depth", 0):
+                b.harvest()
+        self.ticks += 1
+        busy = (time.monotonic() - t_tick) * 1000.0
+        self.tick_busy_ms += 0.05 * (busy - self.tick_busy_ms)
+        if busy > self.tick_busy_ms_max:
+            self.tick_busy_ms_max = busy
+        return dispatched
+
+    def drain(self) -> None:
+        for b in list(self.batchers.values()):
+            if hasattr(b, "harvest_all"):
+                b.harvest_all()
+            else:
+                b.harvest()
+
+    def capacity_info(self) -> dict:
+        """Configured steady-state ceiling per model (surfaced at
+        /api/v2/system/scheduler so operators can see what the shipped
+        configuration supports — VERDICT r2 weak #2)."""
+        models = {}
+        for model_id, b in list(self.batchers.items()):
+            hop = getattr(b, "budget_seconds", 1.5) or 1.5
+            wps = b.max_batch * self.max_dispatches_per_tick \
+                / self.tick_seconds
+            models[model_id] = {
+                "max_batch": b.max_batch,
+                "pipeline_depth": getattr(b, "pipeline_depth", 1),
+                "ceiling_windows_per_s": round(wps, 1),
+                "window_hop_seconds": hop,
+                "ceiling_streams": round(wps * hop, 1),
+            }
+        return {
+            "tick_seconds": self.tick_seconds,
+            "min_tick_seconds": self.min_tick_seconds,
+            "current_period_ms": round(self._cur_period * 1000.0, 1),
+            "max_dispatches_per_tick": self.max_dispatches_per_tick,
+            "windows_dropped": self.windows_dropped,
+            "tick_busy_ms": round(self.tick_busy_ms, 2),
+            "tick_busy_ms_max": round(self.tick_busy_ms_max, 2),
+            "stall_ms_max": round(self.stall_ms_max, 1),
+            "consecutive_tick_failures": self.consecutive_tick_failures,
+            # dict() copy is a single C-level op under the GIL; iterating
+            # self._backlog directly would race run_tick's inserts on the
+            # device thread (API threads call this via /system/scheduler)
+            "backlog": {m: len(q) for m, q in dict(self._backlog).items()},
+            "models": models,
+        }
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run, name="device-loop",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        self.drain()
+
+    def _run(self) -> None:
+        next_tick = time.monotonic()
+        while not self._stop.is_set():
+            t0 = time.monotonic()
+            try:
+                self.run_tick()
+                if self.consecutive_tick_failures:
+                    log.info("device loop recovered after %d failed ticks",
+                             self.consecutive_tick_failures)
+                self.consecutive_tick_failures = 0
+            except Exception as e:
+                # an unreachable device fails EVERY tick (10 Hz): log the
+                # first traceback, then thin to one line per 50 ticks,
+                # and tag ONE EnhancedError per outage once it is clearly
+                # persistent (30 consecutive ≈ 3 s) — the breaker state is
+                # surfaced at /system/scheduler for operators
+                self.consecutive_tick_failures += 1
+                c = self.consecutive_tick_failures
+                if c == 1:
+                    log.exception("device loop tick failed")
+                elif c % 50 == 0:
+                    log.warning("device loop still failing (%d consecutive"
+                                " ticks): %s", c, e)
+                if c == 30:
+                    # the JAX package tags one EnhancedError here; the
+                    # port's error taxonomy comes with the app wiring
+                    log.error("device loop failing persistently (%d "
+                              "consecutive ticks): %s: %s", c,
+                              type(e).__name__, e)
+            # adaptive cadence: latency-sensitive when idle (min_tick),
+            # amortizing when busy (period = 2×busy, capped at the
+            # nominal tick → duty cycle stays ≤ ~50% and saturated
+            # behavior is identical to a fixed tick)
+            busy = time.monotonic() - t0
+            self._cur_period = min(self.tick_seconds,
+                                   max(self.min_tick_seconds, 2.0 * busy))
+            next_tick += self._cur_period
+            delay = next_tick - time.monotonic()
+            if delay > 0:
+                self._stop.wait(delay)
+            else:
+                next_tick = time.monotonic()   # fell behind: don't spiral

@@ -49,9 +49,7 @@ import time
 import numpy as np
 import torch
 
-from birdnet_go_tpu.audio.buffers import AnalysisBuffer
-from birdnet_go_tpu.scheduler.loop import DeviceLoop
-from birdnet_go_tpu.utils.tracing import GLOBAL_SPANS
+from birdnet_go_tpu_torch.audio.buffers import AnalysisBuffer
 from birdnet_go_tpu_torch.inference.backend import TorchClassifier
 from birdnet_go_tpu_torch.models import efficientnet
 from birdnet_go_tpu_torch.models.birdnet_v3 import BirdNETv3
@@ -75,7 +73,8 @@ from birdnet_go_tpu_torch.ops.postprocess import (
     sigmoid_confidence,
     top_k_results,
 )
-from birdnet_go_tpu_torch.scheduler.loop import TorchModelBatcher
+from birdnet_go_tpu_torch.scheduler.loop import DeviceLoop, TorchModelBatcher
+from birdnet_go_tpu_torch.utils.tracing import GLOBAL_SPANS
 
 SEED = 0
 BATCH = 256                  # realtime.max_batch default

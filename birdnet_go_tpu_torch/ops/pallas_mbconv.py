@@ -102,6 +102,49 @@ def scale_project_plain(y, se, wproj, kpr, bpr, res, *,
     return o.to(out_dtype)
 
 
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _dot_type(dot_dtype: torch.dtype) -> str:
+    return "bf16" if dot_dtype == torch.bfloat16 else "f32"
+
+
+def expand_dw_pool_work(batch: int, height: int, width: int, c: int, cm: int,
+                        kernel: int, *, x_dtype=torch.bfloat16,
+                        out_dtype=torch.bfloat16, dot_dtype=torch.bfloat16,
+                        expand: bool = True
+                        ) -> tuple[dict[str, float], float]:
+    """Kernel A's work (see ``ops/roofline.py``): the expand product in
+    `dot_dtype` (none without an expand), the depthwise taps in float32;
+    x, the constants, y and the float32 pool each moved once."""
+    s = batch * height * width
+    flops = {"f32": 2.0 * s * cm * kernel * kernel}
+    if expand:
+        flops[_dot_type(dot_dtype)] = flops.get(_dot_type(dot_dtype), 0.0) \
+            + 2.0 * s * c * cm
+    consts = (c * cm if expand else 0) + kernel * kernel * cm + 4 * cm
+    nbytes = (s * c * _itemsize(x_dtype) + s * cm * _itemsize(out_dtype)
+              + 4 * batch * cm + 4 * consts)
+    return flops, float(nbytes)
+
+
+def scale_project_work(batch: int, s: int, cm: int, c2: int, *,
+                       residual: bool, y_dtype=torch.bfloat16,
+                       out_dtype=torch.bfloat16, dot_dtype=torch.bfloat16
+                       ) -> tuple[dict[str, float], float]:
+    """Kernel B's work (see ``ops/roofline.py``): the project product in
+    `dot_dtype`; y, the SE scale, the constants, the residual and out each
+    moved once."""
+    rows = batch * s
+    flops = {_dot_type(dot_dtype): 2.0 * rows * cm * c2}
+    item = _itemsize(out_dtype)
+    nbytes = (rows * cm * _itemsize(y_dtype) + 4 * batch * cm
+              + 4 * (cm * c2 + 2 * c2) + rows * c2 * item
+              + (rows * c2 * _itemsize(y_dtype) if residual else 0))
+    return flops, float(nbytes)
+
+
 def _check_act(name: str, what: str, t: torch.Tensor):
     if t.ndim != 3 or not t.is_contiguous():
         raise ValueError(

@@ -80,14 +80,50 @@ def kernel_consts(sample_rate: int, n_fft: int, n_mels: int, fmin: float,
     return wpk, twa, twb, fb2, j2
 
 
+def residue_groups() -> list[tuple[int, int]]:
+    """The residue pairs the kernel walks, one per packed-row pair (g, 8 +
+    g): (0, 8), whose rows are re S[0] and re S[8], then the conjugate
+    pairs (g, 16 - g) for g = 1..7, whose rows are re S[g] and im S[g]."""
+    return [(0, _A // 2)] + [(g, _A - g) for g in range(1, _A // 2)]
+
+
+def group_consts(twa: np.ndarray, twb: np.ndarray, fb2: np.ndarray):
+    """The kernel's per-group operands: (bg [8, 256, 4·j2], fbg [8, 2·j2,
+    n_mels rounded up to 8]).
+
+    Group g's stage-2 product is A [frames, 256] = [packed row g | packed
+    row 8 + g] times bg[g]; its columns are residue h's (re j, im j) at
+    h·2·j2. Group 0 is block-diagonal: residue 0 reads only row 0 and
+    residue 8 only row 8. fbg[g] stacks the two residues' filterbank rows,
+    zero-padded to a multiple of 8 mel bands.
+    """
+    a_sz, b_sz, w2 = twa.shape
+    j2, n_mels = fb2.shape[1:]
+    nm8 = -(-n_mels // 8) * 8
+    groups = residue_groups()
+    bg = np.zeros((len(groups), 2 * b_sz, 2 * w2), np.float32)
+    fbg = np.zeros((len(groups), 2 * j2, nm8), np.float32)
+    for g, pair in enumerate(groups):
+        for h, r in enumerate(pair):
+            cols = slice(h * w2, (h + 1) * w2)
+            if g == 0:
+                bg[g, h * b_sz:(h + 1) * b_sz, cols] = twa[r]
+            else:
+                bg[g, :b_sz, cols] = twa[r]
+                bg[g, b_sz:, cols] = twb[r]
+            fbg[g, h * j2:(h + 1) * j2, :n_mels] = fb2[r]
+    return bg, fbg
+
+
 @functools.lru_cache(maxsize=8)
 def _device_consts(cfg: MelConfig, device: torch.device):
-    """(window, wpk, twa, twb, fb2) as contiguous float32 tensors on
-    `device`, and j2; built once per (config, device)."""
-    *arrays, j2 = kernel_consts(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
-                                cfg.fmin, cfg.fmax)
+    """(window, wpk, bg, fbg) as contiguous float32 tensors on `device`,
+    and j2; built once per (config, device)."""
+    wpk, twa, twb, fb2, j2 = kernel_consts(cfg.sample_rate, cfg.n_fft,
+                                           cfg.n_mels, cfg.fmin, cfg.fmax)
+    arrays = (_window_fn(cfg), wpk, *group_consts(twa, twb, fb2))
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (_window_fn(cfg), *arrays)), j2
+                 for a in arrays), j2
 
 
 def check_config(cfg: MelConfig) -> None:
@@ -101,6 +137,29 @@ def check_config(cfg: MelConfig) -> None:
             f"(got hop={cfg.hop}, n_fft={cfg.n_fft})")
     if cfg.mag_scale not in _MAG_MODES:
         raise ValueError(f"unknown mag_scale {cfg.mag_scale!r}")
+
+
+def melspec_fused_work(batch: int, t_len: int, cfg: MelConfig,
+                       out_dtype: torch.dtype = torch.float32
+                       ) -> tuple[dict[str, float], float]:
+    """The kernel's work at [batch, t_len] (see ``ops/roofline.py``).
+
+    Per frame, in float32 multiply-adds: stage 1, 128 · 16 · 16; stage 2,
+    16 · J2 · 128 · 4 (re and im against the two packed rows); the mel
+    projection, 16 · J2 · n_mels. This is float32 work: the kernel's 3xTF32
+    split triples stage 2 on the tensor cores to keep float32 accuracy, and
+    counts as the same work. Bytes: the int16 PCM, the constants (window,
+    wpk, both twiddle slabs, fb2) and the mel rows, each once.
+    """
+    j2 = kernel_consts(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin,
+                       cfg.fmax)[-1]
+    frames = batch * cfg.num_frames(t_len)
+    macs = _LANE * _A * _A + _A * j2 * _LANE * 4 + _A * j2 * cfg.n_mels
+    consts = (cfg.n_fft + _A * _A + 2 * _A * _LANE * 2 * j2
+              + _A * j2 * cfg.n_mels)
+    item = 2 if out_dtype == torch.bfloat16 else 4
+    nbytes = 2 * batch * t_len + 4 * consts + item * frames * cfg.n_mels
+    return {"f32": 2.0 * macs * frames}, float(nbytes)
 
 
 def melspec_fused_plain(pcm_i16: torch.Tensor, cfg: MelConfig,

@@ -57,22 +57,31 @@ from birdnet_go_tpu_torch.models.birdnet_v24 import BirdNETv24
 from birdnet_go_tpu_torch.models.layers import BatchNorm
 from birdnet_go_tpu_torch.models.perch_v2 import PerchV2
 from birdnet_go_tpu_torch.ops import _build
-from birdnet_go_tpu_torch.ops.melspec import MelConfig
+from birdnet_go_tpu_torch.ops.melspec import (
+    MelConfig,
+    _mel_filterbank_np,
+    _window_fn,
+    scale_mag,
+)
 from birdnet_go_tpu_torch.ops.pallas_mbconv import (
     expand_dw_pool,
     expand_dw_pool_plain,
+    expand_dw_pool_work,
     fold_bn,
     scale_project,
     scale_project_plain,
+    scale_project_work,
 )
 from birdnet_go_tpu_torch.ops.pallas_melspec import (
     melspec_fused,
     melspec_fused_plain,
+    melspec_fused_work,
 )
 from birdnet_go_tpu_torch.ops.postprocess import (
     sigmoid_confidence,
     top_k_results,
 )
+from birdnet_go_tpu_torch.ops.roofline import bound_ms
 from birdnet_go_tpu_torch.scheduler.loop import DeviceLoop, TorchModelBatcher
 from birdnet_go_tpu_torch.utils.tracing import GLOBAL_SPANS
 
@@ -144,6 +153,21 @@ def median_ms_pair(plain, kernel) -> tuple[float, float]:
         tk.append(event_ms(kernel))
         tp.append(event_ms(plain))
     return float(np.median(tp)), float(np.median(tk))
+
+
+def mel_library(pcm: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """The mel kernel's yardstick, never called by the port: torch.stft
+    (cuFFT, the window, center=False) → |X|² → a float32 product with the
+    natural-order filterbank → the magnitude scale, all in float32."""
+    dev = pcm.device
+    x = pcm.float() * (1.0 / 32768.0)
+    spec = torch.stft(x, cfg.n_fft, hop_length=cfg.hop,
+                      window=torch.from_numpy(_window_fn(cfg)).to(dev),
+                      center=False, return_complex=True)
+    power = spec.real.square() + spec.imag.square()        # [B, bins, F]
+    fb = torch.from_numpy(_mel_filterbank_np(
+        cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)).to(dev)
+    return scale_mag(torch.matmul(power.transpose(1, 2), fb), cfg)
 
 
 def rel_err(ref: torch.Tensor, got: torch.Tensor) -> float:
@@ -219,12 +243,26 @@ def phase_kernel(dev: torch.device, card: str) -> dict:
         plain_ms, ms = median_ms_pair(
             lambda: melspec_fused_plain(x, cfg, out_dtype=dt),
             lambda: melspec_fused(x, cfg, out_dtype=dt))
+        bound, by = bound_ms(*melspec_fused_work(*x.shape, cfg, dt))
+        extra = ""
+        if x.shape[0] == BATCH:
+            # the library yardstick, against the same kernel once more
+            lib = mel_library(x, cfg)
+            lib_err = rel_err(ref, lib) if kw["mag_scale"] != "log" else \
+                float((ref.float() - lib).abs().max())
+            library_ms, ms2 = median_ms_pair(
+                lambda: mel_library(x, cfg),
+                lambda: melspec_fused(x, cfg, out_dtype=dt))
+            extra = (f" library_ms={library_ms:.4f} (kernel {ms2:.4f} in "
+                     f"turns; library err {lib_err:.3e})")
         print(f"kernel {name} {tuple(x.shape)}: max_abs_err={abs_err:.3e} "
               f"max_rel_err={rel:.3e} ({tol}) kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} [{card}]")
+              f"plain_ms={plain_ms:.4f}{extra} bound_ms={bound:.4f} "
+              f"({by}) share={bound / ms:.3f} [{card}]")
         assert ok, f"melspec kernel disagrees with plain ({name})"
         if name == "v24 bf16 (main path)":
-            main = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+            main = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=by, library_ms=library_ms)
     return main
 
 
@@ -318,7 +356,8 @@ def phase_mbconv(dev: torch.device, card: str) -> dict:
     cases.append(("BirdNET_V2.4 f32 and f32 dot", f32_shape, 0,
                   torch.float32))
     out = {cls.spec.model_id: {
-        name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, blocks=0)
+        name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                   bound_by="bytes", library_ms=None, blocks=0)
         for name in ("expand_dw_pool", "scale_project")}
         for cls in FAMILIES}
     for seed, (label, shape, n_blocks, dt) in enumerate(cases):
@@ -348,29 +387,41 @@ def phase_mbconv(dev: torch.device, card: str) -> dict:
                                               dot_dtype=dt),
                   lambda: scale_project(*args_b, out_dtype=dt,
                                         dot_dtype=dt)))
+        work = {"expand_dw_pool": expand_dw_pool_work(
+                    BATCH, h, w, c, cm, k, expand=cm != c, x_dtype=dt,
+                    out_dtype=dt, dot_dtype=dt),
+                "scale_project": scale_project_work(
+                    BATCH, h * w, cm, c2, residual=c2 == c, y_dtype=dt,
+                    out_dtype=dt, dot_dtype=dt)}
         for name, (abs_err, err, lim), plain, kern in kinds:
             plain_ms, ms = median_ms_pair(plain, kern)
+            bound, by = bound_ms(*work[name])
             extra = (f", pool {pool_rel:.3e} (< 1e-4)"
                      if name == "expand_dw_pool" else "")
             print(f"mbconv {name} {label} x{n_blocks} {dt} (C {c}, Cm {cm}, "
                   f"k{k}, {h}x{w}, C' {c2}) [{BATCH}]: max_abs_err="
                   f"{abs_err:.3e} err={err:.3e} (< {lim:.3e}){extra} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} [{card}]")
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+                  f"{bound:.4f} ({by}) share={bound / ms:.3f} [{card}]")
             assert err < lim, f"{name} disagrees with plain ({label})"
             if n_blocks:
                 r = out[label][name]
                 r["max_abs_err"] = max(r["max_abs_err"], abs_err)
                 r["ms"] += n_blocks * ms
                 r["plain_ms"] += n_blocks * plain_ms
+                r["bound_ms"] += n_blocks * bound
+                if by == "operations":
+                    r["bound_by"] = by
                 r["blocks"] += n_blocks
         assert pool_rel < 1e-4, f"kernel A's pool disagrees ({label})"
     for model_id, kernels in out.items():
         for name, r in kernels.items():
             n = r.pop("blocks")
             print(f"mbconv {name}: {r['ms']:.4f} ms against plain "
-                  f"{r['plain_ms']:.4f} ms over the {n} fused blocks of one "
-                  f"{model_id} step, max_abs_err {r['max_abs_err']:.3e} "
-                  f"[{card}]")
+                  f"{r['plain_ms']:.4f} ms and bound {r['bound_ms']:.4f} ms "
+                  f"(share {r['bound_ms'] / r['ms']:.3f}) over the {n} fused "
+                  f"blocks of one {model_id} step, max_abs_err "
+                  f"{r['max_abs_err']:.3e} [{card}]")
     return out
 
 
@@ -658,7 +709,9 @@ def main() -> None:
     print(f"kernels line: melspec_fused at the v2.4 main path's [{BATCH}, "
           f"{CLIP}] bf16; expand_dw_pool and scale_project summed over the "
           f"{V3_FUSED} fused blocks of one v3.0 step [{BATCH}, {CLIP32}] "
-          f"bf16 (ms, plain_ms) and their largest error there")
+          f"bf16 (ms, plain_ms, bound_ms) and their largest error there; "
+          f"bound_ms from the *_work counts at H100 SXM peaks "
+          f"(ops/roofline.py)")
     sources = {"melspec_fused": ("melspec.cu", "pallas_melspec.py:149"),
                "expand_dw_pool": ("mbconv.cu", "pallas_mbconv.py:87"),
                "scale_project": ("mbconv.cu", "pallas_mbconv.py:168")}

@@ -317,3 +317,71 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
             TM.scale_project(*args, wproj, kpr, bpr, res)
     with pytest.raises(ValueError):
         TM.scale_project(y, se, wproj, kpr, bpr, res[:, :-1])
+
+
+# -- work and bound ------------------------------------------------------------
+
+# (C, Cm, k, H, W, C') and count of the fused blocks of one full-width step
+V24_FUSED = [((32, 32, 3, 139, 48, 16), 1), ((24, 144, 3, 70, 24, 24), 1),
+             ((40, 240, 5, 35, 12, 40), 1), ((80, 480, 3, 18, 6, 80), 2),
+             ((80, 480, 5, 18, 6, 112), 1), ((112, 672, 5, 18, 6, 112), 2)]
+V3_FUSED = [((32, 32, 3, 124, 64, 16), 1), ((16, 16, 3, 124, 64, 16), 1),
+            ((24, 144, 3, 62, 32, 24), 2), ((40, 240, 5, 31, 16, 40), 2),
+            ((80, 480, 3, 16, 8, 80), 3), ((80, 480, 5, 16, 8, 112), 1),
+            ((112, 672, 5, 16, 8, 112), 3)]
+
+
+def _step_work(shapes):
+    """Kernels A's and B's work summed over one step's fused blocks at
+    B = 256, bf16: ((flops by type, bytes) of A, the same of B)."""
+    out = []
+    for fn in ("a", "b"):
+        flops, nbytes = {}, 0.0
+        for (c, cm, k, h, w, c2), n in shapes:
+            if fn == "a":
+                f, b = TM.expand_dw_pool_work(256, h, w, c, cm, k,
+                                              expand=cm != c)
+            else:
+                f, b = TM.scale_project_work(256, h * w, cm, c2,
+                                             residual=c2 == c)
+            for t, v in f.items():
+                flops[t] = flops.get(t, 0.0) + n * v
+            nbytes += n * b
+        out.append((flops, nbytes))
+    return out
+
+
+@pytest.mark.parametrize("shapes,a_bytes,b_bytes", [
+    (V24_FUSED, 606e6, 601e6), (V3_FUSED, 1179e6, 1283e6)],
+    ids=["v24", "v3"])
+def test_mbconv_work_counts(shapes, a_bytes, b_bytes):
+    """The counts of the bring-up plan: A's expand (bf16) and depthwise
+    (float32) operations exactly, its bytes and B's within 1% (they also
+    count the constants and B's SE scale); both memory-bound."""
+    from birdnet_go_tpu_torch.ops.roofline import bound_ms
+
+    (fa, ba), (fb, bb) = _step_work(shapes)
+    assert sum(n for _, n in shapes) in (8, 13)
+    if shapes is V24_FUSED:
+        assert round(fa["bf16"] / 1e9, 1) == 19.7
+        assert round(fa["f32"] / 1e9, 1) == 6.4
+        assert round(fb["bf16"] / 1e9, 1) == 22.3
+    assert abs(ba / a_bytes - 1) < 0.01 and abs(bb / b_bytes - 1) < 0.01
+    for f, b in ((fa, ba), (fb, bb)):
+        ms, by = bound_ms(f, b)
+        assert by == "bytes" and ms == pytest.approx(b / 3.35e12 * 1e3)
+
+
+def test_mbconv_work_follows_dtypes():
+    f, b = TM.expand_dw_pool_work(2, 4, 4, 8, 8, 3, expand=False,
+                                  x_dtype=torch.float32,
+                                  out_dtype=torch.float32)
+    assert f == {"f32": 2.0 * 32 * 8 * 9}
+    assert b == 32 * 8 * 4 * 2 + 2 * 8 * 4 + 4 * (9 * 8 + 4 * 8)
+    f, _ = TM.expand_dw_pool_work(2, 4, 4, 8, 16, 3,
+                                  dot_dtype=torch.float32)
+    assert f == {"f32": 2.0 * 32 * 16 * 9 + 2.0 * 32 * 8 * 16}
+    f, b = TM.scale_project_work(2, 16, 8, 4, residual=False,
+                                 dot_dtype=torch.float32)
+    assert f == {"f32": 2.0 * 32 * 8 * 4}
+    assert b == 32 * 8 * 2 + 2 * 8 * 4 + 4 * (32 + 8) + 32 * 4 * 2

@@ -244,3 +244,184 @@ def test_plain_mel_matches_golden_fingerprint():
     m = tmel.melspec(torch.from_numpy(_tone_batch()),
                      tmel.MelConfig(**V24)).numpy()
     _golden_check("melspec_v24", m)
+
+
+@pytest.mark.parametrize("kw,t_len,gflop,io_mb,bound", [
+    (V24, 144000, 60.0, 87.4, 0.90),
+    (dict(sample_rate=32000, n_fft=2048, hop=640, n_mels=128, fmax=15000.0,
+          mag_scale="nonlinear"), 160000, 87.0, 98.1, 1.30),
+    (dict(sample_rate=32000, n_fft=2048, hop=640, n_mels=160, fmin=60.0,
+          fmax=10000.0, mag_scale="log"), 160000, 58.5, 102.2, 0.87)],
+    ids=["v24", "v3", "perch"])
+def test_melspec_work_counts(kw, t_len, gflop, io_mb, bound):
+    """The counts of the bring-up plan at B = 256, bf16 output: float32
+    operations, PCM plus mel bytes, and the float32 bound (operations)."""
+    from birdnet_go_tpu_torch.ops.pallas_melspec import melspec_fused_work
+    from birdnet_go_tpu_torch.ops.roofline import bound_ms
+
+    cfg = tmel.MelConfig(**kw)
+    flops, nbytes = melspec_fused_work(256, t_len, cfg, torch.bfloat16)
+    assert set(flops) == {"f32"} and round(flops["f32"] / 1e9, 1) == gflop
+    *_, j2 = kernel_consts(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin,
+                           cfg.fmax)
+    consts = 4 * (2048 + 256 + 2 * 16 * 128 * 2 * j2 + 16 * j2 * cfg.n_mels)
+    assert round((nbytes - consts) / 1e6, 1) == io_mb
+    ms, by = bound_ms(flops, nbytes)
+    assert by == "operations" and round(ms, 2) == bound
+    f32 = melspec_fused_work(256, t_len, cfg, torch.float32)[1]
+    assert f32 - nbytes == 2 * 256 * cfg.num_frames(t_len) * cfg.n_mels
+
+
+# -- the CUDA kernel's arithmetic, emulated on the CPU --------------------------
+#
+# The kernel runs stage 2 and the mel projection on the tensor cores in
+# 3xTF32: each float32 operand x is split as hi = tf32(x), lo = tf32(x - hi)
+# (cvt.rna: round to nearest, ties away from zero, 10-bit mantissa), and the
+# product is lo·hi + hi·lo + hi·hi with float32 sums. Stage 2 sums runs of 16
+# k-terms (two k8 steps) into a fresh partial that is then added to the
+# total. These tests repeat that arithmetic with numpy on a few rows and hold
+# it to the HIGHEST plain mel at the card's gates.
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 on finite float32 values."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mma3(a, b, split=True):
+    """[..., m, 8] × [8, n] in 3xTF32, products summed in float32; with
+    `split` False, one TF32 pass."""
+    if not split:
+        return np.matmul(_tf32(a), _tf32(b))
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    acc = np.matmul(al, bh)
+    acc = acc + np.matmul(ah, bl)
+    return acc + np.matmul(ah, bh)
+
+
+def _emulated_kernel(pcm16, cfg, split=True):
+    from birdnet_go_tpu_torch.ops.pallas_melspec import group_consts
+
+    wpk, twa, twb, fb2, j2 = kernel_consts(cfg.sample_rate, cfg.n_fft,
+                                           cfg.n_mels, cfg.fmin, cfg.fmax)
+    bg, fbg = group_consts(twa, twb, fb2)
+    x = pcm16.astype(np.float32) * np.float32(1 / 32768)
+    frames = tmel.frame_signal(torch.from_numpy(x), cfg).numpy()
+    fw = (frames * tmel._window_fn(cfg)).reshape(*frames.shape[:-1], 16, 128)
+    s = np.einsum("pa,...ab->...pb", wpk, fw).astype(np.float32)  # stage 1
+    mel = np.zeros((*frames.shape[:-1], fbg.shape[-1]), np.float32)
+    for g in range(8):
+        a = np.concatenate([s[..., g, :], s[..., 8 + g, :]], axis=-1)
+        tot = 0.0
+        for k0 in range(0, 256, 16):
+            part = _mma3(a[..., k0:k0 + 8], bg[g, k0:k0 + 8], split)
+            part = part + _mma3(a[..., k0 + 8:k0 + 16],
+                                bg[g, k0 + 8:k0 + 16], split)
+            tot = tot + part
+        re_im = tot.reshape(*tot.shape[:-1], 2, 2, j2)       # [.., h, re/im, j]
+        power = (re_im[..., 0, :] ** 2 + re_im[..., 1, :] ** 2).reshape(
+            *tot.shape[:-1], 2 * j2)
+        for k0 in range(0, 2 * j2, 8):
+            mel = mel + _mma3(power[..., k0:k0 + 8], fbg[g, k0:k0 + 8],
+                              split)
+    return tmel.scale_mag(torch.from_numpy(mel[..., :cfg.n_mels]),
+                          cfg).numpy()
+
+
+def _loud_tones(n_rows, t_len, seed, rate=48000):
+    """-10 dBFS tones over -26 dBFS noise, int16: their leakage into quiet
+    bins cancels in the stage-2 sums, the hardest case for precision."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(t_len, dtype=np.float32) / rate
+    f = rng.uniform(200.0, 12000.0, (n_rows, 1)).astype(np.float32)
+    x = 0.3 * np.sin(2 * np.pi * f * t) + rng.standard_normal(
+        (n_rows, t_len), dtype=np.float32) * 0.05
+    return (x * 32767).astype(np.int16)
+
+
+@pytest.mark.parametrize("name,kw,pcm", [
+    ("v24 loud tones", V24, lambda: _loud_tones(2, 48000, 2)),
+    ("fullband loud tones", FULL, lambda: _loud_tones(2, 48000, 3)),
+    ("v24 field level", V24, lambda: _pcm16((2, 48000), 0, 0.05 * 32767)),
+    ("log", LOG, lambda: _pcm16((1, 48000), 1, 3000.0)),
+])
+def test_emulated_3xtf32_kernel_meets_the_card_gates(name, kw, pcm):
+    pcm16 = pcm()
+    cfg = tmel.MelConfig(**kw)
+    got = _emulated_kernel(pcm16, cfg)
+    ref = melspec_fused(torch.from_numpy(pcm16), cfg).numpy()
+    assert got.shape == ref.shape
+    if kw["mag_scale"] == "log":
+        assert np.abs(got - ref).max() < 2e-4
+    else:
+        rel = np.abs(ref - got) / (np.abs(ref) + 1e-3)
+        assert rel.max() < 1e-3, (name, rel.max())
+
+
+def test_emulated_single_tf32_misses_the_gate():
+    """Why the split: one TF32 pass over the same sums fails the gate on
+    loud tones, which the 3xTF32 emulation passes."""
+    pcm16 = _loud_tones(2, 48000, 2)
+    cfg = tmel.MelConfig(**V24)
+    ref = melspec_fused(torch.from_numpy(pcm16), cfg).numpy()
+    got = _emulated_kernel(pcm16, cfg, split=False)
+    rel = np.abs(ref - got) / (np.abs(ref) + 1e-3)
+    assert rel.max() > 1e-3, rel.max()
+
+
+@pytest.mark.parametrize("kw", [V24, FULL, LOG], ids=["v24", "full", "log"])
+def test_twiddle_split_is_exact_and_tf32(kw):
+    """hi + lo gives back every stage-2 twiddle and filterbank value to
+    float32 rounding, and hi has no bits below TF32's 10-bit mantissa."""
+    from birdnet_go_tpu_torch.ops.pallas_melspec import group_consts
+
+    _, twa, twb, fb2, _ = kernel_consts(kw["sample_rate"], kw["n_fft"],
+                                        kw["n_mels"], 0.0, kw["fmax"])
+    bg, fbg = group_consts(twa, twb, fb2)
+    for w in (bg, fbg):
+        hi, lo = _split(w)
+        assert not (hi.view(np.uint32) & np.uint32(0x1FFF)).any()
+        assert not (lo.view(np.uint32) & np.uint32(0x1FFF)).any()
+        err = np.abs((hi.astype(np.float64) + lo) - w)
+        assert (err <= np.abs(w) * 2.0 ** -21 + 1e-30).all()
+
+
+@pytest.mark.parametrize("kw", [V24, FULL, LOG], ids=["v24", "full", "log"])
+def test_group_consts_hold_every_residue(kw):
+    """bg and fbg are kernel_consts rearranged: each residue's twiddle pair
+    and filterbank slab appears once, in the group and half the kernel
+    reads it from, and nothing else is non-zero."""
+    from birdnet_go_tpu_torch.ops.pallas_melspec import (
+        group_consts,
+        residue_groups,
+    )
+
+    wpk, twa, twb, fb2, j2 = kernel_consts(kw["sample_rate"], kw["n_fft"],
+                                           kw["n_mels"], 0.0, kw["fmax"])
+    bg, fbg = group_consts(twa, twb, fb2)
+    assert bg.shape == (8, 256, 4 * j2)
+    assert fbg.shape == (8, 2 * j2, -(-kw["n_mels"] // 8) * 8)
+    groups = residue_groups()
+    assert sorted(r for p in groups for r in p) == list(range(16))
+    for g, (r1, r2) in enumerate(groups):
+        for h, r in enumerate((r1, r2)):
+            cols = bg[g, :, h * 2 * j2:(h + 1) * 2 * j2]
+            rr = r if r <= 8 else 16 - r
+            # rows 0..127 multiply packed row g, rows 128..255 row 8 + g
+            if g == 0:
+                want = np.zeros_like(cols)
+                want[h * 128:(h + 1) * 128] = twa[r]
+            else:
+                assert rr == g
+                want = np.concatenate([twa[r], twb[r]])
+            np.testing.assert_array_equal(cols, want)
+            np.testing.assert_array_equal(
+                fbg[g, h * j2:(h + 1) * j2, :kw["n_mels"]], fb2[r])
+    assert not fbg[..., kw["n_mels"]:].any()

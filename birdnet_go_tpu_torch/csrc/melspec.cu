@@ -3,25 +3,56 @@
 //
 // Replaces the TPU kernel melspec_fused in
 // birdnet_go_tpu/ops/pallas_melspec.py and runs the same two-stage real DFT
-// with the same constants (built by kernel_consts in
-// birdnet_go_tpu_torch/ops/pallas_melspec.py, a port of _kernel_consts):
-// frame sample n = a·128 + b; stage 1 is a 16-point DFT over a, packed by
-// conjugate symmetry into 16 real rows (re S[0..8], im S[1..7]); stage 2 is,
-// per residue r, a 128-long contraction over b against the twiddle pair
-// (twa, twb) for the J2 bin groups j that the filterbank uses (bin r + 16·j);
-// then |X|² and the projection through the permuted filterbank fb2.
+// with the same constants (kernel_consts in
+// birdnet_go_tpu_torch/ops/pallas_melspec.py, a port of _kernel_consts,
+// rearranged per residue group by group_consts): frame sample n = a·128 + b;
+// stage 1 is a 16-point DFT over a, packed by conjugate symmetry into 16 real
+// rows (re S[0..8], im S[1..7]); stage 2 is, per residue r, a contraction
+// over b of the packed rows against the twiddle pair for the J2 bin groups j
+// that the filterbank uses (bin r + 16·j); then |X|² and the projection
+// through the permuted filterbank.
 //
-// What bounds it here: about 0.4 M multiply-adds per frame at J2 = 40
+// What bounds it: about 0.42 M float32 multiply-adds per frame at J2 = 40
 // (stage 1: 128·16·16 = 33 K; stage 2: 16·40·128·4 = 328 K; mel: 16·40·96 =
-// 61 K), all in float32 FMAs. The unfused plain path instead writes the
-// [278, 2048] float32 frames of each 3 s window (about 2.3 MB) and its DFT
-// intermediates to device memory and reads them back. This kernel reads only
-// the int16 PCM span of its frame tile, keeps frames, stage-1 rows and the
-// power spectrum in shared memory, and writes only mel rows. The twiddle
-// slabs (2 · 16·128·2·J2 floats, 1.3 MB at J2 = 40) are read from L2 once per
-// tile of kTile frames and reused by all of them; that L2 traffic and the FMA
-// rate are what bound this simple design. Tensor cores, TMA and wgmma are
-// left for later work.
+// 61 K): 60 GFLOP for a [256, 144000] call, 0.90 ms at the card's 67 TFLOP/s
+// float32 peak, against 87 MB of PCM and mel rows (0.03 ms). Stage 2 is 78%
+// of it, so it goes to the tensor cores:
+//
+// - Residue groups. The residues pair up by the packed rows they read:
+//   (0, 8) on rows 0 and 8, and (g, 16 - g) on rows g and 8 + g. Per group,
+//   stage 2 of both residues is one product A [M frames × 256] · B [256 ×
+//   4·J2], with A the two rows interleaved by sample (k = 2·b + row; group
+//   0, whose residues read one row each, is [row 0 | row 8]) and B the two
+//   residues' twiddle pairs side by side (group_consts). Stage 1 computes
+//   the group's two rows on CUDA cores into A; the 16 rows are each
+//   computed once.
+// - 3xTF32. A single TF32 pass keeps 10 mantissa bits and misses the float32
+//   gate by up to 30x on loud tones (tests/test_torch_melspec.py emulates
+//   both). Each operand x is split as hi = tf32(x), lo = tf32(x - hi), and
+//   mma.sync m16n8k8 sums lo·hi + hi·lo + hi·hi in float32. Stage 2 keeps
+//   the two-level sum of the first version of this kernel: runs of 16
+//   k-terms, both rows' terms of 8 samples, go into a fresh fragment that
+//   is then added to the total (a serial float32 sum over 128 terms lost
+//   1.2e-3 of a quiet band next to a loud tone; summing each row's 128
+//   terms apart before the rows cancel lost 2e-4 of a quiet log band).
+//   The mel projection, power [M × 2·J2] · filterbank [2·J2 × n_mels] per
+//   group, runs on the same 3xTF32 MMA into accumulators that stay in
+//   registers over all groups.
+// - Operands. The twiddles and the filterbank are split into (hi, lo) pairs
+//   once on the host, so a B fragment value is one 64-bit load and no
+//   arithmetic; A (frames) is split as its fragments load, by each warp.
+// - Twiddle traffic. A block covers M = 32 frames, so each twiddle pair read
+//   from L2 feeds 32 frames (8 in the first version). The twiddles stream
+//   through a ring of 2 to 4 chunks of 8 k-rows with cp.async, up to three
+//   chunks ahead of the MMAs that read them. Each thread's copy offsets and
+//   each warp's fragment columns are worked out once, not per chunk.
+// - Shared memory per block: the PCM span as int16 ((M - 1)·hop + 2048
+//   samples), the A tile (M × 260 floats) and the ring, which also holds
+//   the group's power tile after its MMAs. The launcher takes the deepest
+//   ring that leaves two blocks on an SM (4 chunks, 111 KB, at v2.4's
+//   config; 2 chunks, 110 KB, at v3.0's).
+// Left for later work: wgmma and TMA, and overlapping stage 1 with the MMAs
+// inside a block (the second block on the SM overlaps them now).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -32,11 +63,16 @@ namespace {
 constexpr int kA = 16;                   // stage-1 radix (points over a)
 constexpr int kB = 128;                  // stage-2 length (b)
 constexpr int kNfft = kA * kB;           // 2048
-constexpr int kTile = 8;                 // frames per block
-constexpr int kThreads = kB;             // stage 1: one thread per b
-constexpr int kChunk = 16;               // stage-2 partial-sum length
-constexpr int kPitch = kTile * kB + 4;   // floats per packed row; +4 keeps
-                                         // two rows on different banks
+constexpr int kM = 32;                   // frames per block: two m16 tiles
+constexpr int kK = 2 * kB;               // stage-2 depth: two packed rows
+constexpr int kGroups = kA / 2;          // residue groups
+constexpr int kAPitch = kK + 4;          // A-tile row pitch: conflict-free
+                                         // fragment loads (4·row + col)
+constexpr int kChunkRows = 8;            // k rows per twiddle chunk (one k8)
+constexpr int kChunks = kK / kChunkRows; // chunks per group
+constexpr int kStage1Threads = 2 * kB;   // stage 1: (b, frame parity)
+constexpr int kMelMax = 6;               // mel tiles per warp
+constexpr int kMaxJ2 = 72;               // 16·72 > 1025 bins
 
 enum MagScale { kLinear = 0, kLog = 1, kDb = 2, kNonlinear = 3 };
 
@@ -49,125 +85,304 @@ __device__ __forceinline__ float scale_mag(float x, int mag, float off) {
   }
 }
 
-// Grid (frame tiles, batch rows); block kThreads threads. Dynamic shared
-// memory: s [kA][kPitch] | w1 [kA][kA] | u, which holds the PCM span during
-// stage 1 and the power spectrum [kTile][kA·j2] after it.
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to float32 rounding, both TF32 values
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a · b on the tensor cores: a 16×8 (row), b 8×8 (col), d 16×8 f32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a · b in 3xTF32, the small products first, then hi·hi; b0 and b1
+// are B's two fragment values as (hi, lo) pairs, split on the host
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float2 b0,
+                                     float2 b1) {
+  const uint32_t h0 = __float_as_uint(b0.x), l0 = __float_as_uint(b0.y);
+  const uint32_t h1 = __float_as_uint(b1.x), l1 = __float_as_uint(b1.y);
+  mma_tf32(d, al, h0, h1);
+  mma_tf32(d, ah, l0, l1);
+  mma_tf32(d, ah, h0, h1);
+}
+
+// The A fragment of rows (r0, r0 + 8), columns (c0, c0 + 4) of a row-major
+// tile, split into hi and lo.
+__device__ __forceinline__ void load_a(const float* p, int pitch,
+                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  split(p[0], ah[0], al[0]);
+  split(p[8 * pitch], ah[1], al[1]);
+  split(p[4], ah[2], al[2]);
+  split(p[8 * pitch + 4], ah[3], al[3]);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait(int stages) {
+  // all but the newest stages - 2 copy groups have landed
+  if (stages == 4)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (stages == 3)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__host__ __device__ constexpr int pcm_bytes(int hop) {
+  return (((kM - 1) * hop + kNfft) * 2 + 15) / 16 * 16;
+}
+
+// ring row pitch in (hi, lo) pairs: ≡ 4 mod 16 keeps the 64-bit B fragment
+// loads of a half-warp on distinct banks
+__host__ __device__ constexpr int ring_pitch(int j2) { return 4 * j2 + 4; }
+
+__host__ __device__ constexpr int ring_stage_bytes(int j2) {
+  return kChunkRows * ring_pitch(j2) * 8;
+}
+
+// Grid (frame tiles of kM, batch rows); block W warps. Warp w owns the
+// m16 tile w & 1 of the frames. In stage 2 it owns UPW units (m16 tile,
+// residue h of the group, bin group q of 8): the re and im n8 tiles of those
+// bins. In the mel projection it owns up to kMelMax n8 tiles of mel bands.
+// Dynamic shared memory: pcm int16 [span] | A [kM][kAPitch] floats | ring
+// [stages][kChunkRows][ring_pitch] (hi, lo) pairs, which holds the power
+// tile [kM][2·j2 + 4] floats between a group's stage 2 and its mel
+// projection. bg2 [8][256][4·j2] and fbg2 [8][2·j2][nm8] are (hi, lo) pairs.
+template <int UPW, int W>
+__global__ void __launch_bounds__(W * 32, 2)
 melspec_kernel(const int16_t* __restrict__ pcm, int t_len, int hop,
                int n_frames, const float* __restrict__ win,
-               const float* __restrict__ wpk, const float* __restrict__ twa,
-               const float* __restrict__ twb, const float* __restrict__ fb2,
-               int j2, int n_mels, int mag, float log_offset,
-               void* __restrict__ out, int out_bf16) {
-  extern __shared__ float smem[];
-  float* s = smem;
-  float* w1 = s + kA * kPitch;
-  float* u = w1 + kA * kA;
+               const float* __restrict__ wpk, const float2* __restrict__ bg2,
+               const float2* __restrict__ fbg2, int j2, int n_mels, int nm8,
+               int stages, int mag, float log_offset, void* __restrict__ out,
+               int out_bf16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* u = reinterpret_cast<int16_t*>(smem);
+  float* a_tile = reinterpret_cast<float*>(smem + pcm_bytes(hop));
+  float2* ring = reinterpret_cast<float2*>(a_tile + kM * kAPitch);
+  float* power = reinterpret_cast<float*>(ring);
 
   const int row = blockIdx.y;
-  const int f0 = blockIdx.x * kTile;
+  const int f0 = blockIdx.x * kM;
   const int tid = threadIdx.x;
-  const long long t0 = static_cast<long long>(f0) * hop;
-  const int span = (kTile - 1) * hop + kNfft;
-  const int16_t* src = pcm + static_cast<long long>(row) * t_len;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;               // fragment row (and B column)
+  const int tig = lane & 3;                // fragment column (and B row)
+  const int mt = warp & 1;                 // this warp's m16 tile
+  const int rp = ring_pitch(j2);
+  const int ppitch = 2 * j2 + 4;           // power tile pitch
+  const int jq = j2 / 8;                   // bin groups per residue
+  const int stage_pairs = kChunkRows * rp;
 
-  for (int i = tid; i < kA * kA; i += kThreads) w1[i] = wpk[i];
-  // PCM span → float32 ×1/32768; samples past the end of the signal are 0
-  // (they only feed frames >= n_frames, which are never written).
-  for (int i = tid; i < span; i += kThreads) {
-    const long long t = t0 + i;
-    u[i] = t < t_len ? static_cast<float>(src[t]) * (1.0f / 32768.0f) : 0.0f;
-  }
-  __syncthreads();
-
-  // Stage 1: thread b computes s[p][f][b] = Σ_a wpk[p][a] · x_f[a·128 + b]
-  // for every frame f of the tile, x_f windowed as it is read.
+  // PCM span → shared memory as int16; samples past the end of the signal
+  // are 0 (they only feed frames >= n_frames, which are never written)
   {
-    const int b = tid;
-    float wv[kA];
-#pragma unroll
-    for (int a = 0; a < kA; ++a) wv[a] = win[a * kB + b];
-    for (int f = 0; f < kTile; ++f) {
-      float x[kA];
-#pragma unroll
-      for (int a = 0; a < kA; ++a) x[a] = u[f * hop + a * kB + b] * wv[a];
-#pragma unroll
-      for (int p = 0; p < kA; ++p) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int a = 0; a < kA; ++a) acc = fmaf(w1[p * kA + a], x[a], acc);
-        s[p * kPitch + f * kB + b] = acc;
-      }
+    const int span = (kM - 1) * hop + kNfft;
+    const long long t0 = static_cast<long long>(f0) * hop;
+    const int16_t* src = pcm + static_cast<long long>(row) * t_len;
+    for (int i = tid; i < span; i += W * 32) {
+      const long long t = t0 + i;
+      u[i] = t < t_len ? src[t] : static_cast<int16_t>(0);
     }
   }
-  __syncthreads();
+  // stage 1: thread (b, parity) holds the window at b, times 1/32768 (exact)
+  const int b1 = tid & (kB - 1);
+  float wv[kA];
+  if (tid < kStage1Threads) {
+#pragma unroll
+    for (int a = 0; a < kA; ++a)
+      wv[a] = __ldg(win + a * kB + b1) * (1.0f / 32768.0f);
+  }
 
-  // Stage 2 + |X|²: one (r, j) pair per thread and loop step, all frames of
-  // the tile at once so each twiddle value read from L2 feeds kTile frames.
-  // For r = 0 and 8, im S_r = 0 and twb[r] is all zeros, so p2 = p1 adds 0.
-  const int K = kA * j2;
-  float* pw = u;                          // [kTile][K]
-  for (int q = tid; q < K; q += kThreads) {
-    const int r = q / j2;
-    const int j = q - r * j2;
-    const int rr = r <= kA / 2 ? r : kA - r;
-    const int p1 = rr;
-    const int p2 = (r % (kA / 2)) ? kA / 2 + rr : p1;
-    const float* sa = s + p1 * kPitch;
-    const float* sb = s + p2 * kPitch;
-    const float* ta = twa + static_cast<size_t>(r) * kB * 2 * j2 + j;
-    const float* tb = twb + static_cast<size_t>(r) * kB * 2 * j2 + j;
-    // Two-level sum over b (kChunk terms, then the chunk totals): the
-    // terms of a quiet bin next to a loud tone cancel, and one serial sum
-    // of 128 terms lost up to 1.2e-3 of a quiet mel band's value.
-    float re[kTile], im[kTile];
+  // this thread's 16-byte copies of a twiddle chunk: 8 rows of 2·j2 copies
+  // (one copy is two (hi, lo) pairs); offsets in pairs, fixed for the run
+  constexpr int kCopyMax = (kChunkRows * 2 * kMaxJ2 + 255) / 256;
+  int csrc[kCopyMax], cdst[kCopyMax];
+  const int n_copy = kChunkRows * 2 * j2;
 #pragma unroll
-    for (int f = 0; f < kTile; ++f) re[f] = im[f] = 0.0f;
-    for (int b0 = 0; b0 < kB; b0 += kChunk) {
-      float pr[kTile], pi[kTile];
+  for (int i = 0; i < kCopyMax; ++i) {
+    const int v = tid + i * W * 32;
+    const int r = v / (2 * j2), c = v - r * 2 * j2;
+    csrc[i] = v < n_copy ? r * 4 * j2 + 2 * c : -1;
+    cdst[i] = r * rp + 2 * c;
+  }
+  // this warp's stage-2 units: re column in the group's 4·j2 (the im
+  // column is j2 further), residue h, power column; -1 = none
+  int ucol[UPW], uh[UPW], upow[UPW];
 #pragma unroll
-      for (int f = 0; f < kTile; ++f) pr[f] = pi[f] = 0.0f;
-      for (int b = b0; b < b0 + kChunk; ++b) {
-        const float ar = __ldg(ta + b * 2 * j2);
-        const float ai = __ldg(ta + b * 2 * j2 + j2);
-        const float br = __ldg(tb + b * 2 * j2);
-        const float bi = __ldg(tb + b * 2 * j2 + j2);
+  for (int i = 0; i < UPW; ++i) {
+    const int v = (warp >> 1) + i * (W / 2);
+    const int h = v / jq, q = v - h * jq;
+    const bool ok = v < 2 * jq;
+    ucol[i] = ok ? h * 2 * j2 + q * 8 + gid : -1;
+    uh[i] = h;
+    upow[i] = h * j2 + q * 8 + 2 * tig;
+  }
+  // this warp's mel n8 tiles: column of the lane's B fragment; -1 = none
+  int mcol[kMelMax];
 #pragma unroll
-        for (int f = 0; f < kTile; ++f) {
-          const float x1 = sa[f * kB + b];
-          const float x2 = sb[f * kB + b];
-          pr[f] = fmaf(x1, ar, fmaf(x2, br, pr[f]));
-          pi[f] = fmaf(x1, ai, fmaf(x2, bi, pi[f]));
+  for (int i = 0; i < kMelMax; ++i) {
+    const int nt = (warp >> 1) + i * (W / 2);
+    mcol[i] = nt * 8 < nm8 ? nt * 8 + gid : -1;
+  }
+
+  float mel[kMelMax][4];
+#pragma unroll
+  for (int i = 0; i < kMelMax; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mel[i][e] = 0.0f;
+
+  for (int g = 0; g < kGroups; ++g) {
+    const float2* bsrc = bg2 + static_cast<size_t>(g) * kK * 4 * j2;
+    // chunk c (kChunkRows twiddle rows) → ring slot c % stages
+    auto issue = [&](int c) {
+      float2* dst = ring + (c % stages) * stage_pairs;
+      const float2* s = bsrc + static_cast<size_t>(c) * kChunkRows * 4 * j2;
+#pragma unroll
+      for (int i = 0; i < kCopyMax; ++i)
+        if (csrc[i] >= 0) cp_async16(dst + cdst[i], s + csrc[i]);
+    };
+    for (int c = 0; c < stages - 1; ++c) {
+      issue(c);
+      cp_async_commit();
+    }
+
+    // stage 1 for packed rows g and 8 + g, in the first version's order
+    __syncthreads();                       // PCM in place (g == 0)
+    if (tid < kStage1Threads) {
+      float w1[kA], w2[kA];
+#pragma unroll
+      for (int a = 0; a < kA; ++a) {
+        w1[a] = __ldg(wpk + g * kA + a);
+        w2[a] = __ldg(wpk + (kA / 2 + g) * kA + a);
+      }
+      for (int f = tid >> 7; f < kM; f += 2) {
+        const int16_t* x = u + f * hop + b1;
+        float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+        for (int a = 0; a < kA; ++a) {
+          const float xa = static_cast<float>(x[a * kB]) * wv[a];
+          s1 = fmaf(w1[a], xa, s1);
+          s2 = fmaf(w2[a], xa, s2);
+        }
+        if (g == 0) {                      // [row 0 | row 8]
+          a_tile[f * kAPitch + b1] = s1;
+          a_tile[f * kAPitch + kB + b1] = s2;
+        } else {                           // k = 2·b + row
+          *reinterpret_cast<float2*>(a_tile + f * kAPitch + 2 * b1) =
+              make_float2(s1, s2);
         }
       }
+    }
+
+    // stage 2: total += (partial over 16 k-terms), per unit re and im
+    float tot[UPW][2][4], part[UPW][2][4];
 #pragma unroll
-      for (int f = 0; f < kTile; ++f) {
-        re[f] += pr[f];
-        im[f] += pi[f];
+    for (int i = 0; i < UPW; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) tot[i][e][v] = part[i][e][v] = 0.0f;
+
+    for (int c = 0; c < kChunks; ++c) {
+      cp_async_wait(stages);
+      __syncthreads();                     // chunk c in place, A ready
+      if (c + stages - 1 < kChunks) issue(c + stages - 1);
+      cp_async_commit();
+
+      const float2* bs = ring + (c % stages) * stage_pairs + tig * rp;
+      uint32_t ah[4], al[4];
+      load_a(a_tile + (mt * 16 + gid) * kAPitch + c * kChunkRows + tig,
+             kAPitch, ah, al);
+#pragma unroll
+      for (int i = 0; i < UPW; ++i) {
+        if (ucol[i] < 0) continue;
+        // group 0 is block-diagonal: residue 0 on k < 128, 8 on k >= 128
+        if (g == 0 && (c < kChunks / 2) != (uh[i] == 0)) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          mma3(part[i][e], ah, al, bs[ucol[i] + e * j2],
+               bs[4 * rp + ucol[i] + e * j2]);
+        }
+      }
+      if (c & 1) {
+#pragma unroll
+        for (int i = 0; i < UPW; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              tot[i][e][v] += part[i][e][v];
+              part[i][e][v] = 0.0f;
+            }
       }
     }
-#pragma unroll
-    for (int f = 0; f < kTile; ++f)
-      pw[f * K + q] = re[f] * re[f] + im[f] * im[f];
-  }
-  __syncthreads();
+    __syncthreads();                       // the ring is free: power tile
 
-  // Mel projection: one mel band per thread and loop step, all frames.
-  for (int m = tid; m < n_mels; m += kThreads) {
-    float acc[kTile];
+    // |X|² → power [kM][2·j2] (residue h at column h·j2 + j)
 #pragma unroll
-    for (int f = 0; f < kTile; ++f) acc[f] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float w = __ldg(fb2 + static_cast<size_t>(k) * n_mels + m);
+    for (int i = 0; i < UPW; ++i) {
+      if (ucol[i] < 0) continue;
 #pragma unroll
-      for (int f = 0; f < kTile; ++f) acc[f] = fmaf(pw[f * K + k], w, acc[f]);
+      for (int e = 0; e < 4; ++e) {
+        const float re = tot[i][0][e], im = tot[i][1][e];
+        power[(mt * 16 + gid + (e >> 1) * 8) * ppitch + upow[i] + (e & 1)] =
+            re * re + im * im;
+      }
     }
+    __syncthreads();
+
+    // mel += power · fbg[g], 3xTF32
+    const float2* fb = fbg2 + static_cast<size_t>(g) * 2 * j2 * nm8 +
+                       static_cast<size_t>(tig) * nm8;
+    for (int k0 = 0; k0 < 2 * j2; k0 += 8) {
+      uint32_t ah[4], al[4];
+      load_a(power + (mt * 16 + gid) * ppitch + k0 + tig, ppitch, ah, al);
+      const float2* fk = fb + static_cast<size_t>(k0) * nm8;
 #pragma unroll
-    for (int f = 0; f < kTile; ++f) {
-      if (f0 + f >= n_frames) break;
-      const float v = scale_mag(acc[f], mag, log_offset);
-      const size_t o =
-          (static_cast<size_t>(row) * n_frames + f0 + f) * n_mels + m;
+      for (int i = 0; i < kMelMax; ++i) {
+        if (mcol[i] < 0) continue;
+        mma3(mel[i], ah, al, __ldg(fk + mcol[i]),
+             __ldg(fk + 4 * nm8 + mcol[i]));
+      }
+    }
+    __syncthreads();                       // power read: the ring is free
+  }
+
+  // magnitude scale and store: lane holds frames (gid, gid + 8) of its m16
+  // tile and bands (2·tig, 2·tig + 1) of each n8 tile
+#pragma unroll
+  for (int i = 0; i < kMelMax; ++i) {
+    if (mcol[i] < 0) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int f = f0 + mt * 16 + gid + (e >> 1) * 8;
+      const int m = mcol[i] - gid + 2 * tig + (e & 1);
+      if (f >= n_frames || m >= n_mels) continue;
+      const float v = scale_mag(mel[i][e], mag, log_offset);
+      const size_t o = (static_cast<size_t>(row) * n_frames + f) * n_mels + m;
       if (out_bf16)
         static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
       else
@@ -176,34 +391,80 @@ melspec_kernel(const int16_t* __restrict__ pcm, int t_len, int hop,
   }
 }
 
+template <int UPW, int W>
+cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
+                   const int16_t* pcm, int t_len, int hop, int n_frames,
+                   const float* win, const float* wpk, const float2* bg2,
+                   const float2* fbg2, int j2, int n_mels, int nm8,
+                   int stages, int mag, float log_offset, void* out,
+                   int out_bf16) {
+  cudaError_t err = cudaFuncSetAttribute(
+      melspec_kernel<UPW, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  melspec_kernel<UPW, W><<<grid, W * 32, smem, stream>>>(
+      pcm, t_len, hop, n_frames, win, wpk, bg2, fbg2, j2, n_mels, nm8,
+      stages, mag, log_offset, out, out_bf16);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches on `stream` (a cudaStream_t), allocates nothing, and returns the
 // cudaError_t of the attribute call or of the launch (0 = success). The
-// caller has checked shapes, dtypes, contiguity and the config.
+// caller has checked shapes, dtypes, contiguity and the config; bg2 and
+// fbg2 are group_consts' [8, 256, 4·j2] and [8, 2·j2, n_mels rounded up to
+// 8] split into (hi, lo) pairs. Refused (cudaErrorInvalidValue): j2 not a
+// multiple of 8 or above 72, and more mel bands than the warps'
+// accumulators hold (192 at 8 warps).
 int melspec_fused_launch(const void* pcm, int batch, int t_len, int hop,
                          int n_frames, const void* win, const void* wpk,
-                         const void* twa, const void* twb, const void* fb2,
-                         int j2, int n_mels, int mag, float log_offset,
-                         void* out, int out_bf16, void* stream) {
-  const int span = (kTile - 1) * hop + kNfft;
-  const int power = kTile * kA * j2;
-  const size_t smem =
-      sizeof(float) * (kA * kPitch + kA * kA + (span > power ? span : power));
-  cudaError_t err = cudaFuncSetAttribute(
-      melspec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_frames + kTile - 1) / kTile, batch);
-  melspec_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(pcm), t_len, hop, n_frames,
-      static_cast<const float*>(win), static_cast<const float*>(wpk),
-      static_cast<const float*>(twa), static_cast<const float*>(twb),
-      static_cast<const float*>(fb2), j2, n_mels, mag, log_offset, out,
-      out_bf16);
-  return static_cast<int>(cudaGetLastError());
+                         const void* bg2, const void* fbg2, int j2,
+                         int n_mels, int mag, float log_offset, void* out,
+                         int out_bf16, void* stream) {
+  const int nm8 = (n_mels + 7) / 8 * 8;
+  // stage-2 units: 2 m16 tiles × 2 residues × j2/8 bin groups; 10 warps
+  // where that divides them evenly (j2 = 40), else 8
+  const int units = j2 / 2;
+  const int warps = units % 10 == 0 ? 10 : 8;
+  const int upw = (units + warps - 1) / warps;
+  if (j2 <= 0 || j2 % 8 || j2 > kMaxJ2 || 2 * nm8 / 8 > kMelMax * warps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the deepest ring (2 to 4 chunks) that keeps two blocks on an SM: 228 KB
+  // of shared memory, 1 KB of it reserved per block
+  const size_t fixed = pcm_bytes(hop) + sizeof(float) * kM * kAPitch;
+  int stages = 4;
+  while (stages > 2 &&
+         2 * (fixed + stages * ring_stage_bytes(j2) + 1024) > 228 * 1024)
+    --stages;
+  const size_t smem = fixed + stages * ring_stage_bytes(j2);
+  const dim3 grid((n_frames + kM - 1) / kM, batch);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto p = static_cast<const int16_t*>(pcm);
+  auto w = static_cast<const float*>(win);
+  auto k = static_cast<const float*>(wpk);
+  auto b = static_cast<const float2*>(bg2);
+  auto f = static_cast<const float2*>(fbg2);
+  cudaError_t err;
+#define MEL_LAUNCH(U, N)                                                     \
+  launch<U, N>(grid, smem, s, p, t_len, hop, n_frames, w, k, b, f, j2,       \
+               n_mels, nm8, stages, mag, log_offset, out, out_bf16)
+  if (warps == 10)
+    err = MEL_LAUNCH(2, 10);
+  else if (upw == 1)
+    err = MEL_LAUNCH(1, 8);
+  else if (upw == 2)
+    err = MEL_LAUNCH(2, 8);
+  else if (upw == 3)
+    err = MEL_LAUNCH(3, 8);
+  else if (upw == 4)
+    err = MEL_LAUNCH(4, 8);
+  else
+    err = MEL_LAUNCH(5, 8);
+#undef MEL_LAUNCH
+  return static_cast<int>(err);
 }
 
 const char* birdnet_cuda_error_string(int err) {

@@ -1,8 +1,9 @@
 """Build the CUDA kernels in ``birdnet_go_tpu_torch/csrc/`` and load them.
 
 On first use in a process, every ``csrc/*.cu`` is compiled with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface under
-``build/torch_kernels/`` at the root of the checkout, and loaded with
+``sm_90a``, one ``nvcc`` per source, all started together, and the objects
+are linked into one shared library with a plain C interface under
+``build/torch_kernels/`` at the root of the checkout, loaded with
 ``ctypes``. The library's name carries a hash of the sources, so an edited
 source is rebuilt and an unchanged one is reused. ``nvcc``'s output, with
 ptxas's register and spill counts, is kept beside it (``build_log``). A
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -60,8 +61,8 @@ def build_log() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.melspec_fused_launch.argtypes = [p, i, i, i, i, p, p, p, p, p, i, i,
-                                         i, f, p, i, p]
+    lib.melspec_fused_launch.argtypes = [p, i, i, i, i, p, p, p, p, i, i, i,
+                                         f, p, i, p]
     lib.melspec_fused_launch.restype = i
     lib.expand_dw_pool_launch.argtypes = [p, i, p, p, p, p, p, p, p, i, p, p,
                                           i, i, i, i, i, i, i, i, p]
@@ -81,21 +82,40 @@ def load() -> ctypes.CDLL:
             return _lib
         path = library_path()
         if not path.is_file():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, _sources())]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                    f"{res.stdout}{res.stderr}")
-            build_log().write_text(res.stdout + res.stderr)
-            os.replace(tmp, path)
+            _build(path)
         lib = ctypes.CDLL(str(path))
         _declare(lib)
         _lib = lib
         return lib
+
+
+def _build(path: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for obj, src in zip(objs, _sources())]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    try:
+        for cmd, proc, out in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{out}")
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): "
+                               f"{' '.join(link)}\n{res.stdout}"
+                               f"{res.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_log().write_text("".join(logs))
+    os.replace(tmp, path)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

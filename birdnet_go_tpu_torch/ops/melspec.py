@@ -167,7 +167,8 @@ def _rdft_power_permuted(frames: torch.Tensor, n_fft: int) -> torch.Tensor:
     """frames [..., F, n_fft] → power spectrum [..., F, A, J] (r, j layout)."""
     war, wai, twr, twi, _, a_sz, b_sz, _ = _rdft_matmul_consts(n_fft)
     dev = frames.device
-    war, wai, twr, twi = (_const(c, dev) for c in (war, wai, twr, twi))
+    war, wai, twr, twi = (_const(c, dev).to(frames.dtype)
+                          for c in (war, wai, twr, twi))
     x = frames.reshape(*frames.shape[:-1], a_sz, b_sz)   # x[a, b]
     # stage 1: DFT over 'a' for each b → s[r, b] complex
     sr = torch.einsum("...ab,ar->...rb", x, war)
@@ -219,11 +220,15 @@ def scale_mag(mel: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
 
 
 def melspec(x: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
-    """PCM float32 [..., T] → mel spectrogram [..., F, n_mels] (float32)."""
-    frames = frame_signal(x.to(torch.float32), cfg)
+    """PCM float32 [..., T] → mel spectrogram [..., F, n_mels] (float32).
+
+    A float64 signal is computed in float64, with the same float32
+    constants: the reference the CUDA kernel is held to on the card."""
+    dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    frames = frame_signal(x.to(dtype), cfg)
     if cfg.use_matmul_fft and cfg.power == 2.0:
         # permuted-layout matmul DFT + permuted filterbank
-        win = _const(_window_fn(cfg), x.device)
+        win = _const(_window_fn(cfg), x.device).to(dtype)
         p = _rdft_power_permuted(frames * win, cfg.n_fft)
         p = p.reshape(*p.shape[:-2], -1)
         fb = _mel_filterbank_permuted_np(
@@ -232,5 +237,5 @@ def melspec(x: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
         p = _spectrum(frames, cfg)
         fb = _mel_filterbank_np(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
                                 cfg.fmin, cfg.fmax)
-    mel = torch.matmul(p, _const(fb, x.device))
+    mel = torch.matmul(p, _const(fb, x.device).to(dtype))
     return scale_mag(mel, cfg)

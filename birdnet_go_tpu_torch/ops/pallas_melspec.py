@@ -30,6 +30,7 @@ _A = 16                       # radix: B = n_fft // 16 must equal 128
 _LANE = 128
 _MAG_MODES = {"linear": 0, "log": 1, "db": 2, "nonlinear": 3}
 _MAX_GRID_Y = 65535
+_MAX_MELS = 192               # the kernel's mel accumulators at 8 warps
 
 
 @functools.lru_cache(maxsize=8)
@@ -91,11 +92,14 @@ def group_consts(twa: np.ndarray, twb: np.ndarray, fb2: np.ndarray):
     """The kernel's per-group operands: (bg [8, 256, 4·j2], fbg [8, 2·j2,
     n_mels rounded up to 8]).
 
-    Group g's stage-2 product is A [frames, 256] = [packed row g | packed
-    row 8 + g] times bg[g]; its columns are residue h's (re j, im j) at
-    h·2·j2. Group 0 is block-diagonal: residue 0 reads only row 0 and
-    residue 8 only row 8. fbg[g] stacks the two residues' filterbank rows,
-    zero-padded to a multiple of 8 mel bands.
+    Group g's stage-2 product is A [frames, 256] times bg[g]; its columns
+    are residue h's (re j, im j) at h·2·j2. For g = 1..7, A interleaves the
+    packed rows g and 8 + g by b (k = 2·b + row), so that every run of 16
+    k-terms holds both rows' terms of 8 samples, which cancel there as they
+    do in the first version's sums. Group 0 is block-diagonal, A = [row 0 |
+    row 8]: residue 0 reads only row 0 and residue 8 only row 8. fbg[g]
+    stacks the two residues' filterbank rows, zero-padded to a multiple of
+    8 mel bands.
     """
     a_sz, b_sz, w2 = twa.shape
     j2, n_mels = fb2.shape[1:]
@@ -109,19 +113,34 @@ def group_consts(twa: np.ndarray, twb: np.ndarray, fb2: np.ndarray):
             if g == 0:
                 bg[g, h * b_sz:(h + 1) * b_sz, cols] = twa[r]
             else:
-                bg[g, :b_sz, cols] = twa[r]
-                bg[g, b_sz:, cols] = twb[r]
+                bg[g, 0::2, cols] = twa[r]
+                bg[g, 1::2, cols] = twb[r]
             fbg[g, h * j2:(h + 1) * j2, :n_mels] = fb2[r]
     return bg, fbg
 
 
+def tf32_split(x: np.ndarray) -> np.ndarray:
+    """float32 x → [..., 2] (hi, lo) with hi = tf32(x), lo = tf32(x - hi),
+    rounding as ``cvt.rna.tf32.f32`` does (to nearest, ties away from zero,
+    10-bit mantissa): the kernel's 3xTF32 operands."""
+    def tf32(v):
+        bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+        return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+            np.float32)
+
+    hi = tf32(x)
+    return np.stack([hi, tf32(x - hi)], axis=-1)
+
+
 @functools.lru_cache(maxsize=8)
 def _device_consts(cfg: MelConfig, device: torch.device):
-    """(window, wpk, bg, fbg) as contiguous float32 tensors on `device`,
-    and j2; built once per (config, device)."""
+    """(window, wpk, bg2, fbg2) as contiguous float32 tensors on `device`,
+    and j2; bg2 and fbg2 are group_consts' arrays split by ``tf32_split``.
+    Built once per (config, device)."""
     wpk, twa, twb, fb2, j2 = kernel_consts(cfg.sample_rate, cfg.n_fft,
                                            cfg.n_mels, cfg.fmin, cfg.fmax)
-    arrays = (_window_fn(cfg), wpk, *group_consts(twa, twb, fb2))
+    arrays = (_window_fn(cfg), wpk,
+              *map(tf32_split, group_consts(twa, twb, fb2)))
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in arrays), j2
 
@@ -202,19 +221,21 @@ def melspec_fused(pcm_i16: torch.Tensor, cfg: MelConfig,
     if not 0 < b <= _MAX_GRID_Y:
         raise ValueError(
             f"melspec_fused: batch {b} outside [1, {_MAX_GRID_Y}]")
+    if cfg.n_mels > _MAX_MELS:
+        raise ValueError(f"melspec_fused: {cfg.n_mels} mel bands, the "
+                         f"kernel holds at most {_MAX_MELS}")
 
     lib = _build.load()
-    (win, wpk, twa, twb, fb2), j2 = _device_consts(cfg, pcm_i16.device)
+    (win, wpk, bg2, fbg2), j2 = _device_consts(cfg, pcm_i16.device)
     out = torch.empty((b, n_frames, cfg.n_mels), dtype=out_dtype,
                       device=pcm_i16.device)
     with torch.cuda.device(pcm_i16.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.melspec_fused_launch(
             pcm_i16.data_ptr(), b, t, cfg.hop, n_frames, win.data_ptr(),
-            wpk.data_ptr(), twa.data_ptr(), twb.data_ptr(), fb2.data_ptr(),
-            j2, cfg.n_mels, _MAG_MODES[cfg.mag_scale],
-            cfg.log_offset, out.data_ptr(), int(out_dtype == torch.bfloat16),
-            stream)
+            wpk.data_ptr(), bg2.data_ptr(), fbg2.data_ptr(), j2, cfg.n_mels,
+            _MAG_MODES[cfg.mag_scale], cfg.log_offset, out.data_ptr(),
+            int(out_dtype == torch.bfloat16), stream)
     _build.check(lib, err, "melspec_fused")
     melspec_fused.launches += 1
     return out

@@ -10,10 +10,13 @@ Phases, in order; any failure propagates and exits non-zero:
    power limit and the toolchain;
 2. the build: compiles ``birdnet_go_tpu_torch/csrc/*.cu`` for sm_90a into
    ``build/torch_kernels/``;
-3. the mel kernel against its plain PyTorch version on the card, at the
-   main path's shape [256, 144000], at v3.0's and Perch v2's configs at
+3. the mel kernel against its plain PyTorch version computed in float64 on
+   the card (the float32 plain path's own error is printed beside it), at
+   the main path's shape [256, 144000], at v3.0's and Perch v2's configs at
    [256, 160000], and on the other configs the JAX kernel's tests use, with
-   CUDA-event times of both;
+   CUDA-event times of both, the library yardstick's (``mel_library``:
+   cuFFT, |X|², a float32 product) at B = 256, and the bound from the
+   kernel's work (``melspec_fused_work``);
 4. the fused MBConv kernels A (``expand_dw_pool``) and B
    (``scale_project``) against their plain versions at B = 256 at each
    distinct fused block shape of the v2.4, v3.0 and Perch v2 steps (read
@@ -32,10 +35,12 @@ Phases, in order; any failure propagates and exits non-zero:
    v2.4 (48 kHz), and once for v3.0 with fused blocks (32 kHz), where the
    MBConv kernels must run 13 times per batch.
 
-The last lines are one JSON object for the kernels (the MBConv kernels'
-times and errors summed over the fused blocks of one v3.0 step, whose loop
-counts their launches), the card's ``name, power.limit`` line and
-``{"ok": true, "device": {...}}``.
+Every kernel line carries its bound (``ops/roofline.py``: the larger of its
+bytes over the memory rate and its operations over the peak for their type)
+and its share of it. The last lines are one JSON object for the kernels (the
+MBConv kernels' times, bounds and errors summed over the fused blocks of one
+v3.0 step, whose loop counts their launches), the card's ``name,
+power.limit`` line and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from birdnet_go_tpu_torch.ops.melspec import (
     MelConfig,
     _mel_filterbank_np,
     _window_fn,
+    melspec,
     scale_mag,
 )
 from birdnet_go_tpu_torch.ops.pallas_mbconv import (
@@ -77,6 +83,7 @@ from birdnet_go_tpu_torch.ops.pallas_melspec import (
     melspec_fused_plain,
     melspec_fused_work,
 )
+from birdnet_go_tpu_torch.ops.pcm import pcm16_to_float32
 from birdnet_go_tpu_torch.ops.postprocess import (
     sigmoid_confidence,
     top_k_results,
@@ -170,8 +177,16 @@ def mel_library(pcm: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     return scale_mag(torch.matmul(power.transpose(1, 2), fb), cfg)
 
 
+def plain64(pcm: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """The mel kernel's plain version computed in float64 (same constants):
+    the reference its gates hold it to. The float32 plain path is itself
+    up to 2.6e-4 off it at Perch's log config (a quiet band whose stage-2
+    terms cancel), more than the log gate."""
+    return melspec(pcm16_to_float32(pcm).double(), cfg)
+
+
 def rel_err(ref: torch.Tensor, got: torch.Tensor) -> float:
-    ref, got = ref.float(), got.float()
+    ref, got = ref.double(), got.double()
     return float(((ref - got).abs() / (ref.abs() + 1e-3)).max())
 
 
@@ -222,16 +237,20 @@ def phase_kernel(dev: torch.device, card: str) -> dict:
     for name, kw, x, dt in cases:
         cfg = MelConfig(**kw)
         got = melspec_fused(x, cfg, out_dtype=dt)
-        ref = melspec_fused_plain(x, cfg, out_dtype=dt)
+        ref = plain64(x, cfg)
+        ref32 = melspec_fused_plain(x, cfg)
         torch.cuda.synchronize()
         assert got.shape == ref.shape and got.dtype == dt, name
         assert torch.isfinite(got.float()).all(), name
-        abs_err = float((ref.float() - got.float()).abs().max())
+        abs_err = float((ref - got.double()).abs().max())
         rel = rel_err(ref, got)
+        # the float32 plain path against the same float64 reference
+        plain_err = float((ref - ref32.double()).abs().max()) \
+            if kw["mag_scale"] == "log" else rel_err(ref, ref32)
         if kw["mag_scale"] == "log" and dt == torch.bfloat16:
             # log output: the f32 bound plus one bf16 step of the largest
             # magnitude
-            lim = 2e-4 + 2.0 ** -7 * float(ref.float().abs().max())
+            lim = 2e-4 + 2.0 ** -7 * float(ref.abs().max())
             ok, tol = abs_err < lim, f"abs < {lim:.3e}"
         elif kw["mag_scale"] == "log":
             ok, tol = abs_err < 2e-4, "abs < 2e-4"
@@ -249,14 +268,15 @@ def phase_kernel(dev: torch.device, card: str) -> dict:
             # the library yardstick, against the same kernel once more
             lib = mel_library(x, cfg)
             lib_err = rel_err(ref, lib) if kw["mag_scale"] != "log" else \
-                float((ref.float() - lib).abs().max())
+                float((ref - lib.double()).abs().max())
             library_ms, ms2 = median_ms_pair(
                 lambda: mel_library(x, cfg),
                 lambda: melspec_fused(x, cfg, out_dtype=dt))
             extra = (f" library_ms={library_ms:.4f} (kernel {ms2:.4f} in "
                      f"turns; library err {lib_err:.3e})")
-        print(f"kernel {name} {tuple(x.shape)}: max_abs_err={abs_err:.3e} "
-              f"max_rel_err={rel:.3e} ({tol}) kernel_ms={ms:.4f} "
+        print(f"kernel {name} {tuple(x.shape)}: against the float64 plain "
+              f"path max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} ({tol})"
+              f", float32 plain path {plain_err:.3e}; kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f}{extra} bound_ms={bound:.4f} "
               f"({by}) share={bound / ms:.3f} [{card}]")
         assert ok, f"melspec kernel disagrees with plain ({name})"
@@ -356,8 +376,8 @@ def phase_mbconv(dev: torch.device, card: str) -> dict:
     cases.append(("BirdNET_V2.4 f32 and f32 dot", f32_shape, 0,
                   torch.float32))
     out = {cls.spec.model_id: {
-        name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                   bound_by="bytes", library_ms=None, blocks=0)
+        name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None,
+                   flops={}, nbytes=0.0, blocks=0)
         for name in ("expand_dw_pool", "scale_project")}
         for cls in FAMILIES}
     for seed, (label, shape, n_blocks, dt) in enumerate(cases):
@@ -409,14 +429,18 @@ def phase_mbconv(dev: torch.device, card: str) -> dict:
                 r["max_abs_err"] = max(r["max_abs_err"], abs_err)
                 r["ms"] += n_blocks * ms
                 r["plain_ms"] += n_blocks * plain_ms
-                r["bound_ms"] += n_blocks * bound
-                if by == "operations":
-                    r["bound_by"] = by
+                flops, nbytes = work[name]
+                for t, v in flops.items():
+                    r["flops"][t] = r["flops"].get(t, 0.0) + n_blocks * v
+                r["nbytes"] += n_blocks * nbytes
                 r["blocks"] += n_blocks
         assert pool_rel < 1e-4, f"kernel A's pool disagrees ({label})"
     for model_id, kernels in out.items():
         for name, r in kernels.items():
             n = r.pop("blocks")
+            # the bound of the step's summed work
+            r["bound_ms"], r["bound_by"] = bound_ms(r.pop("flops"),
+                                                    r.pop("nbytes"))
             print(f"mbconv {name}: {r['ms']:.4f} ms against plain "
                   f"{r['plain_ms']:.4f} ms and bound {r['bound_ms']:.4f} ms "
                   f"(share {r['bound_ms'] / r['ms']:.3f}) over the {n} fused "

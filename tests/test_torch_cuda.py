@@ -8,7 +8,8 @@ JAX, so it also runs where JAX is missing:
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 
 Tolerances of the mel kernel are those of the TPU kernel's parity tests
-(``tests/test_pallas_melspec.py``); bf16 output adds one bf16 step. The
+(``tests/test_pallas_melspec.py``), against its plain version computed in
+float64; bf16 output adds one bf16 step. The
 MBConv kernels see the same rounded operands as their plain versions and
 sum in another order (cuBLAS blocks its sums; the kernels sum in sequence,
 over up to 1,152 terms): float32 output within 1e-4 · (|ref| + 0.1), bf16
@@ -31,11 +32,9 @@ from birdnet_go_tpu_torch.models.efficientnet import (
 )
 from birdnet_go_tpu_torch.models.layers import MBConv
 from birdnet_go_tpu_torch.ops import pallas_mbconv as M
-from birdnet_go_tpu_torch.ops.melspec import MelConfig
-from birdnet_go_tpu_torch.ops.pallas_melspec import (
-    melspec_fused,
-    melspec_fused_plain,
-)
+from birdnet_go_tpu_torch.ops.melspec import MelConfig, melspec
+from birdnet_go_tpu_torch.ops.pallas_melspec import melspec_fused
+from birdnet_go_tpu_torch.ops.pcm import pcm16_to_float32
 from birdnet_go_tpu_torch.scheduler.loop import TorchModelBatcher
 
 pytestmark = pytest.mark.cuda
@@ -51,6 +50,12 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+def _plain64(x, cfg):
+    """The mel kernel's plain version in float64: its reference here. The
+    float32 plain path is itself up to 2.6e-4 off it on log configs."""
+    return melspec(pcm16_to_float32(x).double(), cfg)
 
 
 def _pcm(shape, seed, amp=0.05 * 32767):
@@ -73,7 +78,7 @@ def test_kernel_matches_plain(dev, kw, shape, out_dtype):
     got = melspec_fused(x, cfg, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert melspec_fused.launches == before + 1
-    ref = melspec_fused_plain(x, cfg, out_dtype=torch.float32)
+    ref = _plain64(x, cfg)
     assert got.shape == ref.shape and got.dtype == out_dtype
     tol = 1e-3 + (2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0)
     if kw["mag_scale"] in ("db",):
@@ -86,12 +91,69 @@ def test_kernel_matches_plain(dev, kw, shape, out_dtype):
         assert rel < tol, rel
 
 
+def _assert_mel_gate(got, ref, mag_scale, out_dtype):
+    """f32: rel < 1e-3 (log and db: abs < 2e-4); bf16 adds one bf16 step."""
+    ref = ref.double()
+    bf16 = out_dtype == torch.bfloat16
+    if mag_scale in ("log", "db"):
+        err = (got.float() - ref).abs().max().item()
+        assert err < 2e-4 + (2.0 ** -7 * ref.abs().max().item()
+                             if bf16 else 0.0), err
+    else:
+        rel = ((got.float() - ref).abs() / (ref.abs() + 1e-3)).max().item()
+        assert rel < 1e-3 + (2.0 ** -7 if bf16 else 0.0), rel
+
+
+# 97 frames at hop 512: three 32-frame tiles and one ragged frame
+RAGGED = 2048 + 96 * 512
+
+
+@pytest.mark.parametrize("mag", ["linear", "log", "db", "nonlinear"])
+@pytest.mark.parametrize("fmax", [15000.0, 24000.0], ids=["j2_40", "j2_64"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_tiles_and_scales(dev, mag, fmax, out_dtype):
+    cfg = MelConfig(**dict(V24, fmax=fmax, mag_scale=mag))
+    x = _pcm((2, RAGGED), 5).to(dev)
+    before = melspec_fused.launches
+    got = melspec_fused(x, cfg, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert melspec_fused.launches == before + 1
+    assert got.shape == (2, 97, 96) and got.dtype == out_dtype
+    _assert_mel_gate(got, _plain64(x, cfg), mag, out_dtype)
+
+
+@pytest.mark.parametrize("shape", [(1, 48000), (1, RAGGED), (257, 48000)],
+                         ids=["b1_90_frames", "b1_97_frames", "b257"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_ragged_tiles_and_batch_edges(dev, shape, out_dtype):
+    cfg = MelConfig(**V24)
+    x = _pcm(shape, 6).to(dev)
+    before = melspec_fused.launches
+    got = melspec_fused(x, cfg, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert melspec_fused.launches == before + 1
+    assert got.shape == (shape[0], cfg.num_frames(shape[1]), 96)
+    _assert_mel_gate(got, _plain64(x, cfg), "nonlinear",
+                     out_dtype)
+
+
+def test_kernel_odd_mel_count_and_refusal(dev):
+    x = _pcm((2, 48000), 7).to(dev)
+    cfg = MelConfig(**dict(V24, n_mels=37))
+    _assert_mel_gate(melspec_fused(x, cfg), _plain64(x, cfg),
+                     "nonlinear", torch.float32)
+    before = melspec_fused.launches
+    with pytest.raises(ValueError, match="mel bands"):
+        melspec_fused(x, MelConfig(**dict(V24, n_mels=200)))
+    assert melspec_fused.launches == before
+
+
 def test_kernel_log_config_atol(dev):
     cfg = MelConfig(sample_rate=48000, n_fft=2048, hop=512, n_mels=64,
                     fmax=12000.0, mag_scale="log")
     x = _pcm((1, 48000), 1, 3000.0).to(dev)
     got = melspec_fused(x, cfg)
-    ref = melspec_fused_plain(x, cfg)
+    ref = _plain64(x, cfg)
     assert (got - ref).abs().max().item() < 2e-4
 
 
@@ -144,7 +206,7 @@ def test_kernel_matches_plain_on_loud_tones(dev):
     for kw in (V24, dict(V24, fmax=24000.0)):
         cfg = MelConfig(**kw)
         got = melspec_fused(pcm, cfg)
-        ref = melspec_fused_plain(pcm, cfg)
+        ref = _plain64(pcm, cfg)
         rel = ((got - ref).abs() / (ref.abs() + 1e-3)).max().item()
         assert rel < 1e-3, rel
 

@@ -318,7 +318,11 @@ def _emulated_kernel(pcm16, cfg, split=True):
     s = np.einsum("pa,...ab->...pb", wpk, fw).astype(np.float32)  # stage 1
     mel = np.zeros((*frames.shape[:-1], fbg.shape[-1]), np.float32)
     for g in range(8):
-        a = np.concatenate([s[..., g, :], s[..., 8 + g, :]], axis=-1)
+        if g == 0:
+            a = np.concatenate([s[..., 0, :], s[..., 8, :]], axis=-1)
+        else:                                 # k = 2·b + row
+            a = np.stack([s[..., g, :], s[..., 8 + g, :]], axis=-1).reshape(
+                *s.shape[:-2], 256)
         tot = 0.0
         for k0 in range(0, 256, 16):
             part = _mma3(a[..., k0:k0 + 8], bg[g, k0:k0 + 8], split)
@@ -378,15 +382,23 @@ def test_emulated_single_tf32_misses_the_gate():
 
 @pytest.mark.parametrize("kw", [V24, FULL, LOG], ids=["v24", "full", "log"])
 def test_twiddle_split_is_exact_and_tf32(kw):
-    """hi + lo gives back every stage-2 twiddle and filterbank value to
-    float32 rounding, and hi has no bits below TF32's 10-bit mantissa."""
-    from birdnet_go_tpu_torch.ops.pallas_melspec import group_consts
+    """The pre-split twiddles and filterbank the kernel reads: hi + lo gives
+    back every value to float32 rounding, hi and lo have no bits below
+    TF32's 10-bit mantissa, and the split is cvt.rna's (emulated here)."""
+    from birdnet_go_tpu_torch.ops.pallas_melspec import (
+        group_consts,
+        tf32_split,
+    )
 
     _, twa, twb, fb2, _ = kernel_consts(kw["sample_rate"], kw["n_fft"],
                                         kw["n_mels"], 0.0, kw["fmax"])
     bg, fbg = group_consts(twa, twb, fb2)
     for w in (bg, fbg):
-        hi, lo = _split(w)
+        pair = tf32_split(w)
+        assert pair.dtype == np.float32 and pair.shape == (*w.shape, 2)
+        hi, lo = pair[..., 0], pair[..., 1]
+        for a, b in zip((hi, lo), _split(w)):
+            np.testing.assert_array_equal(a, b)
         assert not (hi.view(np.uint32) & np.uint32(0x1FFF)).any()
         assert not (lo.view(np.uint32) & np.uint32(0x1FFF)).any()
         err = np.abs((hi.astype(np.float64) + lo) - w)
@@ -414,14 +426,30 @@ def test_group_consts_hold_every_residue(kw):
         for h, r in enumerate((r1, r2)):
             cols = bg[g, :, h * 2 * j2:(h + 1) * 2 * j2]
             rr = r if r <= 8 else 16 - r
-            # rows 0..127 multiply packed row g, rows 128..255 row 8 + g
+            # group 0: rows 0..127 multiply packed row 0, 128..255 row 8;
+            # else row 2·b multiplies packed row g, 2·b + 1 row 8 + g
             if g == 0:
                 want = np.zeros_like(cols)
                 want[h * 128:(h + 1) * 128] = twa[r]
             else:
                 assert rr == g
-                want = np.concatenate([twa[r], twb[r]])
+                want = np.stack([twa[r], twb[r]], axis=1).reshape(256, -1)
             np.testing.assert_array_equal(cols, want)
             np.testing.assert_array_equal(
                 fbg[g, h * j2:(h + 1) * j2, :kw["n_mels"]], fb2[r])
     assert not fbg[..., kw["n_mels"]:].any()
+
+
+def test_plain_mel_in_float64_is_the_float32_path_more_precisely():
+    """A float64 signal runs the same plain algorithm in float64 (the card
+    holds the kernel to it): same shape, float64 out, within the float32
+    gate of the float32 result."""
+    pcm16 = _pcm16((2, 48000), 8, 0.05 * 32767)
+    for kw in (V24, LOG):
+        cfg = tmel.MelConfig(**kw)
+        x = torch.from_numpy(pcm16.astype(np.float64) / 32768.0)
+        m64 = tmel.melspec(x, cfg)
+        m32 = tmel.melspec(x.float(), cfg)
+        assert m64.dtype == torch.float64 and m32.dtype == torch.float32
+        _assert_close("log" if kw is LOG else "v24", m32.numpy(),
+                      m64.numpy())

@@ -39,18 +39,20 @@
 //   group, runs on the same 3xTF32 MMA into accumulators that stay in
 //   registers over all groups.
 // - Operands. The twiddles and the filterbank are split into (hi, lo) pairs
-//   once on the host, so a B fragment value is one 64-bit load and no
-//   arithmetic; A (frames) is split as its fragments load, by each warp.
-// - Twiddle traffic. A block covers M = 32 frames, so each twiddle pair read
-//   from L2 feeds 32 frames (8 in the first version). The twiddles stream
-//   through a ring of 2 to 4 chunks of 8 k-rows with cp.async, up to three
-//   chunks ahead of the MMAs that read them. Each thread's copy offsets and
-//   each warp's fragment columns are worked out once, not per chunk.
+//   once on the host; stage 1 splits A and the |X|² epilogue splits the
+//   power tile as they are written to shared memory. Every fragment value
+//   is then one 64-bit load and no arithmetic.
+// - No barriers in stage 2. Each warp covers all M = 32 frames of the block
+//   (two m16 tiles) for its own bins, so every twiddle pair is read once
+//   per block, straight from L2 into registers, one k8 step ahead of the
+//   MMAs that use it (the first design staged them through a cp.async ring
+//   with a barrier every 8 k-rows, and its warps spent most of their time
+//   waiting on each other). Each twiddle pair read from L2 feeds 32 frames
+//   (8 in the first version).
 // - Shared memory per block: the PCM span as int16 ((M - 1)·hop + 2048
-//   samples), the A tile (M × 260 floats) and the ring, which also holds
-//   the group's power tile after its MMAs. The launcher takes the deepest
-//   ring that leaves two blocks on an SM (4 chunks, 111 KB, at v2.4's
-//   config; 2 chunks, 110 KB, at v3.0's).
+//   samples) and the A tile (M × 260 pairs), which holds the group's power
+//   tile after its MMAs: 102 KB at hop 512, 110 KB at hop 640, two blocks
+//   on an SM. Four barriers a group.
 // Left for later work: wgmma and TMA, and overlapping stage 1 with the MMAs
 // inside a block (the second block on the SM overlaps them now).
 
@@ -66,12 +68,11 @@ constexpr int kNfft = kA * kB;           // 2048
 constexpr int kM = 32;                   // frames per block: two m16 tiles
 constexpr int kK = 2 * kB;               // stage-2 depth: two packed rows
 constexpr int kGroups = kA / 2;          // residue groups
-constexpr int kAPitch = kK + 4;          // A-tile row pitch: conflict-free
+constexpr int kAPitch = kK + 4;          // A-tile row pitch in pairs,
+                                         // ≡ 4 mod 16: conflict-free 64-bit
                                          // fragment loads (4·row + col)
-constexpr int kChunkRows = 8;            // k rows per twiddle chunk (one k8)
-constexpr int kChunks = kK / kChunkRows; // chunks per group
 constexpr int kStage1Threads = 2 * kB;   // stage 1: (b, frame parity)
-constexpr int kMelMax = 6;               // mel tiles per warp
+constexpr int kMelMax = 3;               // at most, mel n8 tiles per warp
 constexpr int kMaxJ2 = 72;               // 16·72 > 1025 bins
 
 enum MagScale { kLinear = 0, kLog = 1, kDb = 2, kNonlinear = 3 };
@@ -118,70 +119,51 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma_tf32(d, ah, h0, h1);
 }
 
-// The A fragment of rows (r0, r0 + 8), columns (c0, c0 + 4) of a row-major
-// tile, split into hi and lo.
-__device__ __forceinline__ void load_a(const float* p, int pitch,
-                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
-  split(p[0], ah[0], al[0]);
-  split(p[8 * pitch], ah[1], al[1]);
-  split(p[4], ah[2], al[2]);
-  split(p[8 * pitch + 4], ah[3], al[3]);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait(int stages) {
-  // all but the newest stages - 2 copy groups have landed
-  if (stages == 4)
-    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
-  else if (stages == 3)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 __host__ __device__ constexpr int pcm_bytes(int hop) {
   return (((kM - 1) * hop + kNfft) * 2 + 15) / 16 * 16;
 }
 
-// ring row pitch in (hi, lo) pairs: ≡ 4 mod 16 keeps the 64-bit B fragment
-// loads of a half-warp on distinct banks
-__host__ __device__ constexpr int ring_pitch(int j2) { return 4 * j2 + 4; }
-
-__host__ __device__ constexpr int ring_stage_bytes(int j2) {
-  return kChunkRows * ring_pitch(j2) * 8;
+// x as a (hi, lo) pair: a 64-bit shared-memory load gives both halves
+__device__ __forceinline__ float2 split_pair(float x) {
+  uint32_t hi, lo;
+  split(x, hi, lo);
+  return make_float2(__uint_as_float(hi), __uint_as_float(lo));
 }
 
-// Grid (frame tiles of kM, batch rows); block W warps. Warp w owns the
-// m16 tile w & 1 of the frames. In stage 2 it owns UPW units (m16 tile,
-// residue h of the group, bin group q of 8): the re and im n8 tiles of those
-// bins. In the mel projection it owns up to kMelMax n8 tiles of mel bands.
-// Dynamic shared memory: pcm int16 [span] | A [kM][kAPitch] floats | ring
-// [stages][kChunkRows][ring_pitch] (hi, lo) pairs, which holds the power
-// tile [kM][2·j2 + 4] floats between a group's stage 2 and its mel
-// projection. bg2 [8][256][4·j2] and fbg2 [8][2·j2][nm8] are (hi, lo) pairs.
-template <int UPW, int W>
+// The A fragment of rows (r, r + 8), columns (c, c + 4) of a row-major tile
+// of (hi, lo) pairs at p = &tile[r][c].
+__device__ __forceinline__ void load_a(const float2* p, int pitch,
+                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  const float2 v[4] = {p[0], p[8 * pitch], p[4], p[8 * pitch + 4]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ah[i] = __float_as_uint(v[i].x);
+    al[i] = __float_as_uint(v[i].y);
+  }
+}
+
+// Grid (frame tiles of kM, batch rows); block W warps, each covering both
+// m16 tiles of the block's frames. In stage 2 warp w walks its units w + i·W
+// (i < UPW) one after another, a unit being (residue h of the group, bin
+// group q of 8): the re and im n8 tiles of those bins; it keeps only their
+// power. In the mel projection it owns the n8 tiles of mel bands w + i·W
+// (i < MELT). Dynamic shared memory: pcm int16
+// [span] | A [kM][kAPitch] (hi, lo) pairs, which holds the power tile
+// [kM][2·j2 + 4] pairs between a group's stage 2 and its mel projection.
+// bg2 [8][256][4·j2] and fbg2 [8][2·j2][nm8] are (hi, lo) pairs in global
+// memory (L2-resident: 2.6 MB at j2 = 40).
+template <int W, int UPW, int MELT>
 __global__ void __launch_bounds__(W * 32, 2)
 melspec_kernel(const int16_t* __restrict__ pcm, int t_len, int hop,
                int n_frames, const float* __restrict__ win,
                const float* __restrict__ wpk, const float2* __restrict__ bg2,
                const float2* __restrict__ fbg2, int j2, int n_mels, int nm8,
-               int stages, int mag, float log_offset, void* __restrict__ out,
+               int mag, float log_offset, void* __restrict__ out,
                int out_bf16) {
   extern __shared__ __align__(16) unsigned char smem[];
   int16_t* u = reinterpret_cast<int16_t*>(smem);
-  float* a_tile = reinterpret_cast<float*>(smem + pcm_bytes(hop));
-  float2* ring = reinterpret_cast<float2*>(a_tile + kM * kAPitch);
-  float* power = reinterpret_cast<float*>(ring);
+  float2* a2 = reinterpret_cast<float2*>(smem + pcm_bytes(hop));
+  float2* pw2 = a2;                        // the power tile, after stage 2
 
   const int row = blockIdx.y;
   const int f0 = blockIdx.x * kM;
@@ -190,11 +172,9 @@ melspec_kernel(const int16_t* __restrict__ pcm, int t_len, int hop,
   const int lane = tid & 31;
   const int gid = lane >> 2;               // fragment row (and B column)
   const int tig = lane & 3;                // fragment column (and B row)
-  const int mt = warp & 1;                 // this warp's m16 tile
-  const int rp = ring_pitch(j2);
-  const int ppitch = 2 * j2 + 4;           // power tile pitch
   const int jq = j2 / 8;                   // bin groups per residue
-  const int stage_pairs = kChunkRows * rp;
+  const int bw = 4 * j2;                   // bg2 row length
+  const int ppitch = 2 * j2 + 4;           // ≡ 4 mod 16, as kAPitch
 
   // PCM span → shared memory as int16; samples past the end of the signal
   // are 0 (they only feed frames >= n_frames, which are never written)
@@ -207,150 +187,151 @@ melspec_kernel(const int16_t* __restrict__ pcm, int t_len, int hop,
       u[i] = t < t_len ? src[t] : static_cast<int16_t>(0);
     }
   }
-  // stage 1: thread (b, parity) holds the window at b, times 1/32768 (exact)
-  const int b1 = tid & (kB - 1);
-  float wv[kA];
-  if (tid < kStage1Threads) {
-#pragma unroll
-    for (int a = 0; a < kA; ++a)
-      wv[a] = __ldg(win + a * kB + b1) * (1.0f / 32768.0f);
-  }
-
-  // this thread's 16-byte copies of a twiddle chunk: 8 rows of 2·j2 copies
-  // (one copy is two (hi, lo) pairs); offsets in pairs, fixed for the run
-  constexpr int kCopyMax = (kChunkRows * 2 * kMaxJ2 + 255) / 256;
-  int csrc[kCopyMax], cdst[kCopyMax];
-  const int n_copy = kChunkRows * 2 * j2;
-#pragma unroll
-  for (int i = 0; i < kCopyMax; ++i) {
-    const int v = tid + i * W * 32;
-    const int r = v / (2 * j2), c = v - r * 2 * j2;
-    csrc[i] = v < n_copy ? r * 4 * j2 + 2 * c : -1;
-    cdst[i] = r * rp + 2 * c;
-  }
-  // this warp's stage-2 units: re column in the group's 4·j2 (the im
-  // column is j2 further), residue h, power column; -1 = none
+  const int b1 = tid & (kB - 1);            // stage 1: sample b
+  // this warp's stage-2 units: re column of the lane's B fragment in a
+  // bg2 row (the im column is j2 further), residue h, power column; -1 = none
   int ucol[UPW], uh[UPW], upow[UPW];
 #pragma unroll
   for (int i = 0; i < UPW; ++i) {
-    const int v = (warp >> 1) + i * (W / 2);
+    const int v = warp + i * W;
     const int h = v / jq, q = v - h * jq;
-    const bool ok = v < 2 * jq;
-    ucol[i] = ok ? h * 2 * j2 + q * 8 + gid : -1;
+    ucol[i] = v < 2 * jq ? h * 2 * j2 + q * 8 + gid : -1;
     uh[i] = h;
     upow[i] = h * j2 + q * 8 + 2 * tig;
   }
   // this warp's mel n8 tiles: column of the lane's B fragment; -1 = none
-  int mcol[kMelMax];
+  int mcol[MELT];
 #pragma unroll
-  for (int i = 0; i < kMelMax; ++i) {
-    const int nt = (warp >> 1) + i * (W / 2);
+  for (int i = 0; i < MELT; ++i) {
+    const int nt = warp + i * W;
     mcol[i] = nt * 8 < nm8 ? nt * 8 + gid : -1;
   }
 
-  float mel[kMelMax][4];
+  float mel[MELT][2][4];
 #pragma unroll
-  for (int i = 0; i < kMelMax; ++i)
+  for (int i = 0; i < MELT; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) mel[i][e] = 0.0f;
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mel[i][m][e] = 0.0f;
 
   for (int g = 0; g < kGroups; ++g) {
-    const float2* bsrc = bg2 + static_cast<size_t>(g) * kK * 4 * j2;
-    // chunk c (kChunkRows twiddle rows) → ring slot c % stages
-    auto issue = [&](int c) {
-      float2* dst = ring + (c % stages) * stage_pairs;
-      const float2* s = bsrc + static_cast<size_t>(c) * kChunkRows * 4 * j2;
-#pragma unroll
-      for (int i = 0; i < kCopyMax; ++i)
-        if (csrc[i] >= 0) cp_async16(dst + cdst[i], s + csrc[i]);
-    };
-    for (int c = 0; c < stages - 1; ++c) {
-      issue(c);
-      cp_async_commit();
-    }
-
-    // stage 1 for packed rows g and 8 + g, in the first version's order
-    __syncthreads();                       // PCM in place (g == 0)
+    // stage 1 for packed rows g and 8 + g, in the first version's order,
+    // two frames at a time; A holds each value as its (hi, lo) pair
+    __syncthreads();                       // PCM in place; A free
     if (tid < kStage1Threads) {
-      float w1[kA], w2[kA];
+      // the window at b times 1/32768 (exact), and the two rows of wpk
+      float wv[kA], w1[kA], w2[kA];
 #pragma unroll
       for (int a = 0; a < kA; ++a) {
+        wv[a] = __ldg(win + a * kB + b1) * (1.0f / 32768.0f);
         w1[a] = __ldg(wpk + g * kA + a);
         w2[a] = __ldg(wpk + (kA / 2 + g) * kA + a);
       }
-      for (int f = tid >> 7; f < kM; f += 2) {
-        const int16_t* x = u + f * hop + b1;
-        float s1 = 0.0f, s2 = 0.0f;
+      for (int f = tid >> 7; f < kM; f += 4) {
+        float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
 #pragma unroll
         for (int a = 0; a < kA; ++a) {
-          const float xa = static_cast<float>(x[a * kB]) * wv[a];
-          s1 = fmaf(w1[a], xa, s1);
-          s2 = fmaf(w2[a], xa, s2);
+#pragma unroll
+          for (int d = 0; d < 2; ++d) {
+            const float xa =
+                static_cast<float>(u[(f + 2 * d) * hop + a * kB + b1]) * wv[a];
+            s[d][0] = fmaf(w1[a], xa, s[d][0]);
+            s[d][1] = fmaf(w2[a], xa, s[d][1]);
+          }
         }
-        if (g == 0) {                      // [row 0 | row 8]
-          a_tile[f * kAPitch + b1] = s1;
-          a_tile[f * kAPitch + kB + b1] = s2;
-        } else {                           // k = 2·b + row
-          *reinterpret_cast<float2*>(a_tile + f * kAPitch + 2 * b1) =
-              make_float2(s1, s2);
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          float2* at = a2 + (f + 2 * d) * kAPitch;
+          const float2 p1 = split_pair(s[d][0]), p2 = split_pair(s[d][1]);
+          if (g == 0) {                    // [row 0 | row 8]
+            at[b1] = p1;
+            at[kB + b1] = p2;
+          } else {                         // k = 2·b + row
+            *reinterpret_cast<float4*>(at + 2 * b1) =
+                make_float4(p1.x, p1.y, p2.x, p2.y);
+          }
         }
       }
     }
+    __syncthreads();                       // A ready
 
-    // stage 2: total += (partial over 16 k-terms), per unit re and im
-    float tot[UPW][2][4], part[UPW][2][4];
+    // stage 2, one unit at a time: total += (partial over 16 k-terms) per
+    // m16 tile, re and im; B fragments come from L2 one k8 step ahead of
+    // their MMAs. Group 0 is block-diagonal: residue 0 on k < 128, 8 on
+    // k >= 128.
+    const float2* bsrc = bg2 + static_cast<size_t>(g) * kK * bw +
+                         static_cast<size_t>(tig) * bw;
+    float pw[UPW][2][4];                   // |X|² of each unit
 #pragma unroll
-    for (int i = 0; i < UPW; ++i)
+    for (int i = 0; i < UPW; ++i) {
+      if (ucol[i] < 0) continue;
+      const int k_lo = g == 0 && uh[i] == 1 ? kB : 0;
+      const int k_hi = g == 0 && uh[i] == 0 ? kB : kK;
+      float tot[2][2][4], part[2][2][4];
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
+      for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int v = 0; v < 4; ++v) tot[i][e][v] = part[i][e][v] = 0.0f;
-
-    for (int c = 0; c < kChunks; ++c) {
-      cp_async_wait(stages);
-      __syncthreads();                     // chunk c in place, A ready
-      if (c + stages - 1 < kChunks) issue(c + stages - 1);
-      cp_async_commit();
-
-      const float2* bs = ring + (c % stages) * stage_pairs + tig * rp;
-      uint32_t ah[4], al[4];
-      load_a(a_tile + (mt * 16 + gid) * kAPitch + c * kChunkRows + tig,
-             kAPitch, ah, al);
+        for (int e = 0; e < 2; ++e)
 #pragma unroll
-      for (int i = 0; i < UPW; ++i) {
-        if (ucol[i] < 0) continue;
-        // group 0 is block-diagonal: residue 0 on k < 128, 8 on k >= 128
-        if (g == 0 && (c < kChunks / 2) != (uh[i] == 0)) continue;
+          for (int v = 0; v < 4; ++v) tot[m][e][v] = part[m][e][v] = 0.0f;
+      const float2* bp = bsrc + ucol[i];
+      float2 bcur[2][2], bnext[2][2];
+      auto load_b = [&](float2 (&b)[2][2], int k0) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          mma3(part[i][e], ah, al, bs[ucol[i] + e * j2],
-               bs[4 * rp + ucol[i] + e * j2]);
+          b[e][0] = __ldg(bp + static_cast<size_t>(k0) * bw + e * j2);
+          b[e][1] = __ldg(bp + static_cast<size_t>(k0 + 4) * bw + e * j2);
         }
-      }
-      if (c & 1) {
+      };
+      load_b(bcur, k_lo);
+#pragma unroll 2
+      for (int k0 = k_lo; k0 < k_hi; k0 += 8) {
+        if (k0 + 8 < k_hi) load_b(bnext, k0 + 8);
 #pragma unroll
-        for (int i = 0; i < UPW; ++i)
+        for (int m = 0; m < 2; ++m) {
+          uint32_t ah[4], al[4];
+          load_a(a2 + (m * 16 + gid) * kAPitch + k0 + tig, kAPitch, ah, al);
 #pragma unroll
           for (int e = 0; e < 2; ++e)
+            mma3(part[m][e], ah, al, bcur[e][0], bcur[e][1]);
+        }
+        if (k0 & 8) {                      // every 16 k-terms
 #pragma unroll
-            for (int v = 0; v < 4; ++v) {
-              tot[i][e][v] += part[i][e][v];
-              part[i][e][v] = 0.0f;
-            }
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int v = 0; v < 4; ++v) {
+                tot[m][e][v] += part[m][e][v];
+                part[m][e][v] = 0.0f;
+              }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          bcur[e][0] = bnext[e][0];
+          bcur[e][1] = bnext[e][1];
+        }
       }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          pw[i][m][v] = tot[m][0][v] * tot[m][0][v] +
+                        tot[m][1][v] * tot[m][1][v];
     }
-    __syncthreads();                       // the ring is free: power tile
+    __syncthreads();                       // A read: the power tile may go
 
-    // |X|² → power [kM][2·j2] (residue h at column h·j2 + j)
+    // power → [kM][2·j2] pairs (residue h at column h·j2 + j)
 #pragma unroll
     for (int i = 0; i < UPW; ++i) {
       if (ucol[i] < 0) continue;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float re = tot[i][0][e], im = tot[i][1][e];
-        power[(mt * 16 + gid + (e >> 1) * 8) * ppitch + upow[i] + (e & 1)] =
-            re * re + im * im;
-      }
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          pw2[(m * 16 + gid + (v >> 1) * 8) * ppitch + upow[i] + (v & 1)] =
+              split_pair(pw[i][m][v]);
     }
     __syncthreads();
 
@@ -358,53 +339,59 @@ melspec_kernel(const int16_t* __restrict__ pcm, int t_len, int hop,
     const float2* fb = fbg2 + static_cast<size_t>(g) * 2 * j2 * nm8 +
                        static_cast<size_t>(tig) * nm8;
     for (int k0 = 0; k0 < 2 * j2; k0 += 8) {
-      uint32_t ah[4], al[4];
-      load_a(power + (mt * 16 + gid) * ppitch + k0 + tig, ppitch, ah, al);
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        load_a(pw2 + (m * 16 + gid) * ppitch + k0 + tig, ppitch, ah[m],
+               al[m]);
       const float2* fk = fb + static_cast<size_t>(k0) * nm8;
 #pragma unroll
-      for (int i = 0; i < kMelMax; ++i) {
+      for (int i = 0; i < MELT; ++i) {
         if (mcol[i] < 0) continue;
-        mma3(mel[i], ah, al, __ldg(fk + mcol[i]),
-             __ldg(fk + 4 * nm8 + mcol[i]));
+        const float2 b0 = __ldg(fk + mcol[i]);
+        const float2 b1v = __ldg(fk + 4 * nm8 + mcol[i]);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) mma3(mel[i][m], ah[m], al[m], b0, b1v);
       }
     }
-    __syncthreads();                       // power read: the ring is free
   }
 
-  // magnitude scale and store: lane holds frames (gid, gid + 8) of its m16
+  // magnitude scale and store: lane holds frames (gid, gid + 8) of each m16
   // tile and bands (2·tig, 2·tig + 1) of each n8 tile
 #pragma unroll
-  for (int i = 0; i < kMelMax; ++i) {
+  for (int i = 0; i < MELT; ++i) {
     if (mcol[i] < 0) continue;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int f = f0 + mt * 16 + gid + (e >> 1) * 8;
-      const int m = mcol[i] - gid + 2 * tig + (e & 1);
-      if (f >= n_frames || m >= n_mels) continue;
-      const float v = scale_mag(mel[i][e], mag, log_offset);
-      const size_t o = (static_cast<size_t>(row) * n_frames + f) * n_mels + m;
-      if (out_bf16)
-        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
-      else
-        static_cast<float*>(out)[o] = v;
-    }
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int f = f0 + m * 16 + gid + (e >> 1) * 8;
+        const int n = mcol[i] - gid + 2 * tig + (e & 1);
+        if (f >= n_frames || n >= n_mels) continue;
+        const float v = scale_mag(mel[i][m][e], mag, log_offset);
+        const size_t o =
+            (static_cast<size_t>(row) * n_frames + f) * n_mels + n;
+        if (out_bf16)
+          static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
+        else
+          static_cast<float*>(out)[o] = v;
+      }
   }
 }
 
-template <int UPW, int W>
+template <int W, int UPW, int MELT>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
                    const int16_t* pcm, int t_len, int hop, int n_frames,
                    const float* win, const float* wpk, const float2* bg2,
-                   const float2* fbg2, int j2, int n_mels, int nm8,
-                   int stages, int mag, float log_offset, void* out,
-                   int out_bf16) {
+                   const float2* fbg2, int j2, int n_mels, int nm8, int mag,
+                   float log_offset, void* out, int out_bf16) {
   cudaError_t err = cudaFuncSetAttribute(
-      melspec_kernel<UPW, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      melspec_kernel<W, UPW, MELT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  melspec_kernel<UPW, W><<<grid, W * 32, smem, stream>>>(
-      pcm, t_len, hop, n_frames, win, wpk, bg2, fbg2, j2, n_mels, nm8,
-      stages, mag, log_offset, out, out_bf16);
+  melspec_kernel<W, UPW, MELT><<<grid, W * 32, smem, stream>>>(
+      pcm, t_len, hop, n_frames, win, wpk, bg2, fbg2, j2, n_mels, nm8, mag,
+      log_offset, out, out_bf16);
   return cudaGetLastError();
 }
 
@@ -425,21 +412,16 @@ int melspec_fused_launch(const void* pcm, int batch, int t_len, int hop,
                          int n_mels, int mag, float log_offset, void* out,
                          int out_bf16, void* stream) {
   const int nm8 = (n_mels + 7) / 8 * 8;
-  // stage-2 units: 2 m16 tiles × 2 residues × j2/8 bin groups; 10 warps
-  // where that divides them evenly (j2 = 40), else 8
-  const int units = j2 / 2;
+  // stage-2 units: 2 residues × j2/8 bin groups; 10 warps where that
+  // divides them evenly (j2 = 40), else 8
+  const int units = j2 / 4;
   const int warps = units % 10 == 0 ? 10 : 8;
   const int upw = (units + warps - 1) / warps;
-  if (j2 <= 0 || j2 % 8 || j2 > kMaxJ2 || 2 * nm8 / 8 > kMelMax * warps)
+  const int melt = (nm8 / 8 + warps - 1) / warps;
+  if (j2 <= 0 || j2 % 8 || j2 > kMaxJ2 || melt > kMelMax)
     return static_cast<int>(cudaErrorInvalidValue);
-  // the deepest ring (2 to 4 chunks) that keeps two blocks on an SM: 228 KB
-  // of shared memory, 1 KB of it reserved per block
-  const size_t fixed = pcm_bytes(hop) + sizeof(float) * kM * kAPitch;
-  int stages = 4;
-  while (stages > 2 &&
-         2 * (fixed + stages * ring_stage_bytes(j2) + 1024) > 228 * 1024)
-    --stages;
-  const size_t smem = fixed + stages * ring_stage_bytes(j2);
+  // 102 KB at hop 512, 110 KB at hop 640: two blocks on an SM
+  const size_t smem = pcm_bytes(hop) + sizeof(float2) * kM * kAPitch;
   const dim3 grid((n_frames + kM - 1) / kM, batch);
   auto s = static_cast<cudaStream_t>(stream);
   auto p = static_cast<const int16_t*>(pcm);
@@ -448,21 +430,18 @@ int melspec_fused_launch(const void* pcm, int batch, int t_len, int hop,
   auto b = static_cast<const float2*>(bg2);
   auto f = static_cast<const float2*>(fbg2);
   cudaError_t err;
-#define MEL_LAUNCH(U, N)                                                     \
-  launch<U, N>(grid, smem, s, p, t_len, hop, n_frames, w, k, b, f, j2,       \
-               n_mels, nm8, stages, mag, log_offset, out, out_bf16)
+#define MEL_LAUNCH(N, U, T)                                                  \
+  launch<N, U, T>(grid, smem, s, p, t_len, hop, n_frames, w, k, b, f, j2,    \
+                  n_mels, nm8, mag, log_offset, out, out_bf16)
+  // the mel accumulators of 1 or 2 tiles a warp take the 2-tile kernel
   if (warps == 10)
-    err = MEL_LAUNCH(2, 10);
+    err = melt <= 2 ? MEL_LAUNCH(10, 1, 2) : MEL_LAUNCH(10, 1, 3);
   else if (upw == 1)
-    err = MEL_LAUNCH(1, 8);
+    err = melt <= 2 ? MEL_LAUNCH(8, 1, 2) : MEL_LAUNCH(8, 1, 3);
   else if (upw == 2)
-    err = MEL_LAUNCH(2, 8);
-  else if (upw == 3)
-    err = MEL_LAUNCH(3, 8);
-  else if (upw == 4)
-    err = MEL_LAUNCH(4, 8);
+    err = melt <= 2 ? MEL_LAUNCH(8, 2, 2) : MEL_LAUNCH(8, 2, 3);
   else
-    err = MEL_LAUNCH(5, 8);
+    err = melt <= 2 ? MEL_LAUNCH(8, 3, 2) : MEL_LAUNCH(8, 3, 3);
 #undef MEL_LAUNCH
   return static_cast<int>(err);
 }

@@ -53,8 +53,15 @@
 //   samples) and the A tile (M × 260 pairs), which holds the group's power
 //   tile after its MMAs: 102 KB at hop 512, 110 KB at hop 640, two blocks
 //   on an SM. Four barriers a group.
-// Left for later work: wgmma and TMA, and overlapping stage 1 with the MMAs
-// inside a block (the second block on the SM overlaps them now).
+// Where the time goes (birdnet_go_tpu_torch/diag/mel_breakdown.py, H100
+// SXM, bf16 out): at v2.4 [256, 144000], 2.34 ms in all, of which the
+// stage-2 MMAs 0.74, stage 1 0.45 (the int16 loads and conversions, redone
+// for each of the 8 groups), the mel MMAs 0.39 and the twiddle loads 0.34;
+// at v3.0 [256, 160000], 2.91 ms, the stage-2 MMAs 1.00 and the twiddle
+// loads 0.65 (8.6 GB of (hi, lo) pairs from L2 at 32 frames a block).
+// Left for later work: wgmma and TMA (asynchronous MMAs on a tile of 64
+// frames, which halves the twiddle traffic), and overlapping stage 1 with
+// the MMAs inside a block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -59,19 +59,25 @@ def build_log() -> Path:
     return library_path().with_suffix(".log")
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def _declare_melspec(lib: ctypes.CDLL) -> None:
+    """The C signatures of ``csrc/melspec.cu``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.melspec_fused_launch.argtypes = [p, i, i, i, i, p, p, p, p, i, i, i,
                                          f, p, i, p]
     lib.melspec_fused_launch.restype = i
+    lib.birdnet_cuda_error_string.argtypes = [i]
+    lib.birdnet_cuda_error_string.restype = ctypes.c_char_p
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    _declare_melspec(lib)
     lib.expand_dw_pool_launch.argtypes = [p, i, p, p, p, p, p, p, p, i, p, p,
                                           i, i, i, i, i, i, i, i, p]
     lib.expand_dw_pool_launch.restype = i
     lib.scale_project_launch.argtypes = [p, i, p, p, p, p, p, i, p, i, i, i,
                                          i, i, i, p]
     lib.scale_project_launch.restype = i
-    lib.birdnet_cuda_error_string.argtypes = [i]
-    lib.birdnet_cuda_error_string.restype = ctypes.c_char_p
 
 
 def load() -> ctypes.CDLL:

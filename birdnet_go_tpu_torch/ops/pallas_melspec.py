@@ -3,10 +3,13 @@ version (port of ``birdnet_go_tpu/ops/pallas_melspec.py``).
 
 ``melspec_fused`` launches ``csrc/melspec.cu`` for a tensor on a CUDA card
 and takes ``melspec_fused_plain`` for a tensor on the CPU; on a CUDA tensor
-it launches the kernel or raises. The kernel is held to the float32
-full-precision plain version, not to the TPU kernel's bf16-class output.
-The constants come from ``kernel_consts``, a port of the packed (v4) branch
-of ``_kernel_consts``.
+it launches the kernel or raises. On the card the kernel is held to its
+plain version computed in float64, not to the TPU kernel's bf16-class
+output. The constants come from ``kernel_consts``, a port of the packed (v4)
+branch of ``_kernel_consts``; ``group_consts`` lays them out by residue
+group for the kernel's tensor-core products, and ``tf32_split`` splits them
+into the (hi, lo) pairs of its 3xTF32 arithmetic. ``melspec_fused_work``
+counts a call's operations and bytes for its bound.
 """
 
 from __future__ import annotations

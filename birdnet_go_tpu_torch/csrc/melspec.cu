@@ -27,14 +27,14 @@
 //   the group's two rows on CUDA cores into A; the 16 rows are each
 //   computed once.
 // - 3xTF32. A single TF32 pass keeps 10 mantissa bits and misses the float32
-//   gate by up to 30x on loud tones (tests/test_torch_melspec.py emulates
+//   gate by up to 35x on loud tones (tests/test_torch_melspec.py emulates
 //   both). Each operand x is split as hi = tf32(x), lo = tf32(x - hi), and
-//   mma.sync m16n8k8 sums lo·hi + hi·lo + hi·hi in float32. Stage 2 keeps
-//   the two-level sum of the first version of this kernel: runs of 16
-//   k-terms, both rows' terms of 8 samples, go into a fresh fragment that
-//   is then added to the total (a serial float32 sum over 128 terms lost
-//   1.2e-3 of a quiet band next to a loud tone; summing each row's 128
-//   terms apart before the rows cancel lost 2e-4 of a quiet log band).
+//   mma.sync m16n8k8 sums lo·hi + hi·lo + hi·hi in float32. Stage 2 sums in
+//   two levels: runs of 16 k-terms, both rows' terms of 8 samples, go into
+//   a fresh fragment that is then added to the total (a serial float32 sum
+//   over 128 terms lost 1.2e-3 of a quiet band next to a loud tone; summing
+//   each row's 128 terms apart before the rows cancel lost 2e-4 of a quiet
+//   log band).
 //   The mel projection, power [M × 2·J2] · filterbank [2·J2 × n_mels] per
 //   group, runs on the same 3xTF32 MMA into accumulators that stay in
 //   registers over all groups.
@@ -45,10 +45,9 @@
 // - No barriers in stage 2. Each warp covers all M = 32 frames of the block
 //   (two m16 tiles) for its own bins, so every twiddle pair is read once
 //   per block, straight from L2 into registers, one k8 step ahead of the
-//   MMAs that use it (the first design staged them through a cp.async ring
-//   with a barrier every 8 k-rows, and its warps spent most of their time
-//   waiting on each other). Each twiddle pair read from L2 feeds 32 frames
-//   (8 in the first version).
+//   MMAs that use it: no barrier holds the warps in step (staging twiddles
+//   through shared memory needs one per chunk, and they cost more than the
+//   MMAs did). Each twiddle pair read from L2 feeds 32 frames.
 // - Shared memory per block: the PCM span as int16 ((M - 1)·hop + 2048
 //   samples) and the A tile (M × 260 pairs), which holds the group's power
 //   tile after its MMAs: 102 KB at hop 512, 110 KB at hop 640, two blocks
@@ -223,8 +222,8 @@ melspec_kernel(const int16_t* __restrict__ pcm, int t_len, int hop,
       for (int e = 0; e < 4; ++e) mel[i][m][e] = 0.0f;
 
   for (int g = 0; g < kGroups; ++g) {
-    // stage 1 for packed rows g and 8 + g, in the first version's order,
-    // two frames at a time; A holds each value as its (hi, lo) pair
+    // stage 1 for packed rows g and 8 + g, summed over a in order, two
+    // frames at a time; A holds each value as its (hi, lo) pair
     __syncthreads();                       // PCM in place; A free
     if (tid < kStage1Threads) {
       // the window at b times 1/32768 (exact), and the two rows of wpk

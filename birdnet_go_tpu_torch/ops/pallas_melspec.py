@@ -98,11 +98,10 @@ def group_consts(twa: np.ndarray, twb: np.ndarray, fb2: np.ndarray):
     Group g's stage-2 product is A [frames, 256] times bg[g]; its columns
     are residue h's (re j, im j) at h·2·j2. For g = 1..7, A interleaves the
     packed rows g and 8 + g by b (k = 2·b + row), so that every run of 16
-    k-terms holds both rows' terms of 8 samples, which cancel there as they
-    do in the first version's sums. Group 0 is block-diagonal, A = [row 0 |
-    row 8]: residue 0 reads only row 0 and residue 8 only row 8. fbg[g]
-    stacks the two residues' filterbank rows, zero-padded to a multiple of
-    8 mel bands.
+    k-terms holds both rows' terms of 8 samples, which cancel there. Group
+    0 is block-diagonal, A = [row 0 | row 8]: residue 0 reads only row 0
+    and residue 8 only row 8. fbg[g] stacks the two residues' filterbank
+    rows, zero-padded to a multiple of 8 mel bands.
     """
     a_sz, b_sz, w2 = twa.shape
     j2, n_mels = fb2.shape[1:]

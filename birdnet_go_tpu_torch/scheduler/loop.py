@@ -82,10 +82,10 @@ class HostBatcher:
         self.stats = BatcherStats()
         self.budget_seconds = spec.buffer_interval_seconds
         # Multi-buffered staging: a device step may still read its staging
-        # buffer after dispatch returns, so writes after a dispatch must land in a DIFFERENT buffer than any in-flight
-        # batch reads. With `pipeline_depth` batches in flight at once,
-        # depth+1 buffers cycle: a buffer is reused only after its batch
-        # has been harvested.
+        # buffer after dispatch returns, so writes after a dispatch must land
+        # in a DIFFERENT buffer than any in-flight batch reads. With
+        # `pipeline_depth` batches in flight at once, depth+1 buffers cycle:
+        # a buffer is reused only after its batch has been harvested.
         self.pipeline_depth = max(1, int(pipeline_depth))
         self._staged_bufs = [
             np.zeros((max_batch, spec.clip_samples), np.int16)

@@ -14,9 +14,10 @@
 //
 // What bounds it: about 0.42 M float32 multiply-adds per frame at J2 = 40
 // (stage 1: 128·16·16 = 33 K; stage 2: 16·40·128·4 = 328 K; mel: 16·40·96 =
-// 61 K): 60 GFLOP for a [256, 144000] call, 0.90 ms at the card's 67 TFLOP/s
-// float32 peak, against 87 MB of PCM and mel rows (0.03 ms). Stage 2 is 78%
-// of it, so it goes to the tensor cores:
+// 61 K): 60 GFLOP for a [256, 144000] call, against 87 MB of PCM and mel
+// rows (0.03 ms). Stage 2 is 78% of it, so it goes to the tensor cores with
+// the mel projection; priced by type (stage 1 at the 67 TFLOP/s float32
+// peak, the rest as 3xTF32 at 495 TFLOP/s), the bound is 0.41 ms:
 //
 // - Residue groups. The residues pair up by the packed rows they read:
 //   (0, 8) on rows 0 and 8, and (g, 16 - g) on rows g and 8 + g. Per group,
@@ -411,7 +412,8 @@ extern "C" {
 // fbg2 are group_consts' [8, 256, 4·j2] and [8, 2·j2, n_mels rounded up to
 // 8] split into (hi, lo) pairs. Refused (cudaErrorInvalidValue): j2 not a
 // multiple of 8 or above 72, and more mel bands than the warps'
-// accumulators hold (192 at 8 warps).
+// accumulators hold (3 n8 tiles a warp: 240 at the 10 warps of j2 = 40,
+// else 192).
 int melspec_fused_launch(const void* pcm, int batch, int t_len, int hop,
                          int n_frames, const void* win, const void* wpk,
                          const void* bg2, const void* fbg2, int j2,

@@ -33,7 +33,6 @@ _A = 16                       # radix: B = n_fft // 16 must equal 128
 _LANE = 128
 _MAG_MODES = {"linear": 0, "log": 1, "db": 2, "nonlinear": 3}
 _MAX_GRID_Y = 65535
-_MAX_MELS = 192               # the kernel's mel accumulators at 8 warps
 
 
 @functools.lru_cache(maxsize=8)
@@ -165,22 +164,24 @@ def melspec_fused_work(batch: int, t_len: int, cfg: MelConfig,
                        ) -> tuple[dict[str, float], float]:
     """The kernel's work at [batch, t_len] (see ``ops/roofline.py``).
 
-    Per frame, in float32 multiply-adds: stage 1, 128 · 16 · 16; stage 2,
-    16 · J2 · 128 · 4 (re and im against the two packed rows); the mel
-    projection, 16 · J2 · n_mels. This is float32 work: the kernel's 3xTF32
-    split triples stage 2 on the tensor cores to keep float32 accuracy, and
-    counts as the same work. Bytes: the int16 PCM, the constants (window,
-    wpk, both twiddle slabs, fb2) and the mel rows, each once.
+    Per frame, in float32 multiply-adds: stage 1, 128 · 16 · 16, on CUDA
+    cores ("f32"); stage 2, 16 · J2 · 128 · 4 (re and im against the two
+    packed rows), and the mel projection, 16 · J2 · n_mels, on the tensor
+    cores in 3xTF32, three TF32 products per float32 multiply-add ("tf32").
+    Bytes: the int16 PCM, the constants (window, wpk, both twiddle slabs,
+    fb2) and the mel rows, each once.
     """
     j2 = kernel_consts(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin,
                        cfg.fmax)[-1]
     frames = batch * cfg.num_frames(t_len)
-    macs = _LANE * _A * _A + _A * j2 * _LANE * 4 + _A * j2 * cfg.n_mels
+    stage1 = _LANE * _A * _A
+    mma = _A * j2 * _LANE * 4 + _A * j2 * cfg.n_mels
     consts = (cfg.n_fft + _A * _A + 2 * _A * _LANE * 2 * j2
               + _A * j2 * cfg.n_mels)
     item = 2 if out_dtype == torch.bfloat16 else 4
     nbytes = 2 * batch * t_len + 4 * consts + item * frames * cfg.n_mels
-    return {"f32": 2.0 * macs * frames}, float(nbytes)
+    return ({"f32": 2.0 * stage1 * frames, "tf32": 3 * 2.0 * mma * frames},
+            float(nbytes))
 
 
 def melspec_fused_plain(pcm_i16: torch.Tensor, cfg: MelConfig,
@@ -223,10 +224,8 @@ def melspec_fused(pcm_i16: torch.Tensor, cfg: MelConfig,
     if not 0 < b <= _MAX_GRID_Y:
         raise ValueError(
             f"melspec_fused: batch {b} outside [1, {_MAX_GRID_Y}]")
-    if cfg.n_mels > _MAX_MELS:
-        raise ValueError(f"melspec_fused: {cfg.n_mels} mel bands, the "
-                         f"kernel holds at most {_MAX_MELS}")
 
+    # the launcher refuses more mel bands than its warps' accumulators hold
     lib = _build.load()
     (win, wpk, bg2, fbg2), j2 = _device_consts(cfg, pcm_i16.device)
     out = torch.empty((b, n_frames, cfg.n_mels), dtype=out_dtype,

@@ -148,9 +148,9 @@ def event_ms(fn) -> float:
     return s.elapsed_time(e)
 
 
-def median_ms_pair(plain, kernel) -> tuple[float, float]:
-    """Medians of two callables' event times, run in turns (plain, kernel,
-    kernel, plain) after a warm-up of each."""
+def timed_pair(plain, kernel) -> tuple[list[float], list[float]]:
+    """Two callables' event times, run in turns (plain, kernel, kernel,
+    plain) after a warm-up of each."""
     plain(), kernel()
     torch.cuda.synchronize()
     tp, tk = [], []
@@ -159,6 +159,12 @@ def median_ms_pair(plain, kernel) -> tuple[float, float]:
         tk.append(event_ms(kernel))
         tk.append(event_ms(kernel))
         tp.append(event_ms(plain))
+    return tp, tk
+
+
+def median_ms_pair(plain, kernel) -> tuple[float, float]:
+    """Medians of ``timed_pair``'s times."""
+    tp, tk = timed_pair(plain, kernel)
     return float(np.median(tp)), float(np.median(tk))
 
 
@@ -599,12 +605,15 @@ def phase_slice(dev: torch.device, card: str) -> None:
         steps.append((m.spec.model_id, m, pcm32))
     with torch.inference_mode():
         for label, m, x in steps:
-            unfused_ms, fused_ms = median_ms_pair(
-                lambda: _device_step(m, x, False),
-                lambda: _device_step(m, x, True))
+            # eager steps of ~1,000 launches: the host's launch rate shows
+            # in these times, so each comes with the range of its samples
+            unfused, fused = (
+                f"{np.median(t):.4f} ms [{min(t):.4f}, {max(t):.4f}]"
+                for t in timed_pair(lambda: _device_step(m, x, False),
+                                    lambda: _device_step(m, x, True)))
             print(f"step {label} bf16 [{BATCH},{x.shape[1]}]: unfused "
-                  f"{unfused_ms:.4f} ms, fused blocks {fused_ms:.4f} ms "
-                  f"[{card}]")
+                  f"{unfused}, fused blocks {fused} (median [min, max] of "
+                  f"{REPS}) [{card}]")
 
 
 KERNELS = (melspec_fused, expand_dw_pool, scale_project)
@@ -675,9 +684,9 @@ def phase_loop(model, dev: torch.device, card: str, n_streams: int,
     # synchronous host-to-device copy of one staging buffer (host clock)
     staged = batcher._staged_bufs[0]
     x = batcher._to_device(staged)
-    step_ms = float(np.median([
-        event_ms(lambda: batcher._step(x, batcher.sensitivity, 10, None))
-        for _ in range(REPS)]))
+    steps = [event_ms(lambda: batcher._step(x, batcher.sensitivity, 10,
+                                            None)) for _ in range(REPS)]
+    step_ms = float(np.median(steps))
     h2d = []
     for _ in range(REPS):
         t1 = time.perf_counter()
@@ -686,8 +695,8 @@ def phase_loop(model, dev: torch.device, card: str, n_streams: int,
         h2d.append((time.perf_counter() - t1) * 1e3)
     label = f"{spec.model_id}{' fused blocks' if model.fused_blocks else ''}"
     print(f"step {label} [{BATCH},{spec.clip_samples}] on the card: "
-          f"{step_ms:.4f} ms ({BATCH / step_ms * 1e3:.1f} windows/s "
-          f"device-bound); H2D {float(np.median(h2d)):.4f} ms per batch "
+          f"{step_ms:.4f} ms [{min(steps):.4f}, {max(steps):.4f}] ("
+          f"{BATCH / step_ms * 1e3:.1f} windows/s device-bound); H2D {float(np.median(h2d)):.4f} ms per batch "
           f"[{card}]")
     # a stream yields a window every clip/2 seconds (1.5 s for v2.4's 3 s
     # clips, 2.5 s for v3.0's 5 s)

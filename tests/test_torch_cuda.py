@@ -142,9 +142,13 @@ def test_kernel_odd_mel_count_and_refusal(dev):
     cfg = MelConfig(**dict(V24, n_mels=37))
     _assert_mel_gate(melspec_fused(x, cfg), _plain64(x, cfg),
                      "nonlinear", torch.float32)
+    # J2 = 40 runs 10 warps of at most 3 mel tiles each: 240 bands
+    wide = MelConfig(**dict(V24, n_mels=240))
+    _assert_mel_gate(melspec_fused(x, wide), _plain64(x, wide),
+                     "nonlinear", torch.float32)
     before = melspec_fused.launches
-    with pytest.raises(ValueError, match="mel bands"):
-        melspec_fused(x, MelConfig(**dict(V24, n_mels=200)))
+    with pytest.raises(RuntimeError, match="melspec_fused"):
+        melspec_fused(x, MelConfig(**dict(V24, n_mels=248)))
     assert melspec_fused.launches == before
 
 

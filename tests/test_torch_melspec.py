@@ -246,28 +246,36 @@ def test_plain_mel_matches_golden_fingerprint():
     _golden_check("melspec_v24", m)
 
 
-@pytest.mark.parametrize("kw,t_len,gflop,io_mb,bound", [
-    (V24, 144000, 60.0, 87.4, 0.90),
+@pytest.mark.parametrize("kw,t_len,gflop,io_mb,f32_bound,bound", [
+    (V24, 144000, 60.0, 87.4, 0.90, 0.405),
     (dict(sample_rate=32000, n_fft=2048, hop=640, n_mels=128, fmax=15000.0,
-          mag_scale="nonlinear"), 160000, 87.0, 98.1, 1.30),
+          mag_scale="nonlinear"), 160000, 87.0, 98.1, 1.30, 0.564),
     (dict(sample_rate=32000, n_fft=2048, hop=640, n_mels=160, fmin=60.0,
-          fmax=10000.0, mag_scale="log"), 160000, 58.5, 102.2, 0.87)],
+          fmax=10000.0, mag_scale="log"), 160000, 58.5, 102.2, 0.87, 0.391)],
     ids=["v24", "v3", "perch"])
-def test_melspec_work_counts(kw, t_len, gflop, io_mb, bound):
+def test_melspec_work_counts(kw, t_len, gflop, io_mb, f32_bound, bound):
     """The counts of the bring-up plan at B = 256, bf16 output: float32
-    operations, PCM plus mel bytes, and the float32 bound (operations)."""
+    multiply-adds (the plan's GFLOP and its all-CUDA-core bound), PCM plus
+    mel bytes, and the bound with stage 1 on CUDA cores and stage 2 and the
+    mel projection as 3xTF32 on the tensor cores (operations)."""
     from birdnet_go_tpu_torch.ops.pallas_melspec import melspec_fused_work
     from birdnet_go_tpu_torch.ops.roofline import bound_ms
 
     cfg = tmel.MelConfig(**kw)
     flops, nbytes = melspec_fused_work(256, t_len, cfg, torch.bfloat16)
-    assert set(flops) == {"f32"} and round(flops["f32"] / 1e9, 1) == gflop
+    assert set(flops) == {"f32", "tf32"}
+    # stage 1 is 33 K of a frame's float32 multiply-adds, whatever J2
+    frames = 256 * cfg.num_frames(t_len)
+    assert flops["f32"] == 2 * 128 * 16 * 16 * frames
+    f32_work = flops["f32"] + flops["tf32"] / 3
+    assert round(f32_work / 1e9, 1) == gflop
     *_, j2 = kernel_consts(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin,
                            cfg.fmax)
     consts = 4 * (2048 + 256 + 2 * 16 * 128 * 2 * j2 + 16 * j2 * cfg.n_mels)
     assert round((nbytes - consts) / 1e6, 1) == io_mb
     ms, by = bound_ms(flops, nbytes)
-    assert by == "operations" and round(ms, 2) == bound
+    assert by == "operations" and round(ms, 3) == bound
+    assert round(bound_ms({"f32": f32_work}, nbytes)[0], 2) == f32_bound
     f32 = melspec_fused_work(256, t_len, cfg, torch.float32)[1]
     assert f32 - nbytes == 2 * 256 * cfg.num_frames(t_len) * cfg.n_mels
 

@@ -11,7 +11,10 @@ Two kernels per block, as in the JAX module:
 
 ``expand_dw_pool`` and ``scale_project`` take their plain versions for a
 tensor on the CPU; on a CUDA tensor they launch ``csrc/mbconv.cu`` or raise,
-and each launch adds one to the wrapper's ``launches``. Both check the
+and each launch adds one to the wrapper's ``launches``. With bf16 matrix
+operands the kernels read their weights rounded to bf16 and laid out in
+tensor-core fragment order (``pack_fragments``): the glue packs them once
+per block, a direct call packs them on the call. Both check the
 layout on every device: activations are contiguous [B, S, C], which is the
 memory of an NCHW tensor in ``torch.channels_last``. Nothing is copied to
 make them so.
@@ -38,10 +41,9 @@ if TYPE_CHECKING:
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _KERNELS = (3, 5)
-# kernel A: one block per (image, band of rows, slice of 32 channels); the
+# kernel A: one block per (image, band of rows, tile of channels); the
 # launcher in csrc/mbconv.cu refuses what its shared memory or grid cannot
-# hold, and the band choice below needs only the slice width
-_SLICE = 32
+# hold, and the band choice below needs only the tile width
 _MIN_BAND_ROWS = 16
 _WAVES = 4                           # kernel A: blocks per SM to aim for
 
@@ -56,6 +58,21 @@ def fused_block_ok(stride: int, h: int, w: int, train: bool) -> bool:
     """Gate, as the JAX module's: stride-1 inference blocks with H·W >= 64
     (the tail stages stay on the unfused path)."""
     return stride == 1 and not train and h * w >= 64
+
+
+def pack_fragments(w: torch.Tensor) -> torch.Tensor:
+    """A matrix operand w [K, N] rounded to bf16 and laid out as the B
+    fragments of ``mma.sync.m16n8k16`` (bf16): [⌈K/16⌉, ⌈N/8⌉, 32 lanes, 4]
+    bf16, zero-padded past K and N. Lane 4·g + t of k16 step s and 8-column
+    tile j holds w[16·s + 2·t + e % 2 + 8·(e // 2), 8·j + g] as its element
+    e, so each lane loads its two 32-bit registers as 8 bytes."""
+    k, n = w.shape
+    ks, nt = -(-k // 16), -(-n // 8)
+    wp = torch.zeros((ks * 16, nt * 8), dtype=torch.bfloat16, device=w.device)
+    wp[:k, :n] = w.to(torch.bfloat16)
+    # k = 16·s + 8·hi + 2·t + lo, n = 8·j + g → [s, j, g, t, hi, lo]
+    v = wp.view(ks, 2, 4, 2, nt, 8).permute(0, 4, 5, 2, 1, 3)
+    return v.reshape(ks, nt, 32, 4).contiguous()
 
 
 def _rounded(t: torch.Tensor, dot_dtype: torch.dtype) -> torch.Tensor:
@@ -183,25 +200,43 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _channel_tile(cm: int, expand: bool) -> int:
+    """Channels per block of kernel A, as ``channel_tile`` in
+    csrc/mbconv.cu: 48 with an expand (three warps' 16-channel MMA slabs;
+    every Cm of the models is a multiple of 48), 16 or 32 without."""
+    return 48 if expand else (16 if cm <= 16 else 32)
+
+
 def _band_rows(height: int, blocks: int, sm_count: int) -> int:
     """Rows per band of kernel A: bands enough for about _WAVES blocks per
-    SM where the image's slices alone give fewer, each band at least 16
-    rows, as its halo expands k - 1 rows more. (Measured on the card at the
-    v2.4 and B1 shapes: more bands help the expand-less blocks, and cost
+    SM where the image's channel tiles alone give fewer, each band at least
+    16 rows, as its halo expands k - 1 rows more. (Measured on the card at
+    the v2.4 and B1 shapes: more bands help the expand-less blocks, and cost
     the expand blocks their halo rows.)"""
     want = -(-_WAVES * sm_count // blocks)
     n = max(1, min(want, height // _MIN_BAND_ROWS))
     return -(-height // n)
 
 
+def _check_frags(name: str, frags: torch.Tensor, w: torch.Tensor):
+    shape = (-(-w.shape[0] // 16), -(-w.shape[1] // 8), 32, 4)
+    if (tuple(frags.shape) != shape or frags.dtype != torch.bfloat16
+            or not frags.is_contiguous() or frags.device != w.device):
+        raise ValueError(f"{name}: packed weights must be pack_fragments' "
+                         f"bf16 {shape} on {w.device}, got {frags.dtype} "
+                         f"{tuple(frags.shape)} on {frags.device}")
+
+
 def expand_dw_pool(x, wexp, kexp, bexp, dwk, kdw, bdw, *,
                    height: int, width: int, kernel: int,
-                   out_dtype=torch.bfloat16, dot_dtype=torch.bfloat16):
+                   out_dtype=torch.bfloat16, dot_dtype=torch.bfloat16,
+                   wexp_frags=None):
     """Kernel A. x [B, S, C] → (y [B, S, Cm], pool [B, Cm] float32).
 
     wexp [C, Cm] or None (expand-less blocks, Cm == C); dwk [k·k, Cm]
     tap-major depthwise weights, in (dy, dx) order; kexp/bexp/kdw/bdw
-    folded BN [1, Cm]; all float32.
+    folded BN [1, Cm]; all float32. `wexp_frags` is
+    ``pack_fragments(wexp)``, packed here when not given.
     """
     name = "expand_dw_pool"
     _check_act(name, "x", x)
@@ -224,9 +259,16 @@ def expand_dw_pool(x, wexp, kexp, bexp, dwk, kdw, bdw, *,
             x, wexp, kexp, bexp, dwk, kdw, bdw, height=height, width=width,
             kernel=kernel, out_dtype=out_dtype, dot_dtype=dot_dtype)
 
+    frags = None
+    if wexp is not None and dot_dtype == torch.bfloat16:
+        if wexp_frags is None:
+            wexp_frags = pack_fragments(wexp)
+        _check_frags(name, wexp_frags, wexp)
+        frags = wexp_frags.data_ptr()
     lib = _build.load()
-    rows = _band_rows(height, -(-cm // _SLICE) * b,
-                      _sm_count(x.device.index or 0))
+    tiles = -(-cm // _channel_tile(cm, wexp is not None))
+    sm_count = _sm_count(x.device.index or 0)
+    rows = _band_rows(height, tiles * b, sm_count)
     n_bands = -(-height // rows)
     y = torch.empty((b, s, cm), dtype=out_dtype, device=x.device)
     pool = torch.empty((b, cm), dtype=torch.float32, device=x.device)
@@ -236,7 +278,8 @@ def expand_dw_pool(x, wexp, kexp, bexp, dwk, kdw, bdw, *,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.expand_dw_pool_launch(
             x.data_ptr(), int(x.dtype == torch.bfloat16),
-            None if wexp is None else wexp.data_ptr(), kexp.data_ptr(),
+            None if wexp is None else wexp.data_ptr(), frags,
+            kexp.data_ptr(),
             bexp.data_ptr(), dwk.data_ptr(), kdw.data_ptr(), bdw.data_ptr(),
             y.data_ptr(), int(out_dtype == torch.bfloat16), pool.data_ptr(),
             part.data_ptr(), b, height, width, c, cm, kernel, rows,
@@ -252,11 +295,13 @@ expand_dw_pool.launches = 0
 
 
 def scale_project(y, se, wproj, kpr, bpr, res, *,
-                  out_dtype=torch.bfloat16, dot_dtype=torch.bfloat16):
+                  out_dtype=torch.bfloat16, dot_dtype=torch.bfloat16,
+                  wproj_frags=None):
     """Kernel B. y [B, S, Cm] × se [B, Cm] → project → BN → (+res).
 
     wproj [Cm, C'], kpr/bpr [1, C'], se float32; res is the block input
-    [B, S, C'] for identity-residual blocks, or None.
+    [B, S, C'] for identity-residual blocks, or None. `wproj_frags` is
+    ``pack_fragments(wproj)``, packed here when not given.
     """
     name = "scale_project"
     _check_act(name, "y", y)
@@ -275,13 +320,17 @@ def scale_project(y, se, wproj, kpr, bpr, res, *,
         return scale_project_plain(y, se, wproj, kpr, bpr, res,
                                    out_dtype=out_dtype, dot_dtype=dot_dtype)
 
+    w = wproj
+    if dot_dtype == torch.bfloat16:
+        w = pack_fragments(wproj) if wproj_frags is None else wproj_frags
+        _check_frags(name, w, wproj)
     lib = _build.load()
     out = torch.empty((b, s, c2), dtype=out_dtype, device=y.device)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.scale_project_launch(
             y.data_ptr(), int(y.dtype == torch.bfloat16), se.data_ptr(),
-            wproj.data_ptr(), kpr.data_ptr(), bpr.data_ptr(),
+            w.data_ptr(), kpr.data_ptr(), bpr.data_ptr(),
             None if res is None else res.data_ptr(),
             int(res is not None and res.dtype == torch.bfloat16),
             out.data_ptr(), int(out_dtype == torch.bfloat16), b, s, cm, c2,
@@ -296,7 +345,9 @@ scale_project.launches = 0
 
 def _fold_consts(block: MBConv, kernel: int) -> tuple:
     """The block's constant operands in the kernels' layouts: (wexp, kexp,
-    bexp, dwk, kdw, bdw, wproj, kpr, bpr), all float32."""
+    bexp, dwk, kdw, bdw, wproj, kpr, bpr), all float32, then wexp and wproj
+    packed for bf16 operands (``pack_fragments``; None without an
+    expand)."""
     cm = block.dw.w.shape[0]
     # (Cm, 1, k, k) → tap-major [k·k, Cm]
     dwk = block.dw.w.reshape(cm, kernel * kernel).t().contiguous()
@@ -309,7 +360,9 @@ def _fold_consts(block: MBConv, kernel: int) -> tuple:
         wexp, kexp, bexp = None, torch.ones_like(kdw), torch.zeros_like(bdw)
     wproj = block.project_conv.w[:, :, 0, 0].t().contiguous()      # [Cm, C']
     kpr, bpr = fold_bn(block.project_bn)
-    return wexp, kexp, bexp, dwk, kdw, bdw, wproj, kpr, bpr
+    wexp_frags = None if wexp is None else pack_fragments(wexp)
+    return (wexp, kexp, bexp, dwk, kdw, bdw, wproj, kpr, bpr, wexp_frags,
+            pack_fragments(wproj))
 
 
 def _block_consts(block: MBConv, kernel: int) -> tuple:
@@ -350,13 +403,14 @@ def mbconv_fused(block: MBConv, x: torch.Tensor, *, kernel: int,
     bsz, cin, height, width = x.shape
     s = height * width
     xf = x.permute(0, 2, 3, 1).view(bsz, s, cin)
-    wexp, kexp, bexp, dwk, kdw, bdw, wproj, kpr, bpr = _block_consts(
-        block, kernel)
+    (wexp, kexp, bexp, dwk, kdw, bdw, wproj, kpr, bpr, wexp_frags,
+     wproj_frags) = _block_consts(block, kernel)
     cm, cout = wproj.shape
 
     y, pool = expand_dw_pool(
         xf, wexp, kexp, bexp, dwk, kdw, bdw, height=height, width=width,
-        kernel=kernel, out_dtype=compute_dtype, dot_dtype=dot_dtype)
+        kernel=kernel, out_dtype=compute_dtype, dot_dtype=dot_dtype,
+        wexp_frags=wexp_frags)
 
     # SE mid on the mean of the float32 pool, as the JAX glue
     if block.se is not None:
@@ -368,5 +422,6 @@ def mbconv_fused(block: MBConv, x: torch.Tensor, *, kernel: int,
 
     res = xf if cin == cout else None
     out = scale_project(y, sev, wproj, kpr, bpr, res,
-                        out_dtype=compute_dtype, dot_dtype=dot_dtype)
+                        out_dtype=compute_dtype, dot_dtype=dot_dtype,
+                        wproj_frags=wproj_frags)
     return out.view(bsz, height, width, cout).permute(0, 3, 1, 2)

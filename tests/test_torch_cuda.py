@@ -222,6 +222,9 @@ MBCONV_SHAPES = [
     (192, 1152, 5, 22, 3, 192),    # stage-6-like, at a longer input
     (16, 16, 3, 31, 16, 16),       # no expand, residual
     (32, 32, 3, 139, 48, 16),      # v2.4 block 0: several bands per image
+    (112, 672, 5, 16, 8, 112),     # v3.0's largest block
+    (24, 144, 5, 12, 10, 16),      # last 64-channel tile holds 16; C' = 16
+    (16, 16, 3, 124, 64, 16),      # v3.0's expand-less 16 -> 16 block
 ]
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -327,10 +330,20 @@ def test_mbconv_wrappers_reject_what_the_kernels_do_not_take(dev):
             M.scale_project(bad, *cb)
     with pytest.raises(ValueError):
         M.scale_project(y, cb[0].to(BF16), *cb[1:])
-    # a row too wide for kernel A's shared memory: the launcher refuses it
-    wide = (192, 1152, 5, 3, 200, 192)
-    (x, *ca), _ = _mbconv_inputs(wide, dev, BF16)
-    before = M.expand_dw_pool.launches
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        M.expand_dw_pool(x, *ca, height=3, width=200, kernel=5)
-    assert M.expand_dw_pool.launches == before
+    # rows too wide for kernel A's shared memory: at C 192 -> Cm 1152, k5,
+    # bf16 operands, passes of 2 rows, a ring of 6 slots and a zero row of
+    # (W rounded up to 4) + 4 columns of 56 floats, 768 bytes of pool sums,
+    # two bf16 staging buffers of 2·W positions (rounded up to 16) × 200
+    # channels and 12 k16 steps × 1,536 bytes of B fragments take 228,224
+    # bytes at W = 64 and 247,296 at W = 65, over the 232,448 a block may
+    # have: the launcher takes the first and refuses the second
+    for width, fits in ((64, True), (65, False)):
+        (x, *ca), _ = _mbconv_inputs((192, 1152, 5, 3, width, 192), dev, BF16)
+        before = M.expand_dw_pool.launches
+        if fits:
+            M.expand_dw_pool(x, *ca, height=3, width=width, kernel=5)
+            assert M.expand_dw_pool.launches == before + 1
+            continue
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            M.expand_dw_pool(x, *ca, height=3, width=width, kernel=5)
+        assert M.expand_dw_pool.launches == before

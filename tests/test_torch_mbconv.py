@@ -201,26 +201,40 @@ def _nhwc_to_channels_last(x):
         memory_format=torch.channels_last)
 
 
+def _count_calls(monkeypatch, name):
+    """Record every call of TM.<name> (which still runs)."""
+    calls = []
+    orig = getattr(TM, name)
+    monkeypatch.setattr(TM, name, lambda t: calls.append(t) or orig(t))
+    return calls
+
+
 @pytest.mark.parametrize("case", [CASES[1], CASES[4]])
 def test_glue_folds_its_constants_once(case, monkeypatch):
-    """Folded BN and the weights in the kernels' layouts are made on the
-    first call only. Made in inference mode, they serve a later call
-    outside it too."""
+    """Folded BN and the weights in the kernels' layouts, the packed bf16
+    fragments included, are made on the first call only. Made in inference
+    mode, they serve a later call outside it too."""
     _, x, blk = _block(case)
-    folds = []
-    orig = TM.fold_bn
-    monkeypatch.setattr(TM, "fold_bn",
-                        lambda bn: folds.append(bn) or orig(bn))
+    folds = _count_calls(monkeypatch, "fold_bn")
+    packs = _count_calls(monkeypatch, "pack_fragments")
     xt = _nhwc_to_channels_last(x)
     kw = dict(kernel=case[2], compute_dtype=torch.float32)
+    n_folds, n_packs = (2, 1) if blk.expand_conv is None else (3, 2)
     with torch.inference_mode():
         first = TM.mbconv_fused(blk, xt, **kw)
-    assert len(folds) == (2 if blk.expand_conv is None else 3)
+    assert (len(folds), len(packs)) == (n_folds, n_packs)
     second = TM.mbconv_fused(blk, xt, **kw)
-    assert len(folds) == (2 if blk.expand_conv is None else 3)
+    assert (len(folds), len(packs)) == (n_folds, n_packs)
     assert torch.equal(first, second)
-    assert not any(t.is_inference() for t in blk._fused_consts[1]
-                   if t is not None)
+    consts = blk._fused_consts[1]
+    assert not any(t.is_inference() for t in consts if t is not None)
+    # the packed weights are those of the block's own
+    wexp, wproj, wexp_frags, wproj_frags = (consts[0], consts[6],
+                                            *consts[9:])
+    assert torch.equal(wproj_frags, TM.pack_fragments(wproj))
+    assert (wexp_frags is None) == (wexp is None)
+    if wexp is not None:
+        assert torch.equal(wexp_frags, TM.pack_fragments(wexp))
 
 
 def test_glue_folds_again_after_the_weights_change():
@@ -232,12 +246,21 @@ def test_glue_folds_again_after_the_weights_change():
     xt = _nhwc_to_channels_last(x)
     kw = dict(kernel=k, compute_dtype=torch.float32)
     before = TM.mbconv_fused(blk, xt, **kw)
+    packed = blk._fused_consts[1][9:]
     other = load_jax_params(TL.MBConv(cin, cout, k, expand),
                             _random_bn(p, np.random.default_rng(9)))
+    for name in ("expand_conv", "project_conv"):      # new weights, too
+        w = getattr(other, name).w
+        w.data = w.data.flip(0)
     blk.load_state_dict(other.state_dict())
     got = TM.mbconv_fused(blk, xt, **kw)
     assert torch.equal(got, TM.mbconv_fused(other, xt, **kw))
     assert not torch.equal(got, before)
+    # packed again, from the loaded weights
+    repacked = blk._fused_consts[1][9:]
+    for old, new, want in zip(packed, repacked,
+                              other._fused_consts[1][9:]):
+        assert torch.equal(new, want) and not torch.equal(new, old)
     for m in (blk, other):
         m.dw.w.data = m.dw.w.data * 2.0
     doubled = TM.mbconv_fused(blk, xt, **kw)
@@ -385,3 +408,55 @@ def test_mbconv_work_follows_dtypes():
                                  dot_dtype=torch.float32)
     assert f == {"f32": 2.0 * 32 * 8 * 4}
     assert b == 32 * 8 * 2 + 2 * 8 * 4 + 4 * (32 + 8) + 32 * 4 * 2
+
+
+# -- packed weights and the tile rule ------------------------------------------
+
+def _unpack(frags):
+    """The [K, N] bf16 matrix behind packed fragments, read off the
+    definition of the mma.sync m16n8k16 B fragment: lane 4·g + t of k16
+    step s and column tile j holds, as its elements 0 to 3, rows
+    16·s + 2·t + (0, 1, 8, 9) of column 8·j + g."""
+    ks, nt = frags.shape[:2]
+    w = torch.full((ks * 16, nt * 8), float("nan"), dtype=torch.bfloat16)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        cols = torch.arange(nt) * 8 + g
+        for e, dk in enumerate((0, 1, 8, 9)):
+            rows = torch.arange(ks) * 16 + 2 * t + dk
+            w[rows[:, None], cols[None, :]] = frags[:, :, lane, e]
+    return w
+
+
+@pytest.mark.parametrize("k,n", [
+    (20, 100), (24, 144), (40, 240), (112, 672),     # wexp [C, Cm]
+    (144, 16), (100, 28), (672, 112),                # wproj [Cm, C']
+])
+def test_pack_fragments_unpacks_to_the_bf16_weights(k, n):
+    """Unpacking gives back w rounded to bf16 exactly, zeros past K and
+    N, and every element of the padded matrix is written once."""
+    w = torch.from_numpy(np.random.default_rng(k * n).standard_normal(
+        (k, n)).astype(np.float32))
+    frags = TM.pack_fragments(w)
+    assert frags.shape == (-(-k // 16), -(-n // 8), 32, 4)
+    assert frags.dtype == torch.bfloat16 and frags.is_contiguous()
+    full = _unpack(frags)
+    assert not torch.isnan(full.float()).any()
+    assert torch.equal(full[:k, :n], w.to(torch.bfloat16))
+    assert not full[k:].float().any() and not full[:, n:].float().any()
+
+
+def test_channel_tiles_and_bands_at_the_models_shapes():
+    """Kernel A's tiles (48 channels with an expand, 16 or 32 without)
+    fill every fused block of v2.4 and v3.0 exactly; at B = 256 on 132 SMs
+    only the expand-less blocks are cut into bands, of at least 16 rows."""
+    for (c, cm, k, h, w, c2), _ in V24_FUSED + V3_FUSED:
+        tile = TM._channel_tile(cm, cm != c)
+        assert cm % tile == 0 and tile == (48 if cm != c else min(cm, 32))
+        rows = TM._band_rows(h, cm // tile * 256, 132)
+        n_bands = -(-h // rows)
+        assert (n_bands > 1) == (cm == c)
+        assert rows >= 16 and (n_bands - 1) * rows < h
+    assert TM._band_rows(124, 256, 132) == 42          # 3 bands
+    assert TM._band_rows(139, 256, 132) == 47
+    assert TM._channel_tile(100, True) == 48 and TM._channel_tile(24, False) == 32

@@ -20,7 +20,10 @@ Phases, in order; any failure propagates and exits non-zero:
 4. the fused MBConv kernels A (``expand_dw_pool``) and B
    (``scale_project``) against their plain versions at B = 256 at each
    distinct fused block shape of the v2.4, v3.0 and Perch v2 steps (read
-   off the models) and one float32 case, with CUDA-event times of both;
+   off the models) and one float32 case, with the device times of both
+   (CUDA graphs of 10 calls replayed between events, ``diag/mbconv_times``:
+   one call's host work is longer than most of these kernels) and the
+   kernel's time for one call from the host (``call_ms``);
 5. the full-width BirdNET v2.4 step (B0, 6,522 classes, bf16, random
    weights from a seed) through the mel kernel, checked finite and compared
    with the plain mel on field-level audio, in bf16 and again with the same
@@ -55,6 +58,10 @@ import numpy as np
 import torch
 
 from birdnet_go_tpu_torch.audio.buffers import AnalysisBuffer
+from birdnet_go_tpu_torch.diag.mbconv_times import (
+    graph_ms_pair,
+    packed_kwargs,
+)
 from birdnet_go_tpu_torch.inference.backend import TorchClassifier
 from birdnet_go_tpu_torch.models import efficientnet
 from birdnet_go_tpu_torch.models.birdnet_v3 import BirdNETv3
@@ -393,6 +400,9 @@ def phase_mbconv(dev: torch.device, card: str) -> dict:
         args_a = [a[n] for n in ("x", "wexp", "kexp", "bexp", "dwk", "kdw",
                                  "bdw")]
         args_b = [b[n] for n in ("y", "se", "wproj", "kpr", "bpr", "res")]
+        # the kernels are timed with their weights packed once, as the glue
+        # passes them; these first calls pack on the call
+        pk_a, pk_b = packed_kwargs(a, b)
         y, pool = expand_dw_pool(*args_a, **kw)
         y_ref, pool_ref = expand_dw_pool_plain(*args_a, **kw)
         o = scale_project(*args_b, out_dtype=dt, dot_dtype=dt)
@@ -407,12 +417,12 @@ def phase_mbconv(dev: torch.device, card: str) -> dict:
                 "kernel A's pool differs between two runs"
         kinds = (("expand_dw_pool", _mbconv_err(y_ref, y, dt),
                   lambda: expand_dw_pool_plain(*args_a, **kw),
-                  lambda: expand_dw_pool(*args_a, **kw)),
+                  lambda: expand_dw_pool(*args_a, **kw, **pk_a)),
                  ("scale_project", _mbconv_err(o_ref, o, dt),
                   lambda: scale_project_plain(*args_b, out_dtype=dt,
                                               dot_dtype=dt),
                   lambda: scale_project(*args_b, out_dtype=dt,
-                                        dot_dtype=dt)))
+                                        dot_dtype=dt, **pk_b)))
         work = {"expand_dw_pool": expand_dw_pool_work(
                     BATCH, h, w, c, cm, k, expand=cm != c, x_dtype=dt,
                     out_dtype=dt, dot_dtype=dt),
@@ -420,15 +430,18 @@ def phase_mbconv(dev: torch.device, card: str) -> dict:
                     BATCH, h * w, cm, c2, residual=c2 == c, y_dtype=dt,
                     out_dtype=dt, dot_dtype=dt)}
         for name, (abs_err, err, lim), plain, kern in kinds:
-            plain_ms, ms = median_ms_pair(plain, kern)
+            plain_ms, ms = graph_ms_pair(plain, kern)
+            call_ms = float(np.median([event_ms(kern)
+                                       for _ in range(REPS)]))
             bound, by = bound_ms(*work[name])
             extra = (f", pool {pool_rel:.3e} (< 1e-4)"
                      if name == "expand_dw_pool" else "")
             print(f"mbconv {name} {label} x{n_blocks} {dt} (C {c}, Cm {cm}, "
                   f"k{k}, {h}x{w}, C' {c2}) [{BATCH}]: max_abs_err="
                   f"{abs_err:.3e} err={err:.3e} (< {lim:.3e}){extra} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
-                  f"{bound:.4f} ({by}) share={bound / ms:.3f} [{card}]")
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} call_ms="
+                  f"{call_ms:.4f} bound_ms={bound:.4f} ({by}) share="
+                  f"{bound / ms:.3f} [{card}]")
             assert err < lim, f"{name} disagrees with plain ({label})"
             if n_blocks:
                 r = out[label][name]
@@ -441,6 +454,40 @@ def phase_mbconv(dev: torch.device, card: str) -> dict:
                 r["nbytes"] += n_blocks * nbytes
                 r["blocks"] += n_blocks
         assert pool_rel < 1e-4, f"kernel A's pool disagrees ({label})"
+    # float32 activations at every fused shape, with float32 and bf16
+    # matrix operands: the float32 gate
+    worst = {"expand_dw_pool": 0.0, "scale_project": 0.0, "pool": 0.0}
+    for seed, (label, shape, _, dt) in enumerate(cases):
+        if dt != torch.bfloat16:
+            continue
+        c, cm, k, h, w, c2 = shape
+        a, b = mbconv_inputs(shape, SEED + 100 + seed, dev, torch.float32)
+        args_a = [a[n] for n in ("x", "wexp", "kexp", "bexp", "dwk", "kdw",
+                                 "bdw")]
+        args_b = [b[n] for n in ("y", "se", "wproj", "kpr", "bpr", "res")]
+        for dot in (torch.float32, torch.bfloat16):
+            kw = dict(height=h, width=w, kernel=k, out_dtype=torch.float32,
+                      dot_dtype=dot)
+            (y, pool), (y_ref, pool_ref) = (
+                fn(*args_a, **kw) for fn in (expand_dw_pool,
+                                             expand_dw_pool_plain))
+            o, o_ref = (fn(*args_b, out_dtype=torch.float32, dot_dtype=dot)
+                        for fn in (scale_project, scale_project_plain))
+            torch.cuda.synchronize()
+            for name, ref, got in (("expand_dw_pool", y_ref, y),
+                                   ("scale_project", o_ref, o)):
+                err = _mbconv_err(ref, got, torch.float32)[1]
+                worst[name] = max(worst[name], err)
+                assert err < 1e-4, f"{name} f32 disagrees ({label} {shape})"
+            pool_rel = float(((pool - pool_ref).abs() / (
+                pool_ref.abs() + h * w * 1e-3)).max())
+            worst["pool"] = max(worst["pool"], pool_rel)
+            assert pool_rel < 1e-4, f"f32 pool disagrees ({label} {shape})"
+    print(f"mbconv float32 at all {sum(dt == torch.bfloat16 for *_, dt in cases)}"
+          f" fused shapes, float32 and bf16 operands: largest err "
+          f"expand_dw_pool {worst['expand_dw_pool']:.3e}, scale_project "
+          f"{worst['scale_project']:.3e} (< 1e-4), pool "
+          f"{worst['pool']:.3e} (< 1e-4) [{card}]")
     for model_id, kernels in out.items():
         for name, r in kernels.items():
             n = r.pop("blocks")

@@ -83,6 +83,8 @@ constexpr int kRows = 2;          // A: output rows per depthwise strip
 constexpr int kMinPass = 2;       // A: least rows per pass (even)
 constexpr int kPassPos = 32;      // A: positions per pass to aim for
 constexpr int kStagesA = 2;       // A: staging buffers (copies a pass ahead)
+constexpr int kMinBandRows = 16;  // A: least rows per band of an image
+constexpr int kWaves = 4;         // A: blocks per SM to aim for with bands
 constexpr int kPos = 4;           // A, float32 expand: positions per step
 constexpr int kThreadsB = 128;    // B: threads per block (4 warps)
 constexpr int kBM = 64;           // B: positions per block, 16 a warp
@@ -227,15 +229,15 @@ __host__ __device__ inline LayoutA layout_a(int mode, int k, int nc,
 }
 
 // Kernel A. Grid (channel tiles of nc, bands, B); blockDim.x = nc · 4
-// (with an expand) or 256 threads. For the depthwise and the copies thread
-// = (channel tid % nc, position group tid / nc); for the MMAs warp w covers
-// channels 16·(w % 3) of the tile and every other 16-position tile from
-// w / 3. Pass i copies the x rows of pass i + 1, expands its own rows into
+// (with an expand) or 256 threads. w holds the expand's weights: packed B
+// fragments (kMma), float32 [C, Cm] (kFma) or nothing (kNone). For the
+// depthwise and the copies thread = (channel tid % nc, position group
+// tid / nc); for the MMAs warp v covers channels 16·(v % 3) of the tile
+// and every other 16-position tile from v / 3. Pass i copies the x rows of pass i + 1, expands its own rows into
 // the ring and computes the output rows they complete: two barriers a pass.
 template <typename Tx, typename Ty, int kMode, int K>
 __global__ void __launch_bounds__(kThreads, 3)
-expand_dw_pool_kernel(const Tx* __restrict__ x, const uint2* __restrict__ wpk,
-                      const float* __restrict__ wexp,
+expand_dw_pool_kernel(const Tx* __restrict__ x, const void* __restrict__ w,
                       const float* __restrict__ kexp,
                       const float* __restrict__ bexp,
                       const float* __restrict__ dwk,
@@ -308,6 +310,7 @@ expand_dw_pool_kernel(const Tx* __restrict__ x, const uint2* __restrict__ wpk,
   float ke[2][2], be[2][2];
   float kef = 0.0f, bef = 0.0f;
   if constexpr (kMode == kMma) {
+    const uint2* wpk = static_cast<const uint2*>(w);
     const int n8 = (cm + 7) / 8;
     constexpr int kChunks = kFragStep / 16;
     for (int i = tid; i < n_ks * kChunks; i += threads) {
@@ -330,6 +333,7 @@ expand_dw_pool_kernel(const Tx* __restrict__ x, const uint2* __restrict__ wpk,
       }
     }
   } else if constexpr (kMode == kFma) {
+    const float* wexp = static_cast<const float*>(w);
     kef = valid ? kexp[c] : 0.0f;
     bef = valid ? bexp[c] : 0.0f;
     for (int i = tid; i < sp * nc; i += threads) {
@@ -843,17 +847,31 @@ scale_project_f32_kernel(const Ty* __restrict__ y,
 
 struct ArgsA {
   const void* x;
-  const uint2* wpk;
-  const float *wexp, *kexp, *bexp, *dwk, *kdw, *bdw;
+  const void* w;       // packed bf16 fragments, float32 [C, Cm], or null
+  const float *kexp, *bexp, *dwk, *kdw, *bdw;
   void* y;
   float *pool, *part;
   int batch, height, width, c_in, cm, band_rows;
 };
 
-// The channels a block of kernel A covers: ops/pallas_mbconv.py's
-// _channel_tile keeps the same rule for its band choice.
+// The channels a block of kernel A covers.
 int channel_tile(bool expand, int cm) {
   return expand ? kTile : (cm <= 16 ? 16 : 32);
+}
+
+// Rows per band of kernel A: bands enough for about kWaves blocks per SM
+// where the images' channel tiles alone give fewer, each band at least
+// kMinBandRows rows, as its halo expands k - 1 rows more. (Measured on the
+// card at the v2.4 and B1 shapes: more bands help the expand-less blocks,
+// and cost the expand blocks their halo rows.)
+int band_rows_a(int batch, int height, int cm, bool expand, int sm_count) {
+  const int nc = channel_tile(expand, cm);
+  const long blocks = static_cast<long>(batch) * ((cm + nc - 1) / nc);
+  const long want = (static_cast<long>(kWaves) * sm_count + blocks - 1) /
+                    blocks;
+  const long most = height / kMinBandRows;
+  const int n = static_cast<int>(want < most ? want : most);
+  return n > 1 ? (height + n - 1) / n : height;
 }
 // Threads per block of kernel A: four position groups of a 48-channel
 // tile (six warps: three 16-channel MMA slabs, two position halves), else
@@ -881,7 +899,7 @@ cudaError_t launch_a(const ArgsA& a, cudaStream_t stream) {
   else if (kMode == kNone)
     vec = a.c_in % (16 / sizeof(Tx)) == 0 && aligned;
   kern<<<grid, threads, L.total, stream>>>(
-      static_cast<const Tx*>(a.x), a.wpk, a.wexp, a.kexp, a.bexp, a.dwk,
+      static_cast<const Tx*>(a.x), a.w, a.kexp, a.bexp, a.dwk,
       a.kdw, a.bdw, static_cast<Ty*>(a.y), n_bands > 1 ? a.part : a.pool,
       a.height, a.width, a.c_in, a.cm, a.band_rows, nc, vec);
   err = cudaGetLastError();
@@ -894,7 +912,7 @@ cudaError_t launch_a(const ArgsA& a, cudaStream_t stream) {
 
 template <typename Tx, typename Ty, int K>
 cudaError_t dispatch_k(const ArgsA& a, int dot_bf16, cudaStream_t st) {
-  if (a.wexp == nullptr) return launch_a<Tx, Ty, kNone, K>(a, st);
+  if (a.w == nullptr) return launch_a<Tx, Ty, kNone, K>(a, st);
   return dot_bf16 ? launch_a<Tx, Ty, kMma, K>(a, st)
                   : launch_a<Tx, Ty, kFma, K>(a, st);
 }
@@ -981,25 +999,22 @@ extern "C" {
 // success). The caller has checked shapes, dtypes and contiguity; the
 // launchers refuse (cudaErrorInvalidValue) a batch beyond the grid, and a
 // width whose rows kernel A's shared memory cannot hold. With dot_bf16 the
-// matrix weights come as `wexp_frags` / `wproj` packed in mma fragment
-// order (pack_fragments in ops/pallas_mbconv.py), else as float32
-// [C, Cm] / [Cm, C']. wexp and res may be null (no expand; no residual).
-// `part` is scratch [batch, bands, cm] for kernel A's per-band pools, used
-// when an image has more than one band of band_rows rows.
+// matrix weights `wexp` / `wproj` come packed in mma fragment order
+// (pack_fragments in ops/pallas_mbconv.py), else as float32 [C, Cm] /
+// [Cm, C']. wexp and res may be null (no expand; no residual). `part` is
+// scratch [batch, bands, cm] for kernel A's per-band pools, used when an
+// image has more than one band of band_rows rows
+// (expand_dw_pool_band_rows).
 int expand_dw_pool_launch(const void* x, int x_bf16, const void* wexp,
-                          const void* wexp_frags, const void* kexp,
-                          const void* bexp, const void* dwk, const void* kdw,
-                          const void* bdw, void* y, int y_bf16, void* pool,
-                          void* part, int batch, int height, int width,
-                          int c_in, int cm, int kernel, int band_rows,
-                          int dot_bf16, void* stream) {
+                          const void* kexp, const void* bexp, const void* dwk,
+                          const void* kdw, const void* bdw, void* y,
+                          int y_bf16, void* pool, void* part, int batch,
+                          int height, int width, int c_in, int cm, int kernel,
+                          int band_rows, int dot_bf16, void* stream) {
   if (batch < 1 || batch > kMaxGrid || height < 1 || width < 1 || c_in < 1 ||
-      cm < 1 || band_rows < 1 ||
-      (wexp != nullptr && dot_bf16 && wexp_frags == nullptr))
+      cm < 1 || band_rows < 1)
     return cudaErrorInvalidValue;
-  const ArgsA a{x, static_cast<const uint2*>(wexp_frags),
-                static_cast<const float*>(wexp),
-                static_cast<const float*>(kexp),
+  const ArgsA a{x, wexp, static_cast<const float*>(kexp),
                 static_cast<const float*>(bexp),
                 static_cast<const float*>(dwk),
                 static_cast<const float*>(kdw),
@@ -1013,6 +1028,19 @@ int expand_dw_pool_launch(const void* x, int x_bf16, const void* wexp,
                   : dispatch_a<bf, float>(a, kernel, dot_bf16, st);
   return y_bf16 ? dispatch_a<float, bf>(a, kernel, dot_bf16, st)
                 : dispatch_a<float, float>(a, kernel, dot_bf16, st);
+}
+
+// The rows per band kernel A takes for `batch` images of `height` rows and
+// cm channels (expand: with an expand) on the current device, which sizes
+// `part`; 0 if the device cannot be queried.
+int expand_dw_pool_band_rows(int batch, int height, int cm, int expand) {
+  int dev = 0, sm_count = 0;
+  if (batch < 1 || height < 1 || cm < 1 ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    return 0;
+  return band_rows_a(batch, height, cm, expand != 0, sm_count);
 }
 
 int scale_project_launch(const void* y, int y_bf16, const void* se,

@@ -7,10 +7,10 @@ part of kernel A out (their output is wrong; only their time is of use):
 the x copy, the expand MMAs, the depthwise taps (the centre value
 instead), the two swishes, the y stores; and one that puts back the exact
 swish (``expf`` and ``__frcp_rn`` in place of ``__expf`` and
-``__fdividef``). Every build is timed in turns at
-each fused block shape of one BirdNET v3.0 step, bf16, B = 256, by CUDA
-graph replay (``diag/mbconv_times``), through the wrapper with the
-variant's library in place of the built one. A part's cost is the full
+``__fdividef``). Every build is timed in turns at each fused block shape of
+one BirdNET v3.0 step (``diag/mbconv_cases``), bf16, B = 256, by CUDA
+events around the replay of a CUDA graph of 10 calls (``diag/timing``),
+through the wrapper with the variant's library in place of the built one. A part's cost is the full
 kernel's time less the variant's. The variants edit the source as text and
 fail loudly when an edit no longer applies.
 """
@@ -23,7 +23,15 @@ from unittest import mock
 
 import torch
 
-from birdnet_go_tpu_torch.diag.mbconv_times import graph_ms, packed_kwargs
+from birdnet_go_tpu_torch.diag.mbconv_cases import (
+    ARGS_A,
+    BATCH,
+    fused_block_shapes,
+    mbconv_inputs,
+    packed_kwargs,
+)
+from birdnet_go_tpu_torch.diag.timing import graph_ms
+from birdnet_go_tpu_torch.models.birdnet_v3 import BirdNETv3
 from birdnet_go_tpu_torch.ops import _build
 from birdnet_go_tpu_torch.ops import pallas_mbconv as M
 
@@ -59,7 +67,6 @@ VARIANTS = {
         ("  return __fmul_rn(v, __fdividef(1.0f, 1.0f + __expf(-v)));",
          "  return __fmul_rn(v, __frcp_rn(1.0f + expf(-v)));")],
 }
-REPS = 10
 
 
 def build_variants() -> dict[str, ctypes.CDLL]:
@@ -96,8 +103,6 @@ def build_variants() -> dict[str, ctypes.CDLL]:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("mbconv_breakdown: no CUDA card")
-    import chip_smoke as cs
-
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -106,12 +111,11 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     dt = torch.bfloat16
     step = dict.fromkeys(libs, 0.0)
-    for seed, (shape, n) in enumerate(cs.fused_block_shapes(cs.BirdNETv3)):
-        c, cm, k, h, w, c2 = shape
-        a, b = cs.mbconv_inputs(shape, seed, dev, dt)
+    for seed, (shape, n) in enumerate(fused_block_shapes(BirdNETv3)):
+        c, cm, k, h, w, _ = shape
+        a, b = mbconv_inputs(shape, seed, dev, dt)
         ka, _ = packed_kwargs(a, b)
-        args = [a[n_] for n_ in ("x", "wexp", "kexp", "bexp", "dwk", "kdw",
-                                 "bdw")]
+        args = [a[name] for name in ARGS_A]
         kw = dict(height=h, width=w, kernel=k, out_dtype=dt, dot_dtype=dt,
                   **ka)
         times = {}
@@ -126,7 +130,7 @@ def main() -> None:
             step[name] += n * ms
             cost = "" if name == "full" else f", part's cost {full - ms:.4f}"
             print(f"mbconv breakdown A x{n} (C {c}, Cm {cm}, k{k}, {h}x{w}) "
-                  f"[256] bf16: {name} {ms:.4f} ms{cost} [{card}]")
+                  f"[{BATCH}] bf16: {name} {ms:.4f} ms{cost} [{card}]")
     for name, ms in step.items():
         cost = ("" if name == "full"
                 else f", part's cost {step['full'] - ms:.4f}")

@@ -72,9 +72,11 @@ def _declare_melspec(lib: ctypes.CDLL) -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     _declare_melspec(lib)
-    lib.expand_dw_pool_launch.argtypes = [p, i, p, p, p, p, p, p, p, p, i, p,
-                                          p, i, i, i, i, i, i, i, i, p]
+    lib.expand_dw_pool_launch.argtypes = [p, i, p, p, p, p, p, p, p, i, p, p,
+                                          i, i, i, i, i, i, i, i, p]
     lib.expand_dw_pool_launch.restype = i
+    lib.expand_dw_pool_band_rows.argtypes = [i, i, i, i]
+    lib.expand_dw_pool_band_rows.restype = i
     lib.scale_project_launch.argtypes = [p, i, p, p, p, p, p, i, p, i, i, i,
                                          i, i, i, p]
     lib.scale_project_launch.restype = i

@@ -28,7 +28,6 @@ the pool is the float32 sum taken before y is rounded.
 
 from __future__ import annotations
 
-import functools
 from typing import TYPE_CHECKING
 
 import torch
@@ -41,11 +40,7 @@ if TYPE_CHECKING:
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _KERNELS = (3, 5)
-# kernel A: one block per (image, band of rows, tile of channels); the
-# launcher in csrc/mbconv.cu refuses what its shared memory or grid cannot
-# hold, and the band choice below needs only the tile width
-_MIN_BAND_ROWS = 16
-_WAVES = 4                           # kernel A: blocks per SM to aim for
+
 
 def fold_bn(bn: BatchNorm) -> tuple[torch.Tensor, torch.Tensor]:
     """Inference BN as y = x·k + b: float32 row vectors [1, C]."""
@@ -195,29 +190,6 @@ def _device_of(name: str, t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-@functools.lru_cache(maxsize=4)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _channel_tile(cm: int, expand: bool) -> int:
-    """Channels per block of kernel A, as ``channel_tile`` in
-    csrc/mbconv.cu: 48 with an expand (three warps' 16-channel MMA slabs;
-    every Cm of the models is a multiple of 48), 16 or 32 without."""
-    return 48 if expand else (16 if cm <= 16 else 32)
-
-
-def _band_rows(height: int, blocks: int, sm_count: int) -> int:
-    """Rows per band of kernel A: bands enough for about _WAVES blocks per
-    SM where the image's channel tiles alone give fewer, each band at least
-    16 rows, as its halo expands k - 1 rows more. (Measured on the card at
-    the v2.4 and B1 shapes: more bands help the expand-less blocks, and cost
-    the expand blocks their halo rows.)"""
-    want = -(-_WAVES * sm_count // blocks)
-    n = max(1, min(want, height // _MIN_BAND_ROWS))
-    return -(-height // n)
-
-
 def _check_frags(name: str, frags: torch.Tensor, w: torch.Tensor):
     shape = (-(-w.shape[0] // 16), -(-w.shape[1] // 8), 32, 4)
     if (tuple(frags.shape) != shape or frags.dtype != torch.bfloat16
@@ -259,27 +231,26 @@ def expand_dw_pool(x, wexp, kexp, bexp, dwk, kdw, bdw, *,
             x, wexp, kexp, bexp, dwk, kdw, bdw, height=height, width=width,
             kernel=kernel, out_dtype=out_dtype, dot_dtype=dot_dtype)
 
-    frags = None
+    w = wexp
     if wexp is not None and dot_dtype == torch.bfloat16:
-        if wexp_frags is None:
-            wexp_frags = pack_fragments(wexp)
-        _check_frags(name, wexp_frags, wexp)
-        frags = wexp_frags.data_ptr()
+        w = pack_fragments(wexp) if wexp_frags is None else wexp_frags
+        _check_frags(name, w, wexp)
     lib = _build.load()
-    tiles = -(-cm // _channel_tile(cm, wexp is not None))
-    sm_count = _sm_count(x.device.index or 0)
-    rows = _band_rows(height, tiles * b, sm_count)
-    n_bands = -(-height // rows)
     y = torch.empty((b, s, cm), dtype=out_dtype, device=x.device)
     pool = torch.empty((b, cm), dtype=torch.float32, device=x.device)
-    part = (torch.empty((b, n_bands, cm), dtype=torch.float32,
-                        device=x.device) if n_bands > 1 else pool)
     with torch.cuda.device(x.device):
+        # the launcher's band choice, which sizes the per-band pool scratch
+        rows = lib.expand_dw_pool_band_rows(b, height, cm, int(w is not None))
+        if rows < 1:
+            raise RuntimeError(f"{name}: the device's SM count cannot be "
+                               f"read")
+        n_bands = -(-height // rows)
+        part = (torch.empty((b, n_bands, cm), dtype=torch.float32,
+                            device=x.device) if n_bands > 1 else pool)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.expand_dw_pool_launch(
             x.data_ptr(), int(x.dtype == torch.bfloat16),
-            None if wexp is None else wexp.data_ptr(), frags,
-            kexp.data_ptr(),
+            None if w is None else w.data_ptr(), kexp.data_ptr(),
             bexp.data_ptr(), dwk.data_ptr(), kdw.data_ptr(), bdw.data_ptr(),
             y.data_ptr(), int(out_dtype == torch.bfloat16), pool.data_ptr(),
             part.data_ptr(), b, height, width, c, cm, kernel, rows,

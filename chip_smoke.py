@@ -20,10 +20,12 @@ Phases, in order; any failure propagates and exits non-zero:
 4. the fused MBConv kernels A (``expand_dw_pool``) and B
    (``scale_project``) against their plain versions at B = 256 at each
    distinct fused block shape of the v2.4, v3.0 and Perch v2 steps (read
-   off the models) and one float32 case, with the device times of both
-   (CUDA graphs of 10 calls replayed between events, ``diag/mbconv_times``:
-   one call's host work is longer than most of these kernels) and the
-   kernel's time for one call from the host (``call_ms``);
+   off the models, ``diag/mbconv_cases``) and one float32 case, then in
+   float32 at every shape; each timed in two ways (``diag/timing``): per
+   call by CUDA events, as the mel kernel (``kernel_ms``, ``plain_ms``: at
+   most of these shapes the wrapper's host work is longer than the kernel,
+   so this measures the host), and by replaying a CUDA graph of 10 calls
+   between events (``device_ms``, ``plain_device_ms``: the device time);
 5. the full-width BirdNET v2.4 step (B0, 6,522 classes, bf16, random
    weights from a seed) through the mel kernel, checked finite and compared
    with the plain mel on field-level audio, in bf16 and again with the same
@@ -42,8 +44,10 @@ Every kernel line carries its bound (``ops/roofline.py``: the larger of its
 bytes over the memory rate and its operations over the peak for their type)
 and its share of it. The last lines are one JSON object for the kernels (the
 MBConv kernels' times, bounds and errors summed over the fused blocks of one
-v3.0 step, whose loop counts their launches), the card's ``name,
-power.limit`` line and ``{"ok": true, "device": {...}}``.
+v3.0 step, whose loop counts their launches; ``ms`` and ``plain_ms`` per
+call for every kernel, and for the MBConv kernels also ``device_ms`` and
+``plain_device_ms`` by graph replay), the card's ``name, power.limit`` line
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -58,15 +62,26 @@ import numpy as np
 import torch
 
 from birdnet_go_tpu_torch.audio.buffers import AnalysisBuffer
-from birdnet_go_tpu_torch.diag.mbconv_times import (
-    graph_ms_pair,
+from birdnet_go_tpu_torch.diag.mbconv_cases import (
+    ARGS_A,
+    ARGS_B,
+    BATCH,
+    FAMILIES,
+    fused_block_shapes,
+    mbconv_inputs,
     packed_kwargs,
+)
+from birdnet_go_tpu_torch.diag.timing import (
+    REPS,
+    event_ms,
+    graph_ms_pair,
+    median_ms_pair,
+    timed_pair,
 )
 from birdnet_go_tpu_torch.inference.backend import TorchClassifier
 from birdnet_go_tpu_torch.models import efficientnet
 from birdnet_go_tpu_torch.models.birdnet_v3 import BirdNETv3
 from birdnet_go_tpu_torch.models.birdnet_v24 import BirdNETv24
-from birdnet_go_tpu_torch.models.layers import BatchNorm
 from birdnet_go_tpu_torch.models.perch_v2 import PerchV2
 from birdnet_go_tpu_torch.ops import _build
 from birdnet_go_tpu_torch.ops.melspec import (
@@ -80,7 +95,6 @@ from birdnet_go_tpu_torch.ops.pallas_mbconv import (
     expand_dw_pool,
     expand_dw_pool_plain,
     expand_dw_pool_work,
-    fold_bn,
     scale_project,
     scale_project_plain,
     scale_project_work,
@@ -100,7 +114,6 @@ from birdnet_go_tpu_torch.scheduler.loop import DeviceLoop, TorchModelBatcher
 from birdnet_go_tpu_torch.utils.tracing import GLOBAL_SPANS
 
 SEED = 0
-BATCH = 256                  # realtime.max_batch default
 CLIP = 144000                # 3 s at 48 kHz
 CLIP32 = 160000              # 5 s at 32 kHz (v3.0, Perch v2)
 V24 = dict(sample_rate=48000, n_fft=2048, hop=512, n_mels=96, fmax=15000.0,
@@ -117,8 +130,6 @@ V3_FUSED = 13                # fused blocks of the full-width B1 step
 # float32 step with fused blocks on bf16 operands, card vs CPU: how many of
 # its 2 x 6,522 logits may differ by 1e-3 of their scale or more
 BF16_OPERAND_OUTLIERS = 130
-REPS = 10
-FAMILIES = (BirdNETv24, BirdNETv3, PerchV2)
 
 def _run(cmd: list[str]) -> str:
     return subprocess.run(cmd, capture_output=True, text=True,
@@ -142,37 +153,6 @@ def pcm_batch(shape: tuple[int, int], seed: int, tone: float = 0.05,
     x = tone * np.sin(2 * np.pi * f * t)
     x += rng.standard_normal(shape, dtype=np.float32) * noise
     return (np.clip(x, -1.0, 1.0) * 32767).astype(np.int16)
-
-
-def event_ms(fn) -> float:
-    """Device time of one call of `fn`, by CUDA events."""
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    fn()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e)
-
-
-def timed_pair(plain, kernel) -> tuple[list[float], list[float]]:
-    """Two callables' event times, run in turns (plain, kernel, kernel,
-    plain) after a warm-up of each."""
-    plain(), kernel()
-    torch.cuda.synchronize()
-    tp, tk = [], []
-    for _ in range(REPS // 2):
-        tp.append(event_ms(plain))
-        tk.append(event_ms(kernel))
-        tk.append(event_ms(kernel))
-        tp.append(event_ms(plain))
-    return tp, tk
-
-
-def median_ms_pair(plain, kernel) -> tuple[float, float]:
-    """Medians of ``timed_pair``'s times."""
-    tp, tk = timed_pair(plain, kernel)
-    return float(np.median(tp)), float(np.median(tk))
 
 
 def mel_library(pcm: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
@@ -299,41 +279,6 @@ def phase_kernel(dev: torch.device, card: str) -> dict:
     return main
 
 
-def _bn_consts(c: int, gen: torch.Generator, dev: torch.device):
-    """Folded BN (k, b) [1, c] from random statistics."""
-    bn = BatchNorm(c)
-    with torch.no_grad():
-        for p, lo, hi in ((bn.scale, 0.5, 1.5), (bn.var, 0.5, 2.0)):
-            p.copy_(lo + (hi - lo) * torch.rand(c, generator=gen))
-        for p in (bn.bias, bn.mean):
-            p.copy_(0.1 * torch.randn(c, generator=gen))
-    return tuple(t.to(dev) for t in fold_bn(bn))
-
-
-def mbconv_inputs(shape: tuple, seed: int, dev: torch.device,
-                  dt: torch.dtype) -> tuple[dict, dict]:
-    """Random inputs of kernels A and B at one block shape, batch BATCH."""
-    c, cm, k, h, w, c2 = shape
-    gen = torch.Generator().manual_seed(seed)
-    dgen = torch.Generator(device=dev).manual_seed(seed)
-
-    def randn(*size, scale=1.0):
-        return torch.randn(size, generator=dgen, device=dev) * scale
-
-    kexp, bexp = _bn_consts(cm, gen, dev)
-    kdw, bdw = _bn_consts(cm, gen, dev)
-    kpr, bpr = _bn_consts(c2, gen, dev)
-    a = dict(x=randn(BATCH, h * w, c).to(dt),
-             wexp=randn(c, cm, scale=c ** -0.5) if cm != c else None,
-             kexp=kexp, bexp=bexp, dwk=randn(k * k, cm, scale=1.0 / k),
-             kdw=kdw, bdw=bdw)
-    b = dict(y=randn(BATCH, h * w, cm).to(dt),
-             se=torch.sigmoid(randn(BATCH, cm)),
-             wproj=randn(cm, c2, scale=cm ** -0.5), kpr=kpr, bpr=bpr,
-             res=randn(BATCH, h * w, c2).to(dt) if c2 == c else None)
-    return a, b
-
-
 def _mbconv_err(ref: torch.Tensor, got: torch.Tensor, dt: torch.dtype
                 ) -> tuple[float, float, float]:
     """(max |Δ|, the normalised error, its limit): one bf16 step for bf16;
@@ -345,32 +290,6 @@ def _mbconv_err(ref: torch.Tensor, got: torch.Tensor, dt: torch.dtype
         return float(d.max()), float((d / (ref.abs() + 1e-3)).max()), \
             2.0 ** -7 + 1e-3
     return float(d.max()), float((d / (ref.abs() + 0.1)).max()), 1e-4
-
-
-def fused_block_shapes(cls) -> list[tuple[tuple, int]]:
-    """(C, Cm, k, H, W, C') of each distinct fused block of a full-width
-    step of `cls`, in order, and how many blocks have it (Cm == C: no
-    expand; C' == C: identity residual). Read off one step on meta tensors,
-    with the unfused block standing in for the fused one."""
-    model = cls().to("meta")
-    shapes: dict[tuple, int] = {}
-
-    def record(blk, h, *, kernel, compute_dtype):
-        key = (h.shape[1], blk.dw.w.shape[0], kernel, h.shape[2],
-               h.shape[3], blk.project_conv.w.shape[0])
-        shapes[key] = shapes.get(key, 0) + 1
-        return blk(h, compute_dtype)
-
-    frames = model.mel.num_frames(model.spec.clip_samples)
-    orig = efficientnet.mbconv_fused
-    efficientnet.mbconv_fused = record
-    try:
-        model.backbone(torch.zeros((1, frames, model.mel.n_mels, 1),
-                                   dtype=model.compute_dtype, device="meta"),
-                       fused_blocks=True)
-    finally:
-        efficientnet.mbconv_fused = orig
-    return list(shapes.items())
 
 
 def phase_mbconv(dev: torch.device, card: str) -> dict:
@@ -389,17 +308,16 @@ def phase_mbconv(dev: torch.device, card: str) -> dict:
     cases.append(("BirdNET_V2.4 f32 and f32 dot", f32_shape, 0,
                   torch.float32))
     out = {cls.spec.model_id: {
-        name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None,
-                   flops={}, nbytes=0.0, blocks=0)
+        name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, device_ms=0.0,
+                   plain_device_ms=0.0, library_ms=None, flops={},
+                   nbytes=0.0, blocks=0)
         for name in ("expand_dw_pool", "scale_project")}
         for cls in FAMILIES}
     for seed, (label, shape, n_blocks, dt) in enumerate(cases):
         c, cm, k, h, w, c2 = shape
         a, b = mbconv_inputs(shape, SEED + seed, dev, dt)
         kw = dict(height=h, width=w, kernel=k, out_dtype=dt, dot_dtype=dt)
-        args_a = [a[n] for n in ("x", "wexp", "kexp", "bexp", "dwk", "kdw",
-                                 "bdw")]
-        args_b = [b[n] for n in ("y", "se", "wproj", "kpr", "bpr", "res")]
+        args_a, args_b = [a[n] for n in ARGS_A], [b[n] for n in ARGS_B]
         # the kernels are timed with their weights packed once, as the glue
         # passes them; these first calls pack on the call
         pk_a, pk_b = packed_kwargs(a, b)
@@ -430,24 +348,28 @@ def phase_mbconv(dev: torch.device, card: str) -> dict:
                     BATCH, h * w, cm, c2, residual=c2 == c, y_dtype=dt,
                     out_dtype=dt, dot_dtype=dt)}
         for name, (abs_err, err, lim), plain, kern in kinds:
-            plain_ms, ms = graph_ms_pair(plain, kern)
-            call_ms = float(np.median([event_ms(kern)
-                                       for _ in range(REPS)]))
+            # per call, the wrapper's host work included (the kernels
+            # line's ms, as for the mel kernel), and by graph replay
+            plain_ms, ms = median_ms_pair(plain, kern)
+            plain_dev, dev_ms = graph_ms_pair(plain, kern)
             bound, by = bound_ms(*work[name])
             extra = (f", pool {pool_rel:.3e} (< 1e-4)"
                      if name == "expand_dw_pool" else "")
             print(f"mbconv {name} {label} x{n_blocks} {dt} (C {c}, Cm {cm}, "
                   f"k{k}, {h}x{w}, C' {c2}) [{BATCH}]: max_abs_err="
                   f"{abs_err:.3e} err={err:.3e} (< {lim:.3e}){extra} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} call_ms="
-                  f"{call_ms:.4f} bound_ms={bound:.4f} ({by}) share="
-                  f"{bound / ms:.3f} [{card}]")
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} device_ms="
+                  f"{dev_ms:.4f} plain_device_ms={plain_dev:.4f} bound_ms="
+                  f"{bound:.4f} ({by}) share={bound / ms:.3f} device_share="
+                  f"{bound / dev_ms:.3f} [{card}]")
             assert err < lim, f"{name} disagrees with plain ({label})"
             if n_blocks:
                 r = out[label][name]
                 r["max_abs_err"] = max(r["max_abs_err"], abs_err)
                 r["ms"] += n_blocks * ms
                 r["plain_ms"] += n_blocks * plain_ms
+                r["device_ms"] += n_blocks * dev_ms
+                r["plain_device_ms"] += n_blocks * plain_dev
                 flops, nbytes = work[name]
                 for t, v in flops.items():
                     r["flops"][t] = r["flops"].get(t, 0.0) + n_blocks * v
@@ -462,9 +384,7 @@ def phase_mbconv(dev: torch.device, card: str) -> dict:
             continue
         c, cm, k, h, w, c2 = shape
         a, b = mbconv_inputs(shape, SEED + 100 + seed, dev, torch.float32)
-        args_a = [a[n] for n in ("x", "wexp", "kexp", "bexp", "dwk", "kdw",
-                                 "bdw")]
-        args_b = [b[n] for n in ("y", "se", "wproj", "kpr", "bpr", "res")]
+        args_a, args_b = [a[n] for n in ARGS_A], [b[n] for n in ARGS_B]
         for dot in (torch.float32, torch.bfloat16):
             kw = dict(height=h, width=w, kernel=k, out_dtype=torch.float32,
                       dot_dtype=dot)
@@ -494,11 +414,13 @@ def phase_mbconv(dev: torch.device, card: str) -> dict:
             # the bound of the step's summed work
             r["bound_ms"], r["bound_by"] = bound_ms(r.pop("flops"),
                                                     r.pop("nbytes"))
-            print(f"mbconv {name}: {r['ms']:.4f} ms against plain "
-                  f"{r['plain_ms']:.4f} ms and bound {r['bound_ms']:.4f} ms "
-                  f"(share {r['bound_ms'] / r['ms']:.3f}) over the {n} fused "
-                  f"blocks of one {model_id} step, max_abs_err "
-                  f"{r['max_abs_err']:.3e} [{card}]")
+            print(f"mbconv {name}: per call {r['ms']:.4f} ms against plain "
+                  f"{r['plain_ms']:.4f} ms, device {r['device_ms']:.4f} ms "
+                  f"against plain {r['plain_device_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms (share {r['bound_ms'] / r['ms']:.3f}"
+                  f" per call, {r['bound_ms'] / r['device_ms']:.3f} device) "
+                  f"over the {n} fused blocks of one {model_id} step, "
+                  f"max_abs_err {r['max_abs_err']:.3e} [{card}]")
     return out
 
 
@@ -790,8 +712,10 @@ def main() -> None:
           f"{CLIP}] bf16; expand_dw_pool and scale_project summed over the "
           f"{V3_FUSED} fused blocks of one v3.0 step [{BATCH}, {CLIP32}] "
           f"bf16 (ms, plain_ms, bound_ms) and their largest error there; "
-          f"bound_ms from the *_work counts at H100 SXM peaks "
-          f"(ops/roofline.py)")
+          f"ms and plain_ms by CUDA events around one call (the wrapper's "
+          f"host work included), device_ms and plain_device_ms by replaying "
+          f"a CUDA graph of 10 calls (diag/timing.py); bound_ms from the "
+          f"*_work counts at H100 SXM peaks (ops/roofline.py)")
     sources = {"melspec_fused": ("melspec.cu", "pallas_melspec.py:149"),
                "expand_dw_pool": ("mbconv.cu", "pallas_mbconv.py:87"),
                "scale_project": ("mbconv.cu", "pallas_mbconv.py:168")}

@@ -218,12 +218,12 @@ def test_kernel_matches_plain_on_loud_tones(dev):
 # (C, Cm, k, H, W, C'): Cm == C means no expand, C' == C a residual
 MBCONV_SHAPES = [
     (24, 144, 3, 23, 3, 24),       # ragged S = 69, W = 3, odd H
-    (20, 100, 5, 9, 8, 28),        # Cm not a multiple of the 32-channel slice
+    (20, 100, 5, 9, 8, 28),        # the last 48-channel tile holds 4
     (192, 1152, 5, 22, 3, 192),    # stage-6-like, at a longer input
     (16, 16, 3, 31, 16, 16),       # no expand, residual
     (32, 32, 3, 139, 48, 16),      # v2.4 block 0: several bands per image
     (112, 672, 5, 16, 8, 112),     # v3.0's largest block
-    (24, 144, 5, 12, 10, 16),      # last 64-channel tile holds 16; C' = 16
+    (24, 120, 5, 12, 10, 16),      # 48-channel tiles, the last holds 24; C' 16
     (16, 16, 3, 124, 64, 16),      # v3.0's expand-less 16 -> 16 block
 ]
 BF16, F32 = torch.bfloat16, torch.float32
@@ -306,6 +306,28 @@ def test_mbconv_glue_on_card_matches_cpu(dev):
         scale = max(1.0, want.float().abs().max().item())
         assert (got.cpu().float() - want.float()).abs().max().item() < (
             2.0 ** -7 + 1e-3) * scale
+
+
+def test_mbconv_band_rows_at_the_models_shapes(dev):
+    """Kernel A's band choice (csrc/mbconv.cu) at B = 256: only the
+    expand-less blocks of the models' fused steps are cut into bands, each
+    of at least 16 rows and none empty; on 132 SMs (H100 SXM) the 124- and
+    139-row images take bands of 42 and 47 rows."""
+    from birdnet_go_tpu_torch.diag.mbconv_cases import (
+        FAMILIES,
+        fused_block_shapes,
+    )
+
+    lib = M._build.load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for cls in FAMILIES:
+        for (c, cm, _, h, _, _), _ in fused_block_shapes(cls):
+            rows = lib.expand_dw_pool_band_rows(256, h, cm, int(cm != c))
+            n_bands = -(-h // rows)
+            assert (n_bands > 1) == (cm == c), (cls.spec.model_id, h, cm)
+            assert rows >= 16 and (n_bands - 1) * rows < h
+            if sms == 132 and cm == c:
+                assert rows == {124: 42, 139: 47}[h]
 
 
 def test_mbconv_wrappers_reject_what_the_kernels_do_not_take(dev):

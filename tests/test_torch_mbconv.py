@@ -352,6 +352,10 @@ V3_FUSED = [((32, 32, 3, 124, 64, 16), 1), ((16, 16, 3, 124, 64, 16), 1),
             ((24, 144, 3, 62, 32, 24), 2), ((40, 240, 5, 31, 16, 40), 2),
             ((80, 480, 3, 16, 8, 80), 3), ((80, 480, 5, 16, 8, 112), 1),
             ((112, 672, 5, 16, 8, 112), 3)]
+PERCH_FUSED = [((32, 32, 3, 124, 80, 16), 1), ((16, 16, 3, 124, 80, 16), 1),
+               ((24, 144, 3, 62, 40, 24), 2), ((40, 240, 5, 31, 20, 40), 2),
+               ((80, 480, 3, 16, 10, 80), 3), ((80, 480, 5, 16, 10, 112), 1),
+               ((112, 672, 5, 16, 10, 112), 3)]
 
 
 def _step_work(shapes):
@@ -410,7 +414,7 @@ def test_mbconv_work_follows_dtypes():
     assert b == 32 * 8 * 2 + 2 * 8 * 4 + 4 * (32 + 8) + 32 * 4 * 2
 
 
-# -- packed weights and the tile rule ------------------------------------------
+# -- packed weights and the fused shapes ---------------------------------------
 
 def _unpack(frags):
     """The [K, N] bf16 matrix behind packed fragments, read off the
@@ -446,17 +450,16 @@ def test_pack_fragments_unpacks_to_the_bf16_weights(k, n):
     assert not full[k:].float().any() and not full[:, n:].float().any()
 
 
-def test_channel_tiles_and_bands_at_the_models_shapes():
-    """Kernel A's tiles (48 channels with an expand, 16 or 32 without)
-    fill every fused block of v2.4 and v3.0 exactly; at B = 256 on 132 SMs
-    only the expand-less blocks are cut into bands, of at least 16 rows."""
-    for (c, cm, k, h, w, c2), _ in V24_FUSED + V3_FUSED:
-        tile = TM._channel_tile(cm, cm != c)
-        assert cm % tile == 0 and tile == (48 if cm != c else min(cm, 32))
-        rows = TM._band_rows(h, cm // tile * 256, 132)
-        n_bands = -(-h // rows)
-        assert (n_bands > 1) == (cm == c)
-        assert rows >= 16 and (n_bands - 1) * rows < h
-    assert TM._band_rows(124, 256, 132) == 42          # 3 bands
-    assert TM._band_rows(139, 256, 132) == 47
-    assert TM._channel_tile(100, True) == 48 and TM._channel_tile(24, False) == 32
+@pytest.mark.parametrize("family,want", [
+    ("BirdNET_V2.4", V24_FUSED), ("BirdNET_V3.0", V3_FUSED),
+    ("Perch_V2", PERCH_FUSED)])
+def test_fused_block_shapes_read_off_the_models(family, want):
+    """The shapes at which the card's checks and diagnostics hold kernels A
+    and B are those of each model's full-width fused step."""
+    from birdnet_go_tpu_torch.diag.mbconv_cases import (
+        FAMILIES,
+        fused_block_shapes,
+    )
+
+    cls = {c.spec.model_id: c for c in FAMILIES}[family]
+    assert fused_block_shapes(cls) == want

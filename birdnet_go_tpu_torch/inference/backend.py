@@ -1,5 +1,7 @@
-"""Classifier backend on a torch device (port of ``JaxClassifier`` in
-``birdnet_go_tpu/inference/backend.py``)."""
+"""Classifier and range-filter backends on a torch device (ports of
+``JaxClassifier`` and ``JaxRangeFilter`` in
+``birdnet_go_tpu/inference/backend.py``), and the range mask a classifier
+takes from the filter."""
 
 from __future__ import annotations
 
@@ -7,6 +9,7 @@ import numpy as np
 import torch
 
 from birdnet_go_tpu_torch.models.base import MelCnnModel
+from birdnet_go_tpu_torch.models.geomodel import Geomodel
 from birdnet_go_tpu_torch.ops.postprocess import (
     sigmoid_confidence,
     top_k_results,
@@ -50,3 +53,45 @@ class TorchClassifier:
             x = torch.as_tensor(np.asarray(pcm, np.float32),
                                 device=self.device)
             return self.model.apply(x)["embedding"].cpu().numpy()
+
+
+class TorchRangeFilter:
+    """Geomodel-backed range filter (reference: onnx/rangefilter.go) on
+    `device`, the card unless the caller passes another."""
+
+    def __init__(self, geomodel: Geomodel,
+                 device: torch.device | str = "cuda"):
+        self.device = torch.device(device)
+        self.geomodel = geomodel.to(self.device).eval()
+
+    def _scores(self, coords) -> np.ndarray:
+        with torch.inference_mode():
+            x = torch.as_tensor(np.asarray(coords, np.float32),
+                                device=self.device)
+            return self.geomodel(x).cpu().numpy()
+
+    def predict(self, lat: float, lon: float, week: int) -> np.ndarray:
+        """One location and week → scores [S]."""
+        self._validate(lat, lon)
+        return self._scores([[lat, lon, float(week)]])[0]
+
+    def predict_batch(self, coords: np.ndarray) -> np.ndarray:
+        """[N, 3] (lat, lon, week) → [N, S] scores (range heatmap path)."""
+        return self._scores(coords)
+
+    @staticmethod
+    def _validate(lat: float, lon: float) -> None:
+        # onnx/rangefilter.go:211-222 coordinate validation
+        if not (-90.0 <= lat <= 90.0):
+            raise ValueError(f"latitude {lat} outside [-90, 90]")
+        if not (-180.0 <= lon <= 180.0):
+            raise ValueError(f"longitude {lon} outside [-180, 180]")
+
+
+def range_mask(rf: TorchRangeFilter, lat: float, lon: float, week: int,
+               threshold: float = 0.01) -> np.ndarray:
+    """The included-species mask for one location and week, float32 [S]:
+    1 where the occurrence score reaches `threshold` (reference:
+    BuildRangeFilter at startup, range_filter.go:100). It goes to
+    ``TorchClassifier.set_range_mask``."""
+    return (rf.predict(lat, lon, week) >= threshold).astype(np.float32)

@@ -1,0 +1,27 @@
+"""ctypes bindings to the native host data plane (the repository's
+``native/*.cpp``), built on first use into ``build/torch_native/``; a failed
+build raises. See ``native/lib.py``."""
+
+from birdnet_go_tpu_torch.native.lib import (
+    AlsaCapture,
+    NativeAnalysisBuffer,
+    StreamFarm,
+    alsa_available,
+    alsa_list_devices,
+    available,
+    build_native,
+    fill_provider,
+    set_malloc_arena_max,
+)
+
+__all__ = [
+    "available",
+    "alsa_available",
+    "alsa_list_devices",
+    "build_native",
+    "fill_provider",
+    "NativeAnalysisBuffer",
+    "StreamFarm",
+    "AlsaCapture",
+    "set_malloc_arena_max",
+]

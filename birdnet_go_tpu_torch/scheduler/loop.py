@@ -4,16 +4,19 @@ on a torch device.
 ``PendingWindow``, ``BatcherStats``, ``HostBatcher`` and ``DeviceLoop`` are
 copies of the JAX package's host plane (``birdnet_go_tpu/scheduler/loop.py``),
 so that the port imports nothing of it; ``tests/test_torch_hostplane.py``
-holds them to the originals. Two things differ: a batch's span goes to the
-port's ``utils.tracing.GLOBAL_SPANS``, and a persistent tick failure is a log
-line (the JAX package tags an error record, whose module comes with the app
-wiring). ``TorchModelBatcher`` supplies only the device interaction.
+holds them to the originals. A batch's span goes to the port's
+``utils.tracing.GLOBAL_SPANS``, and a persistent tick failure is tagged
+through the port's ``utils.errors``. ``TorchModelBatcher`` supplies only
+the device interaction.
 
 Per model: a fixed batch shape [B, clip_samples] int16 (int16 halves the
 host→device transfer vs float32; conversion happens on the device inside the
 step). Each tick collects every ready window from every stream's
-AnalysisBuffer, packs them (padding the remainder), and dispatches the step,
-pipelined `pipeline_depth` batches deep. A tick drains its whole ready set,
+AnalysisBuffer (or a native stream farm packs them straight into the
+staging buffer), packs them (padding the remainder), and dispatches the
+step, pipelined `pipeline_depth` batches deep. On a CUDA card the staging
+buffers are pinned and the copy to the card is asynchronous, so a dispatch
+returns without waiting for it. A tick drains its whole ready set,
 up to `max_dispatches_per_tick` device batches per model; overflow lands in
 a bounded retry backlog with drop accounting. A window is overdue if its
 dispatch→result latency exceeds ClipLength/2; overruns are counted.
@@ -31,10 +34,16 @@ import numpy as np
 import torch
 
 from birdnet_go_tpu_torch.inference.backend import TorchClassifier
+from birdnet_go_tpu_torch.ops.pcm import pcm16_to_float32
 from birdnet_go_tpu_torch.ops.postprocess import (
     sigmoid_confidence,
     top_k_results,
 )
+from birdnet_go_tpu_torch.ops.ultrasonic import (
+    UltrasonicConfig,
+    ultrasonic_frame_cv,
+)
+from birdnet_go_tpu_torch.utils import errors
 from birdnet_go_tpu_torch.utils.tracing import GLOBAL_SPANS
 
 log = logging.getLogger("birdnet_tpu.scheduler")
@@ -263,7 +272,9 @@ class HostBatcher:
 
 class TorchModelBatcher(HostBatcher):
     """Packs ready windows from N streams into device megabatches for one
-    model and runs the int16 step on the classifier's device."""
+    model and runs the int16 step on the classifier's device. A spec with a
+    `raw_sample_rate` (the bat family) also gets each window's ultrasonic
+    CV, computed on the device in the same step."""
 
     def __init__(self, classifier: TorchClassifier, max_batch: int = 256,
                  sensitivity: float = 1.0, top_k: int = 10,
@@ -272,30 +283,70 @@ class TorchModelBatcher(HostBatcher):
         self.classifier = classifier
         self.model = classifier.model
         self.device = classifier.device
-        if self.model.spec.raw_sample_rate:
-            raise NotImplementedError(
-                f"{self.model.spec.model_id}: raw-rate models (ultrasonic "
-                f"CV step) are not ported yet")
         self.sensitivity = sensitivity
         self._init_host(self.model.spec, max_batch,
                         min(top_k, self.model.num_species), on_result,
                         pipeline_depth)
+        # raw-rate models: the ultrasonic-band CV of the float32 PCM at the
+        # capture rate, in the batched step (JAX scheduler/loop.py:290-317)
+        self._us_cfg = (UltrasonicConfig(sample_rate=self.spec.raw_sample_rate)
+                        if self.spec.raw_sample_rate else None)
+        self._copy_stream = None
+        if self.device.type == "cuda":
+            # pinned staging buffers, written through numpy views of them
+            # (offer, offer_block, staging_view and a farm's collect write
+            # numpy), so that the copy to the card can be asynchronous
+            self._host_bufs = [
+                torch.zeros(b.shape, dtype=torch.int16, pin_memory=True)
+                for b in self._staged_bufs]
+            self._staged_bufs = [t.numpy() for t in self._host_bufs]
+            self._staged = self._staged_bufs[self._buf_idx]
+            self._copy_stream = torch.cuda.Stream(self.device)
+        else:
+            self._host_bufs = [torch.from_numpy(b) for b in self._staged_bufs]
 
     def _step(self, pcm_i16: torch.Tensor, sensitivity: float, k: int,
               mask: torch.Tensor | None):
-        """int16 [B, T] → (top-k values [B, k], indices [B, k], None)."""
+        """int16 [B, T] → (top-k values [B, k], indices [B, k], the
+        ultrasonic CV [B] for a raw-rate spec, else None)."""
         with torch.inference_mode():
             out = self.model.apply_int16(pcm_i16)
             conf = sigmoid_confidence(out["logits"], sensitivity)
             if mask is not None:
                 conf = conf * mask
             vals, idx = top_k_results(conf, k)
-        return vals, idx, None
+            cv = (ultrasonic_frame_cv(pcm16_to_float32(pcm_i16), self._us_cfg)
+                  if self._us_cfg is not None else None)
+        return vals, idx, cv
 
     def _to_device(self, staged: np.ndarray) -> torch.Tensor:
-        # synchronous copy: the staging buffer may be rewritten as soon as
-        # this returns
-        return torch.from_numpy(staged).to(self.device)
+        """`staged` as a tensor on the device.
+
+        A staging buffer of this batcher is copied from its pinned host
+        tensor asynchronously, on a copy stream that the current stream
+        then waits on, so the step follows the copy and the call returns at
+        once. That is safe: ``HostBatcher`` rewrites a staging buffer only
+        after the batch dispatched from it is harvested, and harvest waits
+        on an event recorded on the current stream after the step, which
+        waited on the copy. The device tensor is marked as used by the
+        current stream, so its memory is not reused before the step ends.
+        On the CPU the step reads the staging buffer itself, synchronously
+        inside ``_launch``. Raises ValueError for an array that is not one
+        of this batcher's staging buffers.
+        """
+        host = next((t for b, t in zip(self._staged_bufs, self._host_bufs)
+                     if b is staged), None)
+        if host is None:
+            raise ValueError("_to_device takes one of this batcher's "
+                             "staging buffers")
+        if self._copy_stream is None:
+            return host
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            x = host.to(self.device, non_blocking=True)
+        compute.wait_stream(self._copy_stream)
+        x.record_stream(compute)
+        return x
 
     def warmup(self) -> float:
         """Run one step ahead of live traffic; returns its seconds."""
@@ -312,20 +363,20 @@ class TorchModelBatcher(HostBatcher):
     # -- device interaction (HostBatcher contract) ---------------------------
 
     def _launch(self, staged: np.ndarray, n: int):
-        vals, idx, _ = self._step(self._to_device(staged), self.sensitivity,
-                                  self.top_k, self.classifier._range_mask)
+        vals, idx, cv = self._step(self._to_device(staged), self.sensitivity,
+                                   self.top_k, self.classifier._range_mask)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        return vals, idx, event
+        return vals, idx, event, cv
 
     def _collect(self, handle, meta):
-        vals, idx, event = handle
+        vals, idx, event, cv = handle
         if event is not None:
             event.synchronize()
         return (vals.cpu().numpy(), idx.to(torch.int32).cpu().numpy(),
-                None)
+                cv.cpu().numpy() if cv is not None else None)
 
     def _ready(self, handle):
         # the CPU step ran synchronously inside _launch
@@ -612,11 +663,8 @@ class DeviceLoop:
                     log.warning("device loop still failing (%d consecutive"
                                 " ticks): %s", c, e)
                 if c == 30:
-                    # the JAX package tags one EnhancedError here; the
-                    # port's error taxonomy comes with the app wiring
-                    log.error("device loop failing persistently (%d "
-                              "consecutive ticks): %s: %s", c,
-                              type(e).__name__, e)
+                    errors.from_exception(e, "scheduler",
+                                          errors.Category.MODEL)
             # adaptive cadence: latency-sensitive when idle (min_tick),
             # amortizing when busy (period = 2×busy, capped at the
             # nominal tick → duty cycle stays ≤ ~50% and saturated

@@ -1,1 +1,1 @@
-"""Host utilities of the port: prediction tracing."""
+"""Host utilities of the port: prediction tracing and the error taxonomy."""

@@ -38,7 +38,19 @@ Phases, in order; any failure propagates and exits non-zero:
    ``AnalysisBuffer`` streams into one ``TorchModelBatcher``, with every
    window's top-10 checked and the kernel's launches counted; once for
    v2.4 (48 kHz), and once for v3.0 with fused blocks (32 kHz), where the
-   MBConv kernels must run 13 times per batch.
+   MBConv kernels must run 13 times per batch;
+7. the v2.4 loop fed by the native stream farm (``native.StreamFarm``,
+   built from ``native/*.cpp`` into ``build/torch_native/`` in phase 2):
+   2,048 streams at 4x real time pack their windows straight into the
+   batcher's pinned staging buffers; every window's top-10 checked, none
+   dropped or lost, the mel kernel launched once a batch; then the copy of
+   one staging buffer to the card, pinned and asynchronous against
+   pageable;
+8. the BattyBirdNET step at full width (256 kHz capture) against the CPU's
+   plain path on the same weights, its ultrasonic CV against the CPU's, a
+   bat loop whose windows all carry a finite CV, and one BSG Finland step;
+9. the Geomodel range filter at full width on the card against the CPU,
+   over a 2-degree lat/lon grid, and its mask on the served v2.4 step.
 
 Every kernel line carries its bound (``ops/roofline.py``: the larger of its
 bytes over the memory rate and its operations over the peak for their type)
@@ -52,6 +64,7 @@ and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -61,6 +74,7 @@ import time
 import numpy as np
 import torch
 
+from birdnet_go_tpu_torch import native
 from birdnet_go_tpu_torch.audio.buffers import AnalysisBuffer
 from birdnet_go_tpu_torch.diag.mbconv_cases import (
     ARGS_A,
@@ -78,10 +92,17 @@ from birdnet_go_tpu_torch.diag.timing import (
     median_ms_pair,
     timed_pair,
 )
-from birdnet_go_tpu_torch.inference.backend import TorchClassifier
+from birdnet_go_tpu_torch.inference.backend import (
+    TorchClassifier,
+    TorchRangeFilter,
+    range_mask,
+)
 from birdnet_go_tpu_torch.models import efficientnet
+from birdnet_go_tpu_torch.models.bat import BatClassifier
 from birdnet_go_tpu_torch.models.birdnet_v3 import BirdNETv3
 from birdnet_go_tpu_torch.models.birdnet_v24 import BirdNETv24
+from birdnet_go_tpu_torch.models.bsg import BSGFinland
+from birdnet_go_tpu_torch.models.geomodel import Geomodel
 from birdnet_go_tpu_torch.models.perch_v2 import PerchV2
 from birdnet_go_tpu_torch.ops import _build
 from birdnet_go_tpu_torch.ops.melspec import (
@@ -110,6 +131,7 @@ from birdnet_go_tpu_torch.ops.postprocess import (
     top_k_results,
 )
 from birdnet_go_tpu_torch.ops.roofline import bound_ms
+from birdnet_go_tpu_torch.ops.ultrasonic import ultrasonic_frame_cv
 from birdnet_go_tpu_torch.scheduler.loop import DeviceLoop, TorchModelBatcher
 from birdnet_go_tpu_torch.utils.tracing import GLOBAL_SPANS
 
@@ -127,6 +149,15 @@ N_TICKS = 8
 V3_STREAMS = 512
 V3_TICKS = 4
 V3_FUSED = 13                # fused blocks of the full-width B1 step
+# the farm-fed loop: 2,048 streams at 4x real time offer 5,461 windows/s;
+# their rings hold 10 s of stream time (2.5 s of wall time), 1.97 GB
+FARM_STREAMS = 2048
+FARM_TIMESCALE = 4.0
+FARM_RING_SECONDS = 10.0
+FARM_SECONDS = 8.0
+BAT_STREAMS = 256
+BAT_TICKS = 4
+GRID_STEP = 2.0              # degrees of the range filter's lat/lon grid
 # float32 step with fused blocks on bf16 operands, card vs CPU: how many of
 # its 2 x 6,522 logits may differ by 1e-3 of their scale or more
 BF16_OPERAND_OUTLIERS = 130
@@ -195,10 +226,17 @@ def phase_device(card: str) -> None:
 
 
 def phase_build() -> None:
+    """The CUDA kernels (one nvcc per source, in parallel) and, beside
+    them, the native host library (make and g++ on ``native/*.cpp``)."""
     t0 = time.monotonic()
-    _build.load()
-    print(f"build: {_build.library_path().name} built (if absent) and "
-          f"loaded in {time.monotonic() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.build_native)
+        _build.load()
+        print(f"build: {_build.library_path().name} built (if absent) and "
+              f"loaded in {time.monotonic() - t0:.2f} s")
+        path = host.result()
+    print(f"build: {path.relative_to(path.parents[2])} built (if absent) "
+          f"in {time.monotonic() - t0:.2f} s")
     for line in _build.build_log().read_text().splitlines():
         if "registers" in line or "spill" in line:
             print(f"build: {line.strip()}")
@@ -589,30 +627,34 @@ KERNELS = (melspec_fused, expand_dw_pool, scale_project)
 
 
 def phase_loop(model, dev: torch.device, card: str, n_streams: int,
-               n_ticks: int) -> tuple[dict, int]:
-    """Returns each kernel's launches during the loop run, and the number
-    of batches."""
+               n_ticks: int) -> tuple[dict, int, float]:
+    """Returns each kernel's launches during the loop run, the number of
+    batches and the loop's windows/s. A raw-rate (bat) model's streams
+    carry ultrasound at its capture rate, and every window must come back
+    with a finite ultrasonic CV."""
     batcher = TorchModelBatcher(TorchClassifier(model, dev), max_batch=BATCH,
                                 top_k=10, pipeline_depth=2)
     spec = batcher.spec
+    rate = spec.effective_sample_rate
     overlap, read = (n // 2 for n in spec.buffer_dimensions())   # samples
     bufs = {f"mic{i:03d}": AnalysisBuffer(overlap, read)
             for i in range(n_streams)}
     pos = dict.fromkeys(bufs, 0.0)
-    pool = pcm_batch((32, read), SEED + 3, rate=spec.sample_rate)
+    pool = (ultrasound_batch((32, read), SEED + 3) if spec.raw_sample_rate
+            else pcm_batch((32, read), SEED + 3, rate=rate))
     offered, results = [], {}
 
     def provider():
         items = []
         for sid, buf in bufs.items():
             while (win := buf.read()) is not None:
-                items.append((spec.model_id, win, sid, pos[sid]))
+                items.append((spec.model_id, win, sid, pos[sid], rate))
                 offered.append((sid, pos[sid]))
-                pos[sid] += read / spec.sample_rate
+                pos[sid] += read / rate
         return items
 
     def on_result(w, vals, idx):
-        results[(w.source_id, w.start_time)] = (vals, idx)
+        results[(w.source_id, w.start_time)] = (vals, idx, w.ultrasonic_cv)
 
     batcher.on_result = on_result
     loop = DeviceLoop(tick_seconds=0.1)
@@ -636,12 +678,16 @@ def phase_loop(model, dev: torch.device, card: str, n_streams: int,
     n = len(offered)
     assert n == n_streams * n_ticks and loop.windows_dropped == 0
     assert set(results) == set(offered), "windows missing from the results"
-    for vals, idx in results.values():
+    for vals, idx, cv in results.values():
         assert vals.shape == (10,) and idx.shape == (10,)
         assert np.isfinite(vals).all() and (vals >= 0).all() and (
             vals <= 1).all()
         assert np.all(np.diff(vals) <= 0)
         assert (idx >= 0).all() and (idx < spec.num_species).all()
+        if spec.raw_sample_rate:
+            assert cv is not None and np.isfinite(cv), "ultrasonic CV"
+        else:
+            assert cv is None
     batches = batcher.stats.batches_dispatched
     assert batches > 0 and launches["melspec_fused"] == batches, (
         launches, batches)
@@ -665,8 +711,9 @@ def phase_loop(model, dev: torch.device, card: str, n_streams: int,
     label = f"{spec.model_id}{' fused blocks' if model.fused_blocks else ''}"
     print(f"step {label} [{BATCH},{spec.clip_samples}] on the card: "
           f"{step_ms:.4f} ms [{min(steps):.4f}, {max(steps):.4f}] ("
-          f"{BATCH / step_ms * 1e3:.1f} windows/s device-bound); H2D {float(np.median(h2d)):.4f} ms per batch "
-          f"[{card}]")
+          f"{BATCH / step_ms * 1e3:.1f} windows/s device-bound); H2D "
+          f"(pinned, to completion) {float(np.median(h2d)):.4f} ms per batch"
+          f" [{card}]")
     # a stream yields a window every clip/2 seconds (1.5 s for v2.4's 3 s
     # clips, 2.5 s for v3.0's 5 s)
     print(f"loop {label}: {n_streams} streams x {n_ticks} ticks = {n} "
@@ -676,7 +723,306 @@ def phase_loop(model, dev: torch.device, card: str, n_streams: int,
           f"{lat[len(lat) // 2]:.2f} ms, "
           f"dropped {loop.windows_dropped}, kernel launches {launches} "
           f"[{card}]")
-    return launches, batches
+    return launches, batches, wps
+
+
+def ultrasound_batch(shape: tuple[int, int], seed: int) -> np.ndarray:
+    """Rows of 256 kHz bat-detector capture, int16: bursts of a 40 kHz call,
+    each row at its own burst rate (10 to 80 Hz), at ``pcm_batch``'s field
+    levels (a -26 dBFS call over -40 dBFS noise; a -10 dBFS call drives
+    the random-weight network where bf16 and float32 steps part by 0.16
+    post-sigmoid). Their ultrasonic CVs lie far from 0, where the CV is
+    well conditioned."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(shape[1], dtype=np.float32) / 256000.0
+    rate = rng.uniform(10.0, 80.0, (shape[0], 1)).astype(np.float32)
+    gate = np.sin(2 * np.pi * rate * t) > 0.6
+    x = 0.05 * gate * np.sin(2 * np.pi * 40000.0 * t)
+    x += rng.standard_normal(shape, dtype=np.float32) * 0.01
+    return (np.clip(x, -1.0, 1.0) * 32767).astype(np.int16)
+
+
+def _h2d_ms(batcher: TorchModelBatcher) -> dict:
+    """One staging buffer to the card, both ways, in turns (host clock):
+    the pinned buffer through ``_to_device`` (the time until it returns,
+    and until the copy is done) and a pageable copy of the same bytes."""
+    staged = batcher._staged_bufs[0]
+    pageable = staged.copy()
+    ret, pinned, paged = [], [], []
+    batcher._to_device(staged)
+    torch.cuda.synchronize()
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        batcher._to_device(staged)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        torch.from_numpy(pageable).to(batcher.device)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ret.append((t1 - t0) * 1e3)
+        pinned.append((t2 - t0) * 1e3)
+        paged.append((t3 - t2) * 1e3)
+    return {k: (float(np.median(v)), min(v), max(v))
+            for k, v in (("returns", ret), ("pinned", pinned),
+                         ("pageable", paged))}
+
+
+def phase_farm(model, dev: torch.device, card: str,
+               python_wps: float) -> None:
+    """v2.4 served unfused, fed by the native stream farm: FARM_STREAMS
+    streams at FARM_TIMESCALE times real time pack their windows straight
+    into the batcher's pinned staging buffers (``fill_provider`` →
+    ``DeviceLoop.add_fill_provider``), the loop on its own thread at a
+    0.1 s tick, as the server runs it."""
+    batcher = TorchModelBatcher(TorchClassifier(model, dev), max_batch=BATCH,
+                                top_k=10, pipeline_depth=2)
+    spec = batcher.spec
+    assert dev.type != "cuda" or all(t.is_pinned()
+                                     for t in batcher._host_bufs)
+    hop = spec.clip_samples // 2
+    farm = native.StreamFarm(FARM_STREAMS, spec.sample_rate,
+                             spec.clip_samples, hop,
+                             ring_seconds=FARM_RING_SECONDS, n_waveforms=32,
+                             seed=SEED + 11, timescale=FARM_TIMESCALE)
+    names = [f"farm{s:04d}" for s in range(FARM_STREAMS)]
+    batches = []
+
+    def on_batch(meta, vals, idx, cv):
+        batches.append(([(w.source_id, w.start_time) for w in meta], vals,
+                         idx))
+
+    batcher.on_batch = on_batch
+    # where the loop thread's time goes: the farm's packing into staging
+    # (fill), the step's dispatch (the batcher's _launch: the copy and
+    # about a thousand eager launches) and the waits for finished steps
+    # (its _collect)
+    spent = {"fill": 0.0, "launch": 0.0, "collect": 0.0}
+
+    def timed(name, fn):
+        def call(*args):
+            t = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                spent[name] += time.perf_counter() - t
+        return call
+
+    batcher._launch = timed("launch", batcher._launch)
+    batcher._collect = timed("collect", batcher._collect)
+    loop = DeviceLoop(tick_seconds=0.1)
+    loop.add_batcher(batcher)
+    loop.add_fill_provider(spec.model_id,
+                           timed("fill", native.fill_provider(farm, names)))
+    warm = batcher.warmup()
+
+    for k in KERNELS:
+        k.launches = 0
+    n_spans = GLOBAL_SPANS.total
+    t0 = time.monotonic()
+    farm.start()
+    loop.start()
+    try:
+        time.sleep(FARM_SECONDS)
+        farm.stop()
+        loop.stop()
+        while loop.run_tick():
+            pass
+        loop.drain()
+        torch.cuda.synchronize()
+        elapsed = time.monotonic() - t0
+        stats = farm.stats()
+    finally:
+        farm.stop()
+        loop.stop()
+        farm.close()
+    launches = {k.__name__: k.launches for k in KERNELS}
+
+    n = sum(len(m) for m, _, _ in batches)
+    lost = stats["samples_lost"]
+    assert n == stats["windows_emitted"] == batcher.stats.windows_processed
+    assert loop.windows_dropped == 0 and lost == 0, (loop.windows_dropped,
+                                                     lost)
+    starts: dict[str, list[float]] = {}
+    for meta, vals, idx in batches:
+        assert vals.shape == (len(meta), 10) and idx.shape == vals.shape
+        assert np.isfinite(vals).all() and (vals >= 0).all() and (
+            vals <= 1).all()
+        assert np.all(np.diff(vals, axis=1) <= 0)
+        assert (idx >= 0).all() and (idx < spec.num_species).all()
+        for sid, st in meta:
+            starts.setdefault(sid, []).append(st)
+    # every stream's windows, each once and one hop apart: none missing
+    assert len(starts) == FARM_STREAMS
+    for st in starts.values():
+        assert np.allclose(np.diff(st), hop / spec.sample_rate, rtol=1e-9)
+    n_batches = batcher.stats.batches_dispatched
+    assert launches["melspec_fused"] == n_batches > 0, (launches, n_batches)
+    lat = sorted(s["duration_ms"] for s in GLOBAL_SPANS.recent(
+        GLOBAL_SPANS.total - n_spans))
+    wps = n / elapsed
+    offered = FARM_STREAMS * FARM_TIMESCALE / spec.buffer_interval_seconds
+    print(f"farm loop v2.4 unfused: {FARM_STREAMS} native streams at "
+          f"{FARM_TIMESCALE:g}x real time (offering {offered:.1f} windows/s)"
+          f" for {FARM_SECONDS:g} s, rings {FARM_RING_SECONDS:g} s of "
+          f"stream time: {n} windows in {n_batches} batches (fill "
+          f"{n / (n_batches * BATCH):.3f}), warmup {warm:.2f} s, "
+          f"{elapsed:.3f} s -> {wps:.1f} windows/s, streams = "
+          f"{wps * spec.buffer_interval_seconds:.1f}, batch latency p50 "
+          f"{lat[len(lat) // 2]:.2f} ms, tick busy EWMA "
+          f"{loop.tick_busy_ms:.2f} ms, max {loop.tick_busy_ms_max:.2f} ms "
+          f"(tick 100 ms), windows_dropped {loop.windows_dropped}, "
+          f"samples_lost {lost}, kernel launches {launches}; the Python "
+          f"AnalysisBuffer loop of v2.4 above: {python_wps:.1f} windows/s "
+          f"[{card}]")
+    print(f"farm loop thread: {loop.ticks} ticks; packing windows into "
+          f"staging {spent['fill'] * 1e3 / n_batches:.2f} ms a batch, "
+          f"dispatching the step {spent['launch'] * 1e3 / n_batches:.2f} "
+          f"ms a batch, "
+          f"waiting for and copying back results "
+          f"{spent['collect'] * 1e3 / n_batches:.2f} ms a batch, of "
+          f"{elapsed * 1e3 / n_batches:.2f} ms of wall time a batch "
+          f"[{card}]")
+    h2d = _h2d_ms(batcher)
+    nbytes = batcher._staged_bufs[0].nbytes
+    print(f"H2D of one staging buffer [{BATCH},{spec.clip_samples}] int16 "
+          f"({nbytes / 1e6:.1f} MB), median [min, max] of {REPS}: pinned "
+          f"non_blocking returns in {h2d['returns'][0]:.4f} ms "
+          f"[{h2d['returns'][1]:.4f}, {h2d['returns'][2]:.4f}], done in "
+          f"{h2d['pinned'][0]:.4f} ms [{h2d['pinned'][1]:.4f}, "
+          f"{h2d['pinned'][2]:.4f}] ({nbytes / h2d['pinned'][0] / 1e6:.2f} "
+          f"GB/s); pageable {h2d['pageable'][0]:.4f} ms "
+          f"[{h2d['pageable'][1]:.4f}, {h2d['pageable'][2]:.4f}] "
+          f"({nbytes / h2d['pageable'][0] / 1e6:.2f} GB/s) [{card}]")
+
+
+def phase_families(dev: torch.device, card: str) -> None:
+    """The BattyBirdNET step at full width against the CPU's plain path on
+    the same weights (the v2.4 slice's tolerance), its ultrasonic CV
+    against ``ultrasonic_frame_cv`` on the CPU, a short bat loop, and one
+    BSG Finland step."""
+    bat = BatClassifier().init(torch.Generator().manual_seed(SEED))
+    cpu = BatClassifier().eval()
+    cpu.load_state_dict(bat.state_dict())
+    bat.to(dev).eval()
+    batcher = TorchModelBatcher(TorchClassifier(bat, dev), max_batch=BATCH,
+                                top_k=10)
+    pcm_np = ultrasound_batch((BATCH, CLIP), SEED + 7)
+    pcm = torch.from_numpy(pcm_np).to(dev)
+    with torch.inference_mode():
+        out = bat.apply_int16(pcm)
+        vals, idx, cv = batcher._step(pcm, 1.0, 10, None)
+        torch.cuda.synchronize()
+        assert out["logits"].shape == (BATCH, 128)
+        assert out["embedding"].shape == (BATCH, 1024)
+        assert torch.isfinite(out["logits"]).all()
+        assert torch.isfinite(out["embedding"]).all()
+        assert cv.shape == (BATCH,) and torch.isfinite(cv).all()
+        want = cpu.apply_int16(pcm[:8].cpu())["logits"]
+        want_cv = ultrasonic_frame_cv(pcm16_to_float32(pcm.cpu()),
+                                      batcher._us_cfg)
+        step = [event_ms(lambda: batcher._step(pcm, 1.0, 10, None))
+                for _ in range(REPS)]
+        cv_ms = [event_ms(lambda: ultrasonic_frame_cv(
+            pcm16_to_float32(pcm), batcher._us_cfg)) for _ in range(REPS)]
+    dcpu, ocpu = _agreement(out["logits"][:8].cpu(), want)
+    cv_err = float(((cv.cpu() - want_cv).abs() / want_cv.abs()).max())
+    print(f"bat BattyBirdNET bf16 [{BATCH},{CLIP}] (256 kHz capture): "
+          f"logits {tuple(out['logits'].shape)}, embedding "
+          f"{tuple(out['embedding'].shape)}, finite; card vs CPU [8]: max "
+          f"post-sigmoid diff {dcpu:.3e} (< 0.02), top-10 overlap "
+          f"{ocpu:.4f} (>= 0.9); ultrasonic CV card vs CPU: max rel err "
+          f"{cv_err:.3e} (< 1e-4), CV in [{float(want_cv.min()):.3f}, "
+          f"{float(want_cv.max()):.3f}]; step with CV "
+          f"{np.median(step):.4f} ms [{min(step):.4f}, {max(step):.4f}], "
+          f"CV alone {np.median(cv_ms):.4f} ms [{min(cv_ms):.4f}, "
+          f"{max(cv_ms):.4f}] (median [min, max] of {REPS}) [{card}]")
+    assert dcpu < 0.02 and ocpu >= 0.9, "bat step: card vs CPU"
+    assert cv_err < 1e-4, "bat ultrasonic CV: card vs CPU"
+
+    launches, batches, _ = phase_loop(bat, dev, card, BAT_STREAMS, BAT_TICKS)
+    assert launches["melspec_fused"] == batches
+
+    bsg = BSGFinland().init(torch.Generator().manual_seed(SEED)).to(
+        dev).eval()
+    x = torch.from_numpy(pcm_batch((BATCH, CLIP), SEED + 8)).to(dev)
+    with torch.inference_mode():
+        before = melspec_fused.launches
+        o = bsg.apply_int16(x)
+        torch.cuda.synchronize()
+        assert melspec_fused.launches == before + 1
+        assert o["logits"].shape == (BATCH, 380)
+        assert o["embedding"].shape == (BATCH, 1280)
+        assert torch.isfinite(o["logits"]).all()
+        assert torch.isfinite(o["embedding"]).all()
+        t = [event_ms(lambda: _device_step(bsg, x, False))
+             for _ in range(REPS)]
+    print(f"bsg BSG Finland bf16 [{BATCH},{CLIP}]: logits "
+          f"{tuple(o['logits'].shape)}, embedding "
+          f"{tuple(o['embedding'].shape)}, finite; step "
+          f"{np.median(t):.4f} ms [{min(t):.4f}, {max(t):.4f}] (median "
+          f"[min, max] of {REPS}) [{card}]")
+
+
+def phase_range(dev: torch.device, card: str, v24) -> None:
+    """The range filter at full width (6,522 species) on the card against
+    the CPU, over a lat/lon grid, and its mask on the served v2.4 step."""
+    geo = Geomodel().init(torch.Generator().manual_seed(SEED))
+    cpu = Geomodel().eval()
+    cpu.load_state_dict(geo.state_dict())
+    rf, rf_cpu = TorchRangeFilter(geo), TorchRangeFilter(cpu, "cpu")
+    assert rf.device.type == dev.type     # the card, by default
+    rng = np.random.default_rng(SEED + 9)
+    coords = np.stack([rng.uniform(-90, 90, 64), rng.uniform(-180, 180, 64),
+                       rng.integers(-1, 49, 64)], 1).astype(np.float32)
+    got, want = rf.predict_batch(coords), rf_cpu.predict_batch(coords)
+    err = float(np.abs(got - want).max())
+    one = rf.predict(float(coords[5, 0]), float(coords[5, 1]),
+                     int(coords[5, 2]))
+    one_err = float(np.abs(one - got[5]).max())
+    assert got.shape == (64, 6522) and np.isfinite(got).all()
+    lat, lon = np.meshgrid(np.arange(-90.0, 90.1, GRID_STEP),
+                           np.arange(-180.0, 180.1, GRID_STEP),
+                           indexing="ij")
+    grid = np.stack([lat.ravel(), lon.ravel(),
+                     np.full(lat.size, 23.0)], 1).astype(np.float32)
+    rf.predict_batch(grid[:256])
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    scores = rf.predict_batch(grid)
+    grid_s = time.monotonic() - t0
+    assert scores.shape == (len(grid), 6522) and np.isfinite(scores).all()
+    assert (scores >= 0).all() and (scores <= 1).all()
+
+    # the mask of Helsinki in week 23 on the served v2.4 step: every index
+    # returned with a nonzero confidence lies inside it
+    mask = range_mask(rf, 60.17, 24.94, 23, threshold=0.5)
+    inside = int(mask.sum())
+    assert 0 < inside < 6522
+    clf = TorchClassifier(v24, dev)
+    pcm = pcm_batch((BATCH, CLIP), SEED + 10)
+    seen = []
+    for m in (None, mask):
+        clf.set_range_mask(m)
+        b = TorchModelBatcher(clf, max_batch=BATCH, top_k=10)
+        b.on_batch = lambda meta, v, i, cv: seen.append((v, i))
+        assert b.offer_block(pcm, ["geo"] * BATCH, [0.0] * BATCH) == BATCH
+        b.dispatch()
+        b.harvest_all()
+    (v0, i0), (v1, i1) = seen
+    outside_before = int((mask[i0] == 0).sum())
+    assert (mask[i1[v1 > 0]] == 1).all() and (v1 > 0).any()
+    assert outside_before > 0, "the mask removed nothing from the top-10"
+    print(f"range filter Geomodel f32 (6,522 species): card vs CPU max "
+          f"|dscore| {err:.3e} (< 1e-5) over 64 points, predict against "
+          f"its batch row {one_err:.3e} (< 1e-6); grid "
+          f"{GRID_STEP:g} deg ({len(grid)} points) in {grid_s:.4f} s "
+          f"({len(grid) / grid_s:.1f} points/s, H2D and D2H included); "
+          f"Helsinki week 23 mask at 0.5 keeps {inside} species: "
+          f"{outside_before} of the unmasked top-10 fell outside it, none "
+          f"with a nonzero confidence once it is set [{card}]")
+    assert err < 1e-5, "range filter: card vs CPU"
+    assert one_err < 1e-6, "predict vs predict_batch"
 
 
 def main() -> None:
@@ -699,14 +1045,21 @@ def main() -> None:
     phase_slice(dev, card)
     # v2.4 as the server runs it (unfused blocks): the mel kernel's path
     v24 = BirdNETv24().init(torch.Generator().manual_seed(SEED))
-    launches, _ = phase_loop(v24, dev, card, N_STREAMS, N_TICKS)
+    launches, _, python_wps = phase_loop(v24, dev, card, N_STREAMS,
+                                         N_TICKS)
     # v3.0 with fused blocks: the MBConv kernels' path
     v3 = BirdNETv3().init(torch.Generator().manual_seed(SEED))
     v3.fused_blocks = True
-    fused, batches = phase_loop(v3, dev, card, V3_STREAMS, V3_TICKS)
+    fused, batches, _ = phase_loop(v3, dev, card, V3_STREAMS, V3_TICKS)
     for name in ("expand_dw_pool", "scale_project"):
         assert fused[name] == V3_FUSED * batches, (fused, batches)
         launches[name] = fused[name]
+    del v3
+    # v2.4 fed by the native stream farm, then the bat and BSG families,
+    # then the range filter and its mask on the v2.4 step
+    phase_farm(v24, dev, card, python_wps)
+    phase_families(dev, card)
+    phase_range(dev, card, v24)
     print(f"total {time.monotonic() - t0:.1f} s")
     print(f"kernels line: melspec_fused at the v2.4 main path's [{BATCH}, "
           f"{CLIP}] bf16; expand_dw_pool and scale_project summed over the "

@@ -189,11 +189,14 @@ def test_batcher_events_and_step_on_card(dev):
     cpu_b = TorchModelBatcher(TorchClassifier(make(), "cpu"), max_batch=4)
     gpu_b = TorchModelBatcher(TorchClassifier(make(), dev), max_batch=4)
     pcm = _pcm((4, 48000), 3).numpy()
-    h = gpu_b._launch(pcm, 4)
+    gpu_b._staged[:] = pcm
+    cpu_b._staged[:] = pcm
+    h = gpu_b._launch(gpu_b._staged, 4)
     assert h[2] is not None
     v, i, cv = gpu_b._collect(h, None)
     assert gpu_b._ready(h) is True and cv is None
-    want_v, want_i, _ = cpu_b._collect(cpu_b._launch(pcm, 4), None)
+    want_v, want_i, _ = cpu_b._collect(cpu_b._launch(cpu_b._staged, 4),
+                                       None)
     np.testing.assert_allclose(v, want_v, atol=1e-4)
     assert i.dtype == np.int32
 
@@ -369,3 +372,96 @@ def test_mbconv_wrappers_reject_what_the_kernels_do_not_take(dev):
         with pytest.raises(RuntimeError, match="invalid argument"):
             M.expand_dw_pool(x, *ca, height=3, width=width, kernel=5)
         assert M.expand_dw_pool.launches == before
+
+
+# -- pinned, asynchronous H2D and the raw-rate step ----------------------------
+
+def _narrow_model(cls=MelCnnModel, n_classes=50, **kw):
+    net = EfficientNetConfig(blocks=(BlockSpec(1, 16, 3, 1, 1),
+                                     BlockSpec(6, 24, 3, 2, 1)),
+                             stem_channels=16, embedding_dim=32,
+                             num_classes=n_classes)
+    if cls is MelCnnModel:
+        m = MelCnnModel(n_classes, MelConfig(**V24), net, torch.float32)
+        m.spec = dataclasses.replace(registry.BIRDNET_V24, clip_seconds=1.0,
+                                     num_species=n_classes)
+    else:
+        m = cls(n_classes, MelConfig(**V24), torch.float32, net=net)
+        m.spec = dataclasses.replace(m.spec, clip_seconds=1.0)
+    return m.init(torch.Generator().manual_seed(0))
+
+
+def test_staging_buffers_are_pinned(dev):
+    b = TorchModelBatcher(TorchClassifier(_narrow_model(), dev), max_batch=4,
+                          pipeline_depth=2)
+    assert len(b._host_bufs) == len(b._staged_bufs) == 3
+    for host, view in zip(b._host_bufs, b._staged_bufs):
+        assert host.is_pinned() and host.dtype == torch.int16
+        assert view.ctypes.data == host.data_ptr()
+    assert b._staged is b._staged_bufs[0]
+
+
+def test_async_copies_at_depth_2_equal_sync_copies(dev):
+    """A loop at depth 2 with the asynchronous copy returns, per window,
+    what the same batcher returns with a synchronous copy: the staging
+    buffers are not rewritten while a copy from them is in flight."""
+
+    def run(sync):
+        b = TorchModelBatcher(TorchClassifier(_narrow_model(), dev),
+                              max_batch=8, top_k=5, pipeline_depth=2)
+        if sync:
+            def to_device(staged):
+                x = torch.from_numpy(staged.copy()).to(dev)
+                torch.cuda.synchronize()
+                return x
+            b._to_device = to_device
+        out = {}
+        b.on_result = lambda w, v, i: out.__setitem__(
+            (w.source_id, w.start_time), (v.copy(), i.copy()))
+        rng = np.random.default_rng(9)
+        for tick in range(12):
+            block = (rng.standard_normal((20, 48000)) * 2000).astype(np.int16)
+            sids = [f"s{j}" for j in range(20)]
+            pos = 0
+            while pos < 20:
+                pos += b.offer_block(block[pos:], sids[pos:],
+                                     [float(tick)] * (20 - pos))
+                b.dispatch()
+        b.harvest_all()
+        return out, b.stats.batches_dispatched
+
+    (want, n_sync), (got, n_async) = run(True), run(False)
+    assert n_sync == n_async == 36 and len(got) == len(want) == 240
+    for key, (v, i) in want.items():
+        np.testing.assert_allclose(got[key][0], v, rtol=1e-6, atol=1e-7)
+        np.testing.assert_array_equal(got[key][1], i)
+
+
+def test_bat_step_cv_on_card_matches_cpu(dev):
+    """The raw-rate step on the card: top-k against the CPU's, and the
+    per-window ultrasonic CV (cuFFT) against the CPU's (pocketfft) within
+    rtol 1e-4 on bursty input, whose CVs are far from 0."""
+    from birdnet_go_tpu_torch.models.bat import BatClassifier
+
+    rng = np.random.default_rng(3)
+    t = np.arange(48000) / 256000.0
+    gate = np.sin(2 * np.pi * rng.uniform(10, 80, (6, 1)) * t) > 0.6
+    x = 0.3 * gate * np.sin(2 * np.pi * 40000.0 * t) + 0.02 * \
+        rng.standard_normal((6, 48000))
+    pcm = (np.clip(x, -1, 1) * 32767).astype(np.int16)
+    out = []
+    for where in ("cpu", dev):
+        b = TorchModelBatcher(TorchClassifier(_narrow_model(BatClassifier,
+                                                            24), where),
+                              max_batch=8, top_k=5)
+        got = []
+        b.on_batch = lambda meta, v, i, cv: got.append((v, i, cv))
+        assert b.offer_block(pcm, [f"b{j}" for j in range(6)],
+                             [0.0] * 6) == 6
+        b.dispatch()
+        b.harvest_all()
+        out.append(got[0])
+    (v0, i0, cv0), (v1, i1, cv1) = out
+    assert cv1.shape == (6,) and np.isfinite(cv1).all() and cv0.min() > 0.1
+    np.testing.assert_allclose(cv1, cv0, rtol=1e-4)
+    np.testing.assert_allclose(v1, v0, atol=1e-4)

@@ -206,6 +206,18 @@ def _narrow_batcher():
                                    max_batch=3, top_k=5, pipeline_depth=2)
 
 
+def test_to_device_takes_only_staging_buffers():
+    """On the CPU the step reads each staging buffer in place; any other
+    array is refused."""
+    b = _narrow_batcher()
+    assert len(b._staged_bufs) == 3
+    for buf in b._staged_bufs:
+        x = b._to_device(buf)
+        assert x.data_ptr() == buf.ctypes.data and x.dtype == torch.int16
+    with pytest.raises(ValueError):
+        b._to_device(b._staged_bufs[0].copy())
+
+
 def test_torch_batcher_in_port_loop_fans_out_as_jax_loop():
     """The CPU ``TorchModelBatcher`` in the port's ``DeviceLoop`` and the
     same batcher in the JAX package's ``DeviceLoop``: the same windows, in
@@ -251,22 +263,64 @@ def test_torch_batcher_in_port_loop_fans_out_as_jax_loop():
 
 
 def test_device_loop_run_logs_persistent_failure(caplog):
-    """A tick that fails 30 times in a row is logged once as persistent (the
-    JAX package tags an error record there)."""
-    loop = tloop.DeviceLoop(tick_seconds=0.001)
-    calls = {"n": 0}
+    """A tick that fails 30 times in a row tags one ``EnhancedError``: the
+    port's ERROR records (logger, level, message) equal the JAX loop's."""
+    records = []
+    for mod in (jloop, tloop):
+        loop = mod.DeviceLoop(tick_seconds=0.001)
+        calls = {"n": 0}
 
-    def provider():
-        calls["n"] += 1
-        if calls["n"] >= 31:
-            loop._stop.set()
-        raise RuntimeError("device gone")
+        def provider(loop=loop, calls=calls):
+            calls["n"] += 1
+            if calls["n"] >= 31:
+                loop._stop.set()
+            raise RuntimeError("device gone")
 
-    loop.add_provider(provider)
-    with caplog.at_level("ERROR", logger="birdnet_tpu.scheduler"):
-        loop._run()
-    assert loop.consecutive_tick_failures >= 30
-    assert any("persistently" in r.getMessage() for r in caplog.records)
+        loop.add_provider(provider)
+        caplog.clear()
+        with caplog.at_level("ERROR", logger="birdnet_tpu"):
+            loop._run()
+        assert loop.consecutive_tick_failures == 31
+        records.append([(r.name, r.levelno, r.getMessage())
+                        for r in caplog.records if r.levelno >= 40])
+    want, got = records
+    assert got == want
+    assert ("birdnet_tpu.scheduler", 40,
+            "[scheduler/model] device gone {'traceback': 'RuntimeError: "
+            "device gone'}") in got
+
+
+@pytest.mark.parametrize("cause", [RuntimeError("device gone"),
+                                   KeyError("stream"), "no device"])
+def test_enhanced_error_equals_jax(cause, caplog):
+    """``from_exception`` and the builder give the JAX package's error:
+    the same ``as_dict`` (timestamp aside), ``str`` and log record."""
+    from birdnet_go_tpu.utils import errors as jerrors
+    from birdnet_go_tpu_torch.utils import errors as terrors
+
+    out = []
+    for mod in (jerrors, terrors):
+        caplog.clear()
+        with caplog.at_level("ERROR", logger="birdnet_tpu"):
+            if isinstance(cause, BaseException):
+                err = mod.from_exception(cause, "scheduler",
+                                         mod.Category.MODEL)
+            else:
+                err = (mod.new(cause).component("capture")
+                       .category(mod.Category.AUDIO)
+                       .context("source", "rtsp:0").build())
+        assert isinstance(err, mod.EnhancedError)
+        d = err.as_dict()
+        assert d.pop("timestamp") > 0
+        out.append((d, str(err), [(r.name, r.levelno, r.getMessage())
+                                  for r in caplog.records]))
+    assert out[1] == out[0]
+
+    def categories(mod):
+        return {k: v for k, v in vars(mod.Category).items()
+                if not k.startswith("_")}
+
+    assert categories(terrors) == categories(jerrors)
 
 
 # -- tracing ------------------------------------------------------------------

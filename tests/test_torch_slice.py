@@ -185,14 +185,6 @@ def test_torch_batcher_in_device_loop_matches_jax(narrow):
                            want[key][1][None])
 
 
-def test_torch_batcher_rejects_raw_rate_models(narrow):
-    _, _, tm = narrow
-    bat = MelCnnModel(N_CLASSES, tm.mel, tm.net, torch.float32)
-    bat.spec = treg.BAT
-    with pytest.raises(NotImplementedError):
-        TorchModelBatcher(TorchClassifier(bat, "cpu"))
-
-
 def test_melspec_fused_rejects_other_devices():
     with pytest.raises(ValueError):
         melspec_fused(torch.zeros((1, 48000), dtype=torch.int16,

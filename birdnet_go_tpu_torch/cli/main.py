@@ -1,0 +1,251 @@
+"""Command line of the PyTorch port: analyze / benchmark / rangefilter
+(ports of those commands of ``birdnet_go_tpu/cli/main.py``).
+
+    python -m birdnet_go_tpu_torch analyze recording.wav
+    python -m birdnet_go_tpu_torch analyze recordings/ --device cpu
+
+Global flags mirror the reference's persistent flags (cmd/root.go:86-106):
+threshold, sensitivity, overlap, locale, latitude/longitude. Output lines
+and exit codes are the JAX CLI's. Every command runs on the CUDA card
+unless ``--device`` names another device; without a card it stops with an
+error rather than run on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import logging
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from birdnet_go_tpu_torch.analysis.offline import (
+    OfflineAnalyzer,
+    OfflineConfig,
+)
+from birdnet_go_tpu_torch.analysis.raven import write_csv, write_raven_table
+from birdnet_go_tpu_torch.inference.backend import (
+    TorchClassifier,
+    TorchRangeFilter,
+    range_mask,
+)
+from birdnet_go_tpu_torch.inference.loader import (
+    geomodel_weights_installed,
+    load_geomodel,
+    load_model,
+)
+from birdnet_go_tpu_torch.models.geomodel import birdnet_week
+from birdnet_go_tpu_torch.taxonomy.labels import load_labels
+
+_LOG_FORMAT = "%(asctime)s %(levelname)s %(name)s: %(message)s"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="birdnet-tpu-torch",
+        description="Bioacoustic analysis (BirdNET-class models) with "
+                    "PyTorch on a CUDA card")
+    p.add_argument("--debug", action="store_true")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    def common_model_flags(sp):
+        sp.add_argument("--model", default="BirdNET_V2.4",
+                        help="model family id (default BirdNET_V2.4)")
+        sp.add_argument("--checkpoint", default=None,
+                        help="checkpoint with converted weights (not yet "
+                             "readable by the port: it raises)")
+        sp.add_argument("--sensitivity", type=float, default=1.0,
+                        help="sigmoid sensitivity 0.0-1.5 (default 1.0)")
+        sp.add_argument("--threshold", type=float, default=0.8,
+                        help="confidence threshold (default 0.8)")
+        sp.add_argument("--overlap", type=float, default=0.0,
+                        help="window overlap seconds on 3 s base (0-2.9)")
+        sp.add_argument("--locale", default="en_us")
+        sp.add_argument("--data-dir", default=None,
+                        help="taxonomy/label data directory")
+        sp.add_argument("--latitude", type=float, default=None)
+        sp.add_argument("--longitude", type=float, default=None)
+        sp.add_argument("--device", type=torch.device, default="cuda",
+                        help="torch device to run on (default cuda; "
+                             "cpu runs on the CPU)")
+
+    a = sub.add_parser("analyze", help="offline analysis of WAV file(s)")
+    a.add_argument("input", help="WAV file or directory")
+    a.add_argument("--output", default="output",
+                   help="output directory for Raven tables (default output/)")
+    a.add_argument("--batch-size", type=int, default=64)
+    a.add_argument("--all-results", action="store_true",
+                   help="emit every top-K result above threshold per window")
+    a.add_argument("--rtype", choices=["table", "csv", "both"],
+                   default="table",
+                   help="output format: Raven table (default), CSV, or both")
+    common_model_flags(a)
+
+    b = sub.add_parser("benchmark", help="device inference throughput")
+    b.add_argument("--batch-size", type=int, default=256)
+    b.add_argument("--iters", type=int, default=10)
+    common_model_flags(b)
+
+    r = sub.add_parser("rangefilter",
+                       help="print included species for a location")
+    r.add_argument("--week", type=int, default=-1,
+                   help="BirdNET week 1-48, -1 = today")
+    r.add_argument("--rf-threshold", type=float, default=0.01)
+    r.add_argument("--csv", action="store_true")
+    common_model_flags(r)
+
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO,
+                        format=_LOG_FORMAT)
+    if args.device.type == "cuda" and not torch.cuda.is_available():
+        print(f"error: no CUDA card (torch.cuda.is_available() is false); "
+              f"pass --device cpu to run {args.command} on the CPU",
+              file=sys.stderr)
+        return 1
+    return {"analyze": _cmd_analyze, "benchmark": _cmd_benchmark,
+            "rangefilter": _cmd_rangefilter}[args.command](args)
+
+
+def _load_classifier(args) -> TorchClassifier:
+    return TorchClassifier(load_model(args.model, checkpoint=args.checkpoint),
+                           args.device)
+
+
+def _range_mask_if_located(args, num_species):
+    """Build the included-species mask when a location is configured
+    (reference: BuildRangeFilter at startup, range_filter.go:100)."""
+    if args.latitude is None or args.longitude is None:
+        return None
+    rf = TorchRangeFilter(load_geomodel(num_species=num_species),
+                          args.device)
+    week = birdnet_week(datetime.date.today())
+    return range_mask(rf, args.latitude, args.longitude, week,
+                      threshold=getattr(args, "rf_threshold", 0.01))
+
+
+def _cmd_analyze(args) -> int:
+    clf = _load_classifier(args)
+    mask = _range_mask_if_located(args, clf.num_species)
+    if mask is not None:
+        clf.set_range_mask(mask)
+    labels = load_labels(args.data_dir, locale=args.locale,
+                         model_id=args.model,
+                         expected_count=clf.num_species)
+    if len(labels) != clf.num_species:
+        print(f"warning: label count {len(labels)} != model outputs "
+              f"{clf.num_species}", file=sys.stderr)
+    analyzer = OfflineAnalyzer(clf, labels, OfflineConfig(
+        threshold=args.threshold, sensitivity=args.sensitivity,
+        overlap=args.overlap, batch_size=args.batch_size,
+        all_results=args.all_results))
+
+    inp = Path(args.input)
+    files = sorted(inp.glob("*.wav")) if inp.is_dir() else [inp]
+    if not files:
+        print(f"no WAV files under {inp}", file=sys.stderr)
+        return 1
+    failures = 0
+    for f in files:
+        try:
+            report = analyzer.analyze_file(f)
+        except (ValueError, OSError) as e:
+            print(f"{f}: {e}", file=sys.stderr)
+            failures += 1
+            continue
+        outs = []
+        if args.rtype in ("table", "both"):
+            outs.append(write_raven_table(report.detections, f, args.output))
+        if args.rtype in ("csv", "both"):
+            outs.append(write_csv(report.detections, f, args.output))
+        print(f"{f.name}: {report.duration_seconds:.0f}s audio, "
+              f"{len(report.windows)} windows, "
+              f"{len(report.detections)} detections in "
+              f"{report.elapsed_seconds:.2f}s "
+              f"({report.realtime_factor:.0f}x realtime)")
+        for out in outs:
+            print(f"Output written to {out}")
+    return 1 if failures else 0
+
+
+def _cmd_benchmark(args) -> int:
+    """Inference latency/throughput stats (reference: cmd/benchmark +
+    cmd/perch-benchmark — warmup then mean/median/p95 per batch). Each
+    batch goes from host memory to the device and its top-10 back, as in
+    the JAX command."""
+    clf = _load_classifier(args)
+    clip = clf.model.spec.clip_samples
+    rng = np.random.default_rng(0)
+    pcm = rng.standard_normal((args.batch_size, clip)).astype(np.float32) * .05
+    for _ in range(2):
+        clf.predict_topk(pcm)                  # warmup
+    lat = []
+    for i in range(args.iters):
+        # perturb so no layer can serve a cached execution
+        pcm[0, 0] = np.float32(i) * 1e-6
+        t0 = time.perf_counter()
+        clf.predict_topk(pcm)
+        lat.append(time.perf_counter() - t0)
+    lat_ms = np.asarray(lat) * 1000.0
+    wps = args.batch_size / np.mean(lat)
+    hop = clf.model.spec.buffer_interval_seconds
+    print(json.dumps({
+        "model": args.model,
+        "batch": args.batch_size,
+        "iters": args.iters,
+        "batch_latency_ms": {
+            "mean": round(float(np.mean(lat_ms)), 1),
+            "median": round(float(np.median(lat_ms)), 1),
+            "p95": round(float(np.percentile(lat_ms, 95)), 1),
+        },
+        "windows_per_second": round(float(wps), 1),
+        "realtime_streams": round(float(wps * hop), 1),
+    }))
+    return 0
+
+
+def _cmd_rangefilter(args) -> int:
+    if args.latitude is None or args.longitude is None:
+        print("rangefilter requires --latitude and --longitude",
+              file=sys.stderr)
+        return 1
+    labels = load_labels(args.data_dir, locale=args.locale)
+    g = load_geomodel(num_species=len(labels))
+    if not geomodel_weights_installed():
+        # in the OUTPUT, not just the log: random-init scores are
+        # plausible-looking nonsense
+        print("WARNING: no geomodel weights installed — scores below are "
+              "deterministic random init, NOT real species occurrence.",
+              file=sys.stderr)
+        if not args.csv:
+            print("[random-init geomodel — output is not field-accurate]")
+    rf = TorchRangeFilter(g, args.device)
+    week = args.week if args.week > 0 else birdnet_week(datetime.date.today())
+    scores = rf.predict(args.latitude, args.longitude, week)
+    rows = [(labels[i], float(s)) for i, s in enumerate(scores)
+            if s >= args.rf_threshold]
+    rows.sort(key=lambda r: -r[1])
+    if args.csv:
+        print("scientific_name,common_name,score")
+        for sp, s in rows:
+            print(f"{sp.scientific},{sp.common},{s:.4f}")
+    else:
+        print(f"{len(rows)} species probable at "
+              f"({args.latitude}, {args.longitude}) week {week}:")
+        for sp, s in rows[:50]:
+            print(f"  {s:.3f}  {sp.common} ({sp.scientific})")
+        if len(rows) > 50:
+            print(f"  ... and {len(rows) - 50} more (use --csv for all)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,1 +1,1 @@
-"""Classifier backend and the JAX parameter bridge."""
+"""Classifier backend, the JAX parameter bridge and the model loader."""

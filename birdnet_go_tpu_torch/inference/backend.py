@@ -17,9 +17,10 @@ from birdnet_go_tpu_torch.ops.postprocess import (
 
 
 class TorchClassifier:
-    """A mel-CNN model moved to `device`, with an optional range mask."""
+    """A mel-CNN model moved to `device`, the card unless the caller passes
+    another, with an optional range mask."""
 
-    def __init__(self, model: MelCnnModel, device: torch.device | str,
+    def __init__(self, model: MelCnnModel, device: torch.device | str = "cuda",
                  range_mask: np.ndarray | None = None):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
@@ -33,14 +34,15 @@ class TorchClassifier:
                                             device=self.device)
                             if mask is not None else None)
 
-    def predict_topk(self, pcm: np.ndarray, sensitivity: float = 1.0,
+    def predict_topk(self, pcm: np.ndarray | torch.Tensor,
+                     sensitivity: float = 1.0,
                      k: int = 10) -> tuple[np.ndarray, np.ndarray]:
         """float32 PCM [B, clip_samples] → (confidences [B, k],
-        indices [B, k] int32)."""
+        indices [B, k] int32). A tensor already on the classifier's device
+        is used where it lies."""
         k = min(k, self.num_species)
         with torch.inference_mode():
-            x = torch.as_tensor(np.asarray(pcm, np.float32),
-                                device=self.device)
+            x = torch.as_tensor(pcm, dtype=torch.float32, device=self.device)
             conf = sigmoid_confidence(self.model.apply(x)["logits"],
                                       sensitivity)
             if self._range_mask is not None:

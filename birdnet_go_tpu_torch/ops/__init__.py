@@ -1,6 +1,8 @@
 """Device numerics: PCM conversion, the mel front end and its fused CUDA
-kernel, the fused MBConv kernels, and post-processing. Nothing here builds
-or loads the kernel library at import time."""
+kernel, the fused MBConv kernels, and post-processing; resampling, window
+slicing and sound levels (``resample``, ``windows``, ``soundlevel``) for
+offline analysis. Nothing here builds or loads the kernel library at
+import time."""
 
 from birdnet_go_tpu_torch.ops.melspec import MelConfig, frame_signal, melspec
 from birdnet_go_tpu_torch.ops.pallas_mbconv import (

@@ -1,0 +1,277 @@
+"""The port's command line and loader against the JAX package's, on the
+CPU.
+
+``python -m birdnet_go_tpu_torch analyze`` on the full-width default model
+(``--device cpu``); ``analyze`` and ``rangefilter`` of both CLIs on the
+same weights (a tiny float32 model and the Geomodel, JAX ``init`` weights
+carried over), whose tables and species rows must agree; the refusal to
+run on the CPU without ``--device cpu`` where there is no card; and the
+loader, which serves seeded weights only and raises where the JAX loader
+would load real ones.
+"""
+
+import json
+import logging
+import os
+import re
+import subprocess
+import sys
+import tomllib
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import birdnet_go_tpu.inference.loader as jloader
+from birdnet_go_tpu.analysis import raven as jraven
+from birdnet_go_tpu.cli import main as jcli
+from birdnet_go_tpu_torch.audio.wav import write_wav
+from birdnet_go_tpu_torch.cli import main as tcli
+from birdnet_go_tpu_torch.inference import loader as tloader
+from birdnet_go_tpu_torch.inference.params import load_jax_params
+from birdnet_go_tpu_torch.models.bsg import BSGFinland
+from birdnet_go_tpu_torch.models.geomodel import Geomodel, GeomodelConfig
+
+from tests.test_torch_offline import _tiny_pair
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+SUMMARY = re.compile(r"^(.+): (\d+)s audio, (\d+) windows, (\d+) detections "
+                     r"in \d+\.\d\ds \(\d+x realtime\)$")
+
+
+def _np_tree(p):
+    return jax.tree_util.tree_map(np.asarray, p)
+
+
+def _wav(path, seconds, rate, seed):
+    rng = np.random.default_rng(seed)
+    write_wav(path, (rng.standard_normal(int(seconds * rate)) * 0.1
+                     ).astype(np.float32), rate)
+    return path
+
+
+# -- analyze -------------------------------------------------------------------
+
+def test_analyze_default_model_on_cpu(tmp_path, capsys):
+    """The full-width BirdNET v2.4 on seeded weights: a 44.1 kHz file is
+    resampled and cut into 3 windows (the last padded), in 2 batches."""
+    wav = _wav(tmp_path / "dawn chorus.wav", 7.0, 44100, 1)
+    out = tmp_path / "out"
+    rc = tcli.main(["analyze", str(wav), "--device", "cpu", "--batch-size",
+                    "2", "--threshold", "0", "--rtype", "both", "--output",
+                    str(out)])
+    assert rc == 0
+    lines = capsys.readouterr().out.splitlines()
+    m = SUMMARY.match(lines[0])
+    assert m and m.groups() == ("dawn chorus.wav", "7", "3", "3"), lines
+    table = out / "dawn chorus.wav.txt"
+    csv = out / "dawn chorus.csv"
+    assert lines[1:] == [f"Output written to {table}",
+                         f"Output written to {csv}"]
+    rows = table.read_text(encoding="utf-8").splitlines()
+    assert rows[0] == jraven._HEADER and len(rows) == 4
+    assert [r.split("\t")[:6] for r in rows[1:]] == [
+        [str(i + 1), "Spectrogram 1", "1", "dawn chorus.wav", f"{b:.1f}",
+         f"{b + 3:.1f}"] for i, b in enumerate((0.0, 3.0, 6.0))]
+    for r in rows[1:]:
+        species_code, common, conf = r.split("\t")[8:]
+        assert species_code and common and 0.0 <= float(conf) <= 1.0
+    crows = csv.read_text(encoding="utf-8").splitlines()
+    assert crows[0] == jraven.format_csv([]).strip() and len(crows) == 4
+
+
+@pytest.fixture
+def carried(monkeypatch):
+    """Both CLIs load one tiny float32 v2.4 and Geomodels of the same
+    weights (the JAX ``init``'s, carried into the port)."""
+    jc, tc = _tiny_pair("v24")
+    jgeo = jloader.load_geomodel
+
+    def port_geomodel(num_species=6522, seed=7):
+        g, params = jgeo(num_species=num_species, seed=seed)
+        return load_jax_params(Geomodel(GeomodelConfig(num_species)),
+                               _np_tree(params))
+
+    monkeypatch.setattr(jloader, "load_model",
+                        lambda *a, **k: (jc.model, jc.params))
+    monkeypatch.setattr(tcli, "load_model", lambda *a, **k: tc.model)
+    monkeypatch.setattr(tcli, "load_geomodel", port_geomodel)
+    return tc
+
+
+def test_analyze_tables_match_jax_cli(carried, tmp_path, capsys):
+    d = tmp_path / "in"
+    d.mkdir()
+    _wav(d / "a.wav", 7.5, 32000, 2)
+    _wav(d / "b.wav", 4.0, 48000, 3)
+    (d / "notes.txt").write_text("not audio")
+    common = ["--threshold", "0.1", "--all-results", "--overlap", "1.5",
+              "--batch-size", "3", "--rtype", "both", "--latitude", "60.17",
+              "--longitude", "24.94"]
+    assert jcli.main(["analyze", str(d), "--output", str(tmp_path / "j"),
+                      "--no-backend-probe", *common]) == 0
+    jout = capsys.readouterr().out.splitlines()
+    assert tcli.main(["analyze", str(d), "--output", str(tmp_path / "t"),
+                      "--device", "cpu", *common]) == 0
+    tout = capsys.readouterr().out.splitlines()
+    # the same lines, but for the elapsed time
+    strip = re.compile(r" in \d+\.\d\ds \(\d+x realtime\)")
+    assert [strip.sub("", ln).replace(str(tmp_path / "t"), "OUT")
+            for ln in tout] == \
+        [strip.sub("", ln).replace(str(tmp_path / "j"), "OUT")
+         for ln in jout]
+    assert len(tout) == 6
+    for name in ("a.wav.txt", "a.csv", "b.wav.txt", "b.csv"):
+        t = (tmp_path / "t" / name).read_text(encoding="utf-8").splitlines()
+        j = (tmp_path / "j" / name).read_text(encoding="utf-8").splitlines()
+        assert len(t) == len(j) > 1 and t[0] == j[0]
+        sep = "\t" if name.endswith(".txt") else ","
+        for tr, jr in zip(t[1:], j[1:]):
+            tf, jf = tr.split(sep), jr.split(sep)
+            assert tf[:-1] == jf[:-1]
+            assert abs(float(tf[-1]) - float(jf[-1])) <= 1e-4
+
+
+# -- rangefilter ---------------------------------------------------------------
+
+def _species_rows(lines, csv):
+    """{species: score} from the rangefilter's output lines."""
+    if csv:
+        return {ln.rsplit(",", 1)[0]: float(ln.rsplit(",", 1)[1])
+                for ln in lines[1:]}
+    rows = [re.match(r"^  (\d\.\d{3})  (.+)$", ln) for ln in lines[2:]]
+    return {m.group(2): float(m.group(1)) for m in rows if m}
+
+
+@pytest.mark.parametrize("csv", [False, True])
+def test_rangefilter_matches_jax_cli(carried, capsys, csv):
+    args = ["rangefilter", "--latitude", "60.17", "--longitude", "24.94",
+            "--week", "23"] + (["--csv"] if csv else [])
+    assert jcli.main(args) == 0
+    j = capsys.readouterr()
+    assert tcli.main(args + ["--device", "cpu"]) == 0
+    t = capsys.readouterr()
+    tl, jl = t.out.splitlines(), j.out.splitlines()
+    assert "random init" in t.err and "random init" in j.err
+    if csv:
+        assert tl[0] == jl[0] == "scientific_name,common_name,score"
+    else:
+        assert tl[:2] == jl[:2]
+        assert jl[0] == "[random-init geomodel — output is not " \
+                        "field-accurate]"
+        assert re.match(r"^\d+ species probable at \(60\.17, 24\.94\) "
+                        r"week 23:$", tl[1])
+        assert tl[-1] == jl[-1] and len(tl) == len(jl) == 53
+    trows, jrows = _species_rows(tl, csv), _species_rows(jl, csv)
+    assert len(trows) >= 50 and trows.keys() == jrows.keys()
+    # scores equal to float32 rounding: at most one step of the printed
+    # decimals apart
+    step = 1e-4 if csv else 1e-3
+    for k, v in jrows.items():
+        assert round(abs(trows[k] - v) / step) <= 1, k
+
+
+def test_rangefilter_needs_a_location(capsys):
+    assert tcli.main(["rangefilter", "--device", "cpu"]) == 1
+    assert "requires --latitude and --longitude" in capsys.readouterr().err
+
+
+# -- no card, no --device cpu --------------------------------------------------
+
+@pytest.mark.parametrize("command", [["analyze", "x.wav"], ["benchmark"],
+                                     ["rangefilter", "--latitude", "1",
+                                      "--longitude", "2"]])
+def test_refuses_the_cpu_without_device_cpu(command, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tcli, "load_model", None)      # never reached
+    assert tcli.main(command) == 1
+    assert "--device cpu" in capsys.readouterr().err
+
+
+def test_module_entry_point_refuses_without_a_card(tmp_path):
+    wav = _wav(tmp_path / "a.wav", 1.0, 48000, 4)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-m", "birdnet_go_tpu_torch",
+                          "analyze", str(wav), "--output", str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 1 and res.stdout == ""
+    assert "--device cpu" in res.stderr
+    assert not (tmp_path / "a.wav.txt").exists()
+
+
+def test_console_script_names_the_port_main():
+    scripts = tomllib.loads((REPO / "pyproject.toml").read_text())[
+        "project"]["scripts"]
+    assert scripts["birdnet-tpu-torch"] == "birdnet_go_tpu_torch.cli.main:main"
+    assert scripts["birdnet-tpu"] == "birdnet_go_tpu.cli.main:main"
+
+
+def test_benchmark_prints_the_jax_line(monkeypatch, capsys):
+    monkeypatch.setattr(tcli, "load_model", lambda *a, **k: BSGFinland(
+        compute_dtype=torch.float32).init(torch.Generator().manual_seed(0)))
+    assert tcli.main(["benchmark", "--device", "cpu", "--batch-size", "1",
+                      "--iters", "2", "--model", "BSG"]) == 0
+    rep = json.loads(capsys.readouterr().out.strip())
+    assert list(rep) == ["model", "batch", "iters", "batch_latency_ms",
+                         "windows_per_second", "realtime_streams"]
+    assert (rep["model"], rep["batch"], rep["iters"]) == ("BSG", 1, 2)
+    assert list(rep["batch_latency_ms"]) == ["mean", "median", "p95"]
+    # both rounded to 0.1
+    assert rep["realtime_streams"] == pytest.approx(
+        rep["windows_per_second"] * 1.5, abs=0.15)
+
+
+# -- loader --------------------------------------------------------------------
+
+def test_model_home_equals_jax(monkeypatch, tmp_path):
+    monkeypatch.delenv("BIRDNET_TPU_MODELS", raising=False)
+    assert tloader.model_home() == jloader.model_home()
+    monkeypatch.setenv("BIRDNET_TPU_MODELS", str(tmp_path))
+    assert tloader.model_home() == jloader.model_home() == tmp_path
+
+
+def test_load_model_serves_seeded_weights(monkeypatch, tmp_path, caplog):
+    monkeypatch.setenv("BIRDNET_TPU_MODELS", str(tmp_path))
+    (tmp_path / "BSG").mkdir()                 # empty: nothing installed
+    with caplog.at_level(logging.WARNING, "birdnet_tpu.inference"):
+        a = tloader.load_model("BSG", seed=3)
+    assert "using deterministic random init" in caplog.text
+    b = tloader.load_model("BSG", seed=3)
+    c = tloader.load_model("BSG", seed=4)
+    assert isinstance(a, BSGFinland) and a.num_species == 380
+    sa, sb, sc = (m.state_dict() for m in (a, b, c))
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert not all(torch.equal(sa[k], sc[k]) for k in sa)
+    with pytest.raises(KeyError, match="unknown model family"):
+        tloader.build_model("BirdNET_V9")
+    assert sorted(tloader._FAMILIES) == sorted(jloader._FAMILIES)
+
+
+def test_loader_raises_where_jax_would_load_weights(monkeypatch, tmp_path):
+    monkeypatch.setenv("BIRDNET_TPU_MODELS", str(tmp_path))
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        tloader.load_model("BirdNET_V2.4", checkpoint="ckpt/")
+    with pytest.raises(NotImplementedError, match="cannot load weights"):
+        tloader.load_model("BirdNET_V2.4", checkpoint="m.tflite")
+    (tmp_path / "BirdNET_V2.4").mkdir()
+    (tmp_path / "BirdNET_V2.4" / "model.onnx").write_bytes(b"x")
+    with pytest.raises(NotImplementedError, match="installed model"):
+        tloader.load_model("BirdNET_V2.4")
+    assert not tloader.geomodel_weights_installed()
+    g = tloader.load_geomodel(num_species=12, seed=7)
+    assert isinstance(g, Geomodel) and g.cfg.num_species == 12
+    (tmp_path / "Geomodel").mkdir()
+    (tmp_path / "Geomodel" / "params").write_bytes(b"x")
+    assert tloader.geomodel_weights_installed()
+    assert jloader.geomodel_weights_installed()
+    with pytest.raises(NotImplementedError, match="installed model"):
+        tloader.load_geomodel()
+    # the CLI does not catch it: no seeded weights in their place
+    with pytest.raises(NotImplementedError):
+        tcli.main(["rangefilter", "--device", "cpu", "--latitude", "1",
+                   "--longitude", "2"])

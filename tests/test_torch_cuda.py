@@ -1,6 +1,6 @@
 """Card-only tests of the port: the CUDA mel and MBConv kernels against
-their plain versions, the wrappers' checks, and the torch batcher's CUDA
-events.
+their plain versions, the wrappers' checks, the torch batcher's CUDA
+events, and the offline path's resampling and analyzer against the CPU.
 
 Every test needs a CUDA card and skips without one. The file imports no
 JAX, so it also runs where JAX is missing:
@@ -465,3 +465,59 @@ def test_bat_step_cv_on_card_matches_cpu(dev):
     assert cv1.shape == (6,) and np.isfinite(cv1).all() and cv0.min() > 0.1
     np.testing.assert_allclose(cv1, cv0, rtol=1e-4)
     np.testing.assert_allclose(v1, v0, atol=1e-4)
+
+
+def test_resample_on_card_keeps_float32_under_tf32_defaults(dev):
+    """The resampler turns cuDNN's TF32 off for its convolution: with
+    PyTorch's default (TF32 allowed) the card stays within 1e-6 of the
+    peak of the CPU's result at 44.1 → 48 kHz and 48 → 32 kHz."""
+    from birdnet_go_tpu_torch.ops.resample import (
+        ResampleConfig,
+        polyphase_resample,
+    )
+
+    rng = np.random.default_rng(4)
+    for rate, out_rate in ((44100, 48000), (48000, 32000)):
+        x = torch.from_numpy((rng.standard_normal((2, rate * 4)) * 0.3
+                              ).astype(np.float32))
+        cfg = ResampleConfig(rate, out_rate)
+        want = polyphase_resample(x, cfg)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            got = polyphase_resample(x.to(dev), cfg)
+            assert torch.backends.cudnn.allow_tf32
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        assert got.shape == want.shape and got.device.type == "cuda"
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-6 * float(want.abs().max()), (rate, err)
+
+
+def test_offline_analyzer_on_card_matches_cpu(dev):
+    """Device windows, the device-tensor input of ``predict_topk`` and the
+    analyzer's results on the card against the CPU's, float32."""
+    from birdnet_go_tpu_torch.analysis.offline import (
+        OfflineAnalyzer,
+        OfflineConfig,
+    )
+    from birdnet_go_tpu_torch.taxonomy.labels import synthetic_labels
+
+    cpu = _narrow_model()
+    card = copy.deepcopy(cpu)
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal(44100 * 7) * 0.1).astype(np.float32)
+    cfg = OfflineConfig(threshold=0.0, overlap=1.5, batch_size=4)
+    an = [OfflineAnalyzer(TorchClassifier(m, where), synthetic_labels(50),
+                          cfg) for m, where in ((cpu, "cpu"), (card, dev))]
+    wc, wg = (a._device_windows(x, 44100, 24000) for a in an)
+    assert wg.device.type == "cuda" and wg.shape == wc.shape == (13, 48000)
+    torch.testing.assert_close(wg.cpu(), wc, rtol=0, atol=1e-6)
+    v_np, i_np = an[1].classifier.predict_topk(wc[:4].numpy())
+    v_t, i_t = an[1].classifier.predict_topk(wg[:4])
+    np.testing.assert_allclose(v_t, v_np, atol=1e-6)
+    want, got = (a.analyze_samples(x, 44100) for a in an)
+    assert [w.begin_seconds for w in got.windows] == \
+        [w.begin_seconds for w in want.windows]
+    np.testing.assert_allclose([w.confidences for w in got.windows],
+                               [w.confidences for w in want.windows],
+                               atol=1e-4)

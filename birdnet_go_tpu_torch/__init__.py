@@ -12,7 +12,10 @@ host loop (``scheduler.loop.DeviceLoop``, ``audio.AnalysisBuffer``,
 ``utils.tracing``) through ``scheduler.loop.TorchModelBatcher``. Offline
 file analysis (``analysis.offline``: resampling and window slicing on the
 card, Raven tables) and the CLI's device commands run as
-``python -m birdnet_go_tpu_torch analyze | benchmark | rangefilter``.
+``python -m birdnet_go_tpu_torch analyze | benchmark | rangefilter |
+verify-artifact``. Real weights come as .tflite or .onnx artifacts,
+imported as torch modules (``inference.tflite_import``,
+``inference.onnx_import``) and served through ``inference.loader``.
 
 It imports torch and numpy, never JAX and nothing of ``birdnet_go_tpu``.
 Importing it builds nothing: the kernels are compiled on first launch

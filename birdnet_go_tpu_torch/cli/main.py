@@ -1,8 +1,10 @@
-"""Command line of the PyTorch port: analyze / benchmark / rangefilter
-(ports of those commands of ``birdnet_go_tpu/cli/main.py``).
+"""Command line of the PyTorch port: analyze / benchmark / rangefilter /
+verify-artifact (ports of those commands of ``birdnet_go_tpu/cli/main.py``).
 
     python -m birdnet_go_tpu_torch analyze recording.wav
     python -m birdnet_go_tpu_torch analyze recordings/ --device cpu
+    python -m birdnet_go_tpu_torch analyze rec.wav --checkpoint model.tflite
+    python -m birdnet_go_tpu_torch verify-artifact model.tflite
 
 Global flags mirror the reference's persistent flags (cmd/root.go:86-106):
 threshold, sensitivity, overlap, locale, latitude/longitude. Output lines
@@ -39,6 +41,8 @@ from birdnet_go_tpu_torch.inference.loader import (
     load_geomodel,
     load_model,
 )
+from birdnet_go_tpu_torch.inference.opaudit import audit_table
+from birdnet_go_tpu_torch.inference.verify_artifact import verify_artifact
 from birdnet_go_tpu_torch.models.geomodel import birdnet_week
 from birdnet_go_tpu_torch.taxonomy.labels import load_labels
 
@@ -53,12 +57,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug", action="store_true")
     sub = p.add_subparsers(dest="command", required=True)
 
+    def device_flag(sp):
+        sp.add_argument("--device", type=torch.device, default="cuda",
+                        help="torch device to run on (default cuda; "
+                             "cpu runs on the CPU)")
+
     def common_model_flags(sp):
         sp.add_argument("--model", default="BirdNET_V2.4",
                         help="model family id (default BirdNET_V2.4)")
         sp.add_argument("--checkpoint", default=None,
-                        help="checkpoint with converted weights (not yet "
-                             "readable by the port: it raises)")
+                        help="a .tflite or .onnx model file to serve "
+                             "(default: the installed model, else random "
+                             "init; an orbax checkpoint raises)")
         sp.add_argument("--sensitivity", type=float, default=1.0,
                         help="sigmoid sensitivity 0.0-1.5 (default 1.0)")
         sp.add_argument("--threshold", type=float, default=0.8,
@@ -70,9 +80,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="taxonomy/label data directory")
         sp.add_argument("--latitude", type=float, default=None)
         sp.add_argument("--longitude", type=float, default=None)
-        sp.add_argument("--device", type=torch.device, default="cuda",
-                        help="torch device to run on (default cuda; "
-                             "cpu runs on the CPU)")
+        device_flag(sp)
 
     a = sub.add_parser("analyze", help="offline analysis of WAV file(s)")
     a.add_argument("input", help="WAV file or directory")
@@ -99,6 +107,28 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--csv", action="store_true")
     common_model_flags(r)
 
+    va = sub.add_parser(
+        "verify-artifact",
+        help="import a .tflite/.onnx artifact, fingerprint its outputs "
+             "on a deterministic input, diff a Raven table against the "
+             "recorded golden (record-on-first-run), and audit op "
+             "coverage — one-command real-weight parity readiness")
+    va.add_argument("artifact", nargs="?", default=None,
+                    help=".tflite or .onnx file (omit with --audit)")
+    va.add_argument("--wav", default=None,
+                    help="also analyze this WAV and diff the Raven table")
+    va.add_argument("--golden", default="data/golden_artifacts/torch",
+                    help="golden dir (fingerprints + Raven fixtures, "
+                         "keyed by artifact sha256; the port's own)")
+    va.add_argument("--no-golden", action="store_true",
+                    help="compute only; skip golden record/compare")
+    va.add_argument("--model-id", default="BirdNET_V2.4",
+                    help="family registry entry for the analyze leg")
+    va.add_argument("--audit", action="store_true",
+                    help="print the op-inventory audit (expected family "
+                         "ops vs importer tables) and exit")
+    device_flag(va)
+
     return p
 
 
@@ -112,7 +142,8 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stderr)
         return 1
     return {"analyze": _cmd_analyze, "benchmark": _cmd_benchmark,
-            "rangefilter": _cmd_rangefilter}[args.command](args)
+            "rangefilter": _cmd_rangefilter,
+            "verify-artifact": _cmd_verify_artifact}[args.command](args)
 
 
 def _load_classifier(args) -> TorchClassifier:
@@ -245,6 +276,32 @@ def _cmd_rangefilter(args) -> int:
         if len(rows) > 50:
             print(f"  ... and {len(rows) - 50} more (use --csv for all)")
     return 0
+
+
+def _cmd_verify_artifact(args) -> int:
+    if args.audit or args.artifact is None:
+        print(audit_table())
+        if args.artifact is None:
+            return 0
+    rep = verify_artifact(
+        args.artifact, wav=args.wav,
+        golden_dir=None if args.no_golden else args.golden,
+        model_id=args.model_id, device=args.device)
+    print(f"artifact    {rep.artifact}")
+    print(f"sha256      {rep.sha256}")
+    print(f"format      {rep.format}")
+    print(f"ops         {sum(rep.ops.values())} nodes, "
+          f"{len(rep.ops)} kinds: "
+          + ", ".join(f"{k}×{v}" for k, v in rep.ops.items()))
+    print(f"inputs      {rep.input_shapes}")
+    print(f"outputs     {rep.output_shapes}")
+    print(f"fingerprint {rep.fingerprint}")
+    print(f"golden      {rep.golden_status}")
+    print(f"raven       {rep.raven_status}")
+    for d in rep.details:
+        print(f"  · {d}")
+    print("PASS" if rep.ok else "FAIL")
+    return 0 if rep.ok else 1
 
 
 if __name__ == "__main__":

@@ -4,9 +4,12 @@
 
 Runs the unfused bf16 step (as the server runs it: int16 PCM → mel kernel →
 backbone → sigmoid, top-10) of BirdNET v2.4 at [256, 144000] and BirdNET
-v3.0 at [256, 160000], random weights from seed 0, and prints per model the
-step's wall time, the device time of its kernels, the device's idle share
-over the profiled steps, and the kernels that take the most device time.
+v3.0 at [256, 160000], random weights from seed 0, and the served step of
+an imported graph (float32 PCM → the graph → sigmoid, top-10): the v2.4
+replica of ``diag/replicas.py`` at the batches 1 and 16 the smoke runs it
+at. Prints per model the step's wall time, the device time of its
+kernels, the device's idle share over the profiled steps, and the kernels
+that take the most device time.
 """
 
 from __future__ import annotations
@@ -18,6 +21,9 @@ import time
 import numpy as np
 import torch
 
+from birdnet_go_tpu_torch.diag import replicas
+from birdnet_go_tpu_torch.inference.loader import ImportedModel
+from birdnet_go_tpu_torch.inference.tflite_import import load_tflite
 from birdnet_go_tpu_torch.models.birdnet_v3 import BirdNETv3
 from birdnet_go_tpu_torch.models.birdnet_v24 import BirdNETv24
 from birdnet_go_tpu_torch.ops.postprocess import (
@@ -47,9 +53,26 @@ def profile(cls, clip: int, rate: int, steps: int, card: str) -> None:
     dev = torch.device("cuda", 0)
     model = cls().init(torch.Generator().manual_seed(0)).to(dev).eval()
     pcm = torch.from_numpy(_pcm((256, clip), rate)).to(dev)
+    _profile(lambda: model.apply_int16(pcm),
+             f"{model.spec.model_id} unfused bf16 [256, {clip}]", steps,
+             card)
 
+
+def profile_imported(batch: int, steps: int, card: str) -> None:
+    """The v2.4 replica built at `batch`, as ``TorchModelBatcher`` serves
+    an imported graph (float32 PCM, TF32 off in the graph's executor)."""
+    dev = torch.device("cuda", 0)
+    buf = replicas.v24_tflite(np.random.default_rng(424), batch=batch)
+    model = ImportedModel(load_tflite(buf), "BirdNET_V2.4").to(dev)
+    pcm = torch.from_numpy(_pcm((batch, replicas.CLIP), 48000)).to(dev)
+    _profile(lambda: model.apply(pcm.float() / 32768.0),
+             f"imported v2.4 replica float32 [{batch}, {replicas.CLIP}]",
+             steps, card)
+
+
+def _profile(apply, label: str, steps: int, card: str) -> None:
     def step():
-        logits = model.apply_int16(pcm)["logits"]
+        logits = apply()["logits"]
         return top_k_results(sigmoid_confidence(logits, 1.0), 10)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -68,8 +91,7 @@ def profile(cls, clip: int, rate: int, steps: int, card: str) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     n_kernels = sum(e.count for e in kernels)
-    label = model.spec.model_id
-    print(f"profile {label} unfused bf16 [256, {clip}], {steps} steps: "
+    print(f"profile {label}, {steps} steps: "
           f"wall {wall_ms / steps:.4f} ms/step, device {busy_ms / steps:.4f} "
           f"ms/step in {n_kernels / steps:.0f} kernels, device idle share "
           f"{max(0.0, 1.0 - busy_ms / wall_ms):.4f} [{card}]")
@@ -92,6 +114,8 @@ def main() -> None:
         check=True).stdout.strip().splitlines()[0]
     profile(BirdNETv24, 144000, 48000, args.steps, card)
     profile(BirdNETv3, 160000, 32000, args.steps, card)
+    for batch in (1, 16):
+        profile_imported(batch, args.steps, card)
 
 
 if __name__ == "__main__":

@@ -1,1 +1,2 @@
-"""Classifier backend, the JAX parameter bridge and the model loader."""
+"""Classifier backend, the JAX parameter bridge, the .tflite/.onnx
+importers, ``verify-artifact`` and the model loader."""

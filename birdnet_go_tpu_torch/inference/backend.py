@@ -7,8 +7,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
-from birdnet_go_tpu_torch.models.base import MelCnnModel
 from birdnet_go_tpu_torch.models.geomodel import Geomodel
 from birdnet_go_tpu_torch.ops.postprocess import (
     sigmoid_confidence,
@@ -17,10 +17,11 @@ from birdnet_go_tpu_torch.ops.postprocess import (
 
 
 class TorchClassifier:
-    """A mel-CNN model moved to `device`, the card unless the caller passes
-    another, with an optional range mask."""
+    """A mel-CNN model (``MelCnnModel``) or an imported graph
+    (``loader.ImportedModel``) moved to `device`, the card unless the
+    caller passes another, with an optional range mask."""
 
-    def __init__(self, model: MelCnnModel, device: torch.device | str = "cuda",
+    def __init__(self, model: nn.Module, device: torch.device | str = "cuda",
                  range_mask: np.ndarray | None = None):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()

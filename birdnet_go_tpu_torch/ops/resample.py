@@ -17,15 +17,15 @@ so the outputs agree to float32 rounding.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import math
-import threading
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from birdnet_go_tpu_torch.ops.precision import full_float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,26 +83,6 @@ def _phase_weights(cfg: ResampleConfig) -> tuple[np.ndarray, int]:
     return w.astype(np.float32)[:, None, :], -s_lo
 
 
-# the cuDNN TF32 flag is process-wide: one resample at a time turns it off
-# and restores it, so that no thread's restore lands while another's
-# convolution is still being planned
-_TF32_LOCK = threading.Lock()
-
-
-@contextlib.contextmanager
-def _cudnn_without_tf32():
-    """cuDNN convolutions in full float32, as the JAX conv runs at
-    ``Precision.HIGHEST``: PyTorch lets cuDNN use TF32 by default. Holds
-    `_TF32_LOCK` from the flag's change to its restore."""
-    with _TF32_LOCK:
-        prev = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            yield
-        finally:
-            torch.backends.cudnn.allow_tf32 = prev
-
-
 def polyphase_resample(x: torch.Tensor, cfg: ResampleConfig) -> torch.Tensor:
     """Rational resample [..., T] → [..., T·L/M] float32, on x's device.
 
@@ -121,7 +101,7 @@ def polyphase_resample(x: torch.Tensor, cfg: ResampleConfig) -> torch.Tensor:
     pad_hi = max(0, (q - 1) * m + k - t - pad)
     xf = F.pad(x.reshape(-1, 1, t).to(torch.float32), (pad, pad_hi))
     weight = torch.from_numpy(w).to(x.device)
-    with _cudnn_without_tf32():
+    with full_float32():
         out = F.conv1d(xf, weight, stride=m)[..., :q]      # [N, L, Q]
     # phase-major → time order: y[q·L + r] = out[r, q]
     y = out.transpose(1, 2).reshape(-1, q * l)[:, :out_len]

@@ -310,7 +310,12 @@ class TorchModelBatcher(HostBatcher):
         """int16 [B, T] → (top-k values [B, k], indices [B, k], the
         ultrasonic CV [B] for a raw-rate spec, else None)."""
         with torch.inference_mode():
-            out = self.model.apply_int16(pcm_i16)
+            # a model without the int16 path (an imported graph) takes the
+            # float32 PCM, as in the JAX step
+            if hasattr(self.model, "apply_int16"):
+                out = self.model.apply_int16(pcm_i16)
+            else:
+                out = self.model.apply(pcm16_to_float32(pcm_i16))
             conf = sigmoid_confidence(out["logits"], sensitivity)
             if mask is not None:
                 conf = conf * mask

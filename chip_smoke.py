@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's realtime device step on one CUDA card: BirdNET
 v2.4 (EfficientNet-B0), and BirdNET v3.0 and Perch v2 (B1) through the fused
-MBConv kernels; then its offline analysis and CLI.
+MBConv kernels; then its offline analysis and CLI, and imported .tflite and
+.onnx artifacts.
 
     python3 chip_smoke.py
 
@@ -61,7 +62,22 @@ Phases, in order; any failure propagates and exits non-zero:
    whole file, and the CLI's ``benchmark`` and ``rangefilter`` (card
    against ``--device cpu``); none of the three kernels runs here, as in
    the JAX package, whose offline path takes float32 PCM through the
-   plain mel.
+   plain mel;
+11. imported artifacts, the full-scale replicas of ``diag/replicas.py``
+   written under ``build/import_smoke/`` (seeded weights, the graphs whose
+   outputs ``tests/golden/`` records): the BirdNET v2.4 TFLite replica
+   (its mel front end in the graph) at batch 1 on the JAX test's two
+   tones, loaded by ``load_model(..., checkpoint=...)``; the Perch v2-scale
+   ONNX at batch 1 and through ``TorchClassifier.predict_topk`` at batch
+   256; the float16 MData range filter. Each meets its golden and the
+   CPU's run (with cuDNN and cuBLAS allowed TF32, which the executors turn
+   off; the error without that guard printed beside it). Then the v2.4
+   replica built at batch 16, installed as ``BirdNET_V2.4/model.tflite``
+   under a ``BIRDNET_TPU_MODELS`` of its own and served by the loop
+   (``phase_loop``); then ``verify-artifact`` twice (recorded, match),
+   ``verify-artifact --audit`` and ``analyze --checkpoint --batch-size 1``,
+   each in a process of its own. None of the three kernels launches: an
+   imported graph runs its own front end as plain torch ops.
 
 Every kernel line carries its bound (``ops/roofline.py``: the larger of its
 bytes over the memory rate and its operations over the peak for their type)
@@ -80,6 +96,7 @@ import contextlib
 import functools
 import io
 import json
+import os
 import re
 import shutil
 import struct
@@ -100,6 +117,7 @@ from birdnet_go_tpu_torch.analysis.raven import format_csv, format_raven_table
 from birdnet_go_tpu_torch.audio.buffers import AnalysisBuffer
 from birdnet_go_tpu_torch.audio.wav import read_wav
 from birdnet_go_tpu_torch.cli import main as cli
+from birdnet_go_tpu_torch.diag import replicas
 from birdnet_go_tpu_torch.diag.mbconv_cases import (
     ARGS_A,
     ARGS_B,
@@ -121,7 +139,9 @@ from birdnet_go_tpu_torch.inference.backend import (
     TorchRangeFilter,
     range_mask,
 )
-from birdnet_go_tpu_torch.inference.loader import load_model
+from birdnet_go_tpu_torch.inference import onnx_import, tflite_import
+from birdnet_go_tpu_torch.inference.loader import ImportedModel, load_model
+from birdnet_go_tpu_torch.inference.opaudit import audit_table
 from birdnet_go_tpu_torch.models import efficientnet
 from birdnet_go_tpu_torch.models.bat import BatClassifier
 from birdnet_go_tpu_torch.models.birdnet_v3 import BirdNETv3
@@ -674,12 +694,14 @@ KERNELS = (melspec_fused, expand_dw_pool, scale_project)
 
 
 def phase_loop(model, dev: torch.device, card: str, n_streams: int,
-               n_ticks: int) -> tuple[dict, int, float]:
+               n_ticks: int, batch: int = BATCH) -> tuple[dict, int, float]:
     """Returns each kernel's launches during the loop run, the number of
     batches and the loop's windows/s. A raw-rate (bat) model's streams
     carry ultrasound at its capture rate, and every window must come back
-    with a finite ultrasonic CV."""
-    batcher = TorchModelBatcher(TorchClassifier(model, dev), max_batch=BATCH,
+    with a finite ultrasonic CV. A mel-CNN model launches the mel kernel
+    once a batch; an imported graph (float32 PCM, no int16 path) launches
+    none of the three kernels."""
+    batcher = TorchModelBatcher(TorchClassifier(model, dev), max_batch=batch,
                                 top_k=10, pipeline_depth=2)
     spec = batcher.spec
     rate = spec.effective_sample_rate
@@ -736,8 +758,11 @@ def phase_loop(model, dev: torch.device, card: str, n_streams: int,
         else:
             assert cv is None
     batches = batcher.stats.batches_dispatched
-    assert batches > 0 and launches["melspec_fused"] == batches, (
+    mel = batches if hasattr(model, "apply_int16") else 0
+    assert batches > 0 and launches["melspec_fused"] == mel, (
         launches, batches)
+    if mel == 0:
+        assert not any(launches.values()), launches
     lat = sorted(s["duration_ms"] for s in GLOBAL_SPANS.recent(
         GLOBAL_SPANS.total - n_spans))
     wps = n / elapsed
@@ -755,10 +780,12 @@ def phase_loop(model, dev: torch.device, card: str, n_streams: int,
         batcher._to_device(staged)
         torch.cuda.synchronize()
         h2d.append((time.perf_counter() - t1) * 1e3)
-    label = f"{spec.model_id}{' fused blocks' if model.fused_blocks else ''}"
-    print(f"step {label} [{BATCH},{spec.clip_samples}] on the card: "
+    fused = getattr(model, "fused_blocks", False)
+    label = (f"{spec.model_id}{' fused blocks' if fused else ''}"
+             f"{'' if mel else ' imported graph'}")
+    print(f"step {label} [{batch},{spec.clip_samples}] on the card: "
           f"{step_ms:.4f} ms [{min(steps):.4f}, {max(steps):.4f}] ("
-          f"{BATCH / step_ms * 1e3:.1f} windows/s device-bound); H2D "
+          f"{batch / step_ms * 1e3:.1f} windows/s device-bound); H2D "
           f"(pinned, to completion) {float(np.median(h2d)):.4f} ms per batch"
           f" [{card}]")
     # a stream yields a window every clip/2 seconds (1.5 s for v2.4's 3 s
@@ -1358,6 +1385,239 @@ def phase_offline(dev: torch.device, card: str) -> None:
     assert launches == before, (before, launches)
 
 
+# phase 11: imported artifacts
+IMPORTED_BATCH = 256         # the Perch replica through predict_topk
+SERVED_BATCH = 16            # the installed v2.4 replica's batch in the loop
+SERVED_STREAMS = 64
+SERVED_TICKS = 4
+ANALYZE_SECONDS = 30         # analyze --checkpoint: 10 windows of 3 s
+# card against CPU on the replicas, in float32 with TF32 allowed: the
+# largest difference over the output's largest magnitude (predicted in
+# PERF.md before the first run)
+CARD_CPU_REL = 1e-5
+
+
+def golden_gap(name: str, values: np.ndarray, atol: float,
+               rtol: float = 1e-3) -> tuple[float, float]:
+    """`values` against ``tests/golden/<name>.json`` as
+    ``tests/test_golden_parity.py::_golden_check`` compares them (the
+    norm within rtol, the 64 sampled values within atol + rtol·|v|), read
+    only; returns (the norm's relative gap, the largest sample gap)."""
+    want = json.loads((REPO / "tests" / "golden" / f"{name}.json"
+                       ).read_text())
+    flat = np.asarray(values, np.float64).ravel()
+    assert want["shape"] == list(np.asarray(values).shape), name
+    norm = abs(float(np.linalg.norm(flat)) - want["norm"]) / want["norm"]
+    sample = np.asarray(want["sample"])
+    gap = np.abs(flat[np.asarray(want["sample_idx"])] - sample)
+    assert norm <= rtol, (name, norm)
+    assert (gap <= atol + rtol * np.abs(sample)).all(), (name, gap.max())
+    return norm, float(gap.max())
+
+
+def _card_and_cpu(path: Path, model_id: str, x: np.ndarray, dev):
+    """The artifact through ``load_model`` on the card, with cuDNN and
+    cuBLAS allowed TF32 (the executors must turn it off), and on the CPU:
+    (card logits, CPU logits, the card's model). Also prints what the card
+    gives with the executors' guard taken out."""
+    cpu = load_model(model_id, checkpoint=str(path))
+    card = load_model(model_id, checkpoint=str(path)).to(dev)
+    xd = torch.from_numpy(x).to(dev)
+    with torch.inference_mode():
+        want = cpu.apply(x)["logits"].numpy()
+        with _tf32_allowed():
+            got = card.apply(xd)["logits"].cpu().numpy()
+            with _unguarded():
+                bare = card.apply(xd)["logits"].cpu().numpy()
+    scale = float(np.abs(want).max())
+    return got, want, card, float(np.abs(bare - want).max()) / scale
+
+
+@contextlib.contextmanager
+def _tf32_allowed():
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+@contextlib.contextmanager
+def _unguarded():
+    """The graph executors without their float32 guard: what TF32 does to
+    an imported graph on this card."""
+    saved = tflite_import.full_float32, onnx_import.full_float32
+    tflite_import.full_float32 = onnx_import.full_float32 = \
+        contextlib.nullcontext
+    try:
+        yield
+    finally:
+        tflite_import.full_float32, onnx_import.full_float32 = saved
+
+
+def _rel(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.abs(got - want).max()) / float(np.abs(want).max())
+
+
+def _run_cli(argv: list[str], env: dict | None = None) -> str:
+    """``python -m birdnet_go_tpu_torch`` in a process of its own; its
+    standard output (exit 0 required)."""
+    res = subprocess.run([sys.executable, "-m", "birdnet_go_tpu_torch",
+                          *argv], cwd=REPO, capture_output=True, text=True,
+                         timeout=300, env=env)
+    assert res.returncode == 0, (argv, res.stdout[-2000:],
+                                 res.stderr[-4000:])
+    return res.stdout
+
+
+def phase_imported(dev: torch.device, card: str) -> None:
+    """Imported .tflite and .onnx artifacts on the card (see the module
+    docstring, phase 11). None of the three kernels launches."""
+    root = REPO / "build" / "import_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    for k in KERNELS:
+        k.launches = 0
+
+    # the v2.4 replica at batch 1, the JAX test's two tones
+    t0 = time.monotonic()
+    v24 = root / "v24_b1.tflite"
+    v24.write_bytes(replicas.v24_tflite(np.random.default_rng(424)))
+    x = replicas.two_tones()[None, :]
+    got, want, card24, bare = _card_and_cpu(v24, "BirdNET_V2.4", x, dev)
+    assert got.shape == (1, replicas.NUM_SPECIES) and np.isfinite(got).all()
+    norm, gap = golden_gap("v24_fullscale_replica_logits", got, atol=1e-4)
+    rel = _rel(got, want)
+    xd = torch.from_numpy(x).to(dev)
+    with torch.inference_mode():
+        card24.apply(xd)
+        ms = [event_ms(lambda: card24.apply(xd)) for _ in range(REPS)]
+    print(f"imported v2.4 replica ({v24.stat().st_size} bytes, built and "
+          f"loaded in {time.monotonic() - t0:.2f} s) at batch 1 on the card, "
+          f"TF32 allowed: golden v24_fullscale_replica_logits norm gap "
+          f"{norm:.3e} (<= 1e-3), sample gap {gap:.3e} (<= 1e-4 + 1e-3|v|); "
+          f"card vs CPU max rel err {rel:.3e} (<= {CARD_CPU_REL:g}; without "
+          f"the executors' float32 guard {bare:.3e}); forward "
+          f"{np.median(ms):.4f} ms [{min(ms):.4f}, {max(ms):.4f}] (median "
+          f"[min, max] of {REPS}, CUDA events) [{card}]")
+    assert rel <= CARD_CPU_REL, "v2.4 replica: card vs CPU"
+    del card24
+
+    # the Perch v2-scale ONNX: batch 1 against its golden, then batch 256
+    # through TorchClassifier.predict_topk against the CPU
+    rng = np.random.default_rng(99)
+    perch = root / "perch.onnx"
+    perch.write_bytes(replicas.perch_onnx(rng))
+    mel = rng.standard_normal(replicas.PERCH_MEL).astype(np.float32)
+    got, want, card_p, bare = _card_and_cpu(perch, "Perch_V2", mel, dev)
+    norm, gap = golden_gap("perch_fullscale_onnx_logits", got, atol=1e-4)
+    rel = _rel(got, want)
+    big = np.random.default_rng(SEED + 20).standard_normal(
+        (IMPORTED_BATCH,) + replicas.PERCH_MEL[1:]).astype(np.float32)
+    clf = TorchClassifier(card_p, dev)
+    assert clf.num_species == replicas.PERCH_SPECIES
+    big_d = torch.from_numpy(big).to(dev)
+    with _tf32_allowed():
+        vc, ic = clf.predict_topk(big_d)
+        ms = [event_ms(lambda: clf.predict_topk(big_d)) for _ in range(REPS)]
+    vp, ip = TorchClassifier(load_model("Perch_V2", checkpoint=str(perch)),
+                             "cpu").predict_topk(big)
+    conf_err = float(np.abs(vc - vp).max())
+    apart = np.abs(np.diff(vp, axis=1)) > 1e-5
+    print(f"imported Perch-scale ONNX ({perch.stat().st_size} bytes): batch "
+          f"1 golden perch_fullscale_onnx_logits norm gap {norm:.3e}, sample "
+          f"gap {gap:.3e}; card vs CPU max rel err {rel:.3e} (without the "
+          f"guard {bare:.3e}); predict_topk [{IMPORTED_BATCH}, 1, 160, 128] "
+          f"→ top-10 of {replicas.PERCH_SPECIES}: {np.median(ms):.4f} ms "
+          f"[{min(ms):.4f}, {max(ms):.4f}] (input on the card, results "
+          f"back on the host), top-10 confidences card vs CPU max diff "
+          f"{conf_err:.3e} (<= 1e-5), indices equal where apart "
+          f"({int(apart.sum())} of {apart.size} gaps > 1e-5) [{card}]")
+    assert rel <= CARD_CPU_REL and conf_err <= 1e-5
+    assert vc.shape == (IMPORTED_BATCH, 10)
+    assert (ic[:, :-1][apart] == ip[:, :-1][apart]).all()
+    del card_p, clf, big_d
+
+    # the float16 MData range filter
+    rng = np.random.default_rng(77)
+    mdata = root / "mdata.tflite"
+    mdata.write_bytes(replicas.mdata_tflite(rng))
+    feats = rng.standard_normal((1, 96)).astype(np.float32)
+    got, want, _, _ = _card_and_cpu(mdata, "Geomodel", feats, dev)
+    norm, gap = golden_gap("mdata_fullscale_scores", got, atol=1e-3)
+    rel = _rel(got, want)
+    print(f"imported MData float16 replica: golden mdata_fullscale_scores "
+          f"norm gap {norm:.3e}, sample gap {gap:.3e} (<= 1e-3); card vs "
+          f"CPU max rel err {rel:.3e} [{card}]")
+    assert rel <= CARD_CPU_REL
+
+    # the v2.4 replica built at batch 16, installed, served by the loop
+    home = root / "models"
+    (home / "BirdNET_V2.4").mkdir(parents=True)
+    (home / "BirdNET_V2.4" / "model.tflite").write_bytes(
+        replicas.v24_tflite(np.random.default_rng(424), batch=SERVED_BATCH))
+    prev_home = os.environ.get("BIRDNET_TPU_MODELS")
+    os.environ["BIRDNET_TPU_MODELS"] = str(home)
+    try:
+        served = load_model("BirdNET_V2.4")
+    finally:
+        if prev_home is None:
+            del os.environ["BIRDNET_TPU_MODELS"]
+        else:
+            os.environ["BIRDNET_TPU_MODELS"] = prev_home
+    assert isinstance(served, ImportedModel)
+    assert served.num_species == replicas.NUM_SPECIES
+    with _tf32_allowed():
+        launches, batches, _ = phase_loop(served, dev, card, SERVED_STREAMS,
+                                          SERVED_TICKS, batch=SERVED_BATCH)
+    assert batches == SERVED_STREAMS * SERVED_TICKS // SERVED_BATCH
+    del served
+
+    # the CLI, each command in its own process
+    env = dict(os.environ, BIRDNET_TPU_MODELS=str(root / "empty"))
+    gold = root / "golden"
+    lines = []
+    for want_status in ("recorded", "match"):
+        t0 = time.monotonic()
+        out = _run_cli(["verify-artifact", str(v24), "--golden", str(gold)],
+                       env)
+        fields = {ln[:12].strip(): ln[12:] for ln in out.splitlines()}
+        assert fields["golden"] == want_status, out
+        assert out.splitlines()[-1] == "PASS", out
+        lines.append(f"{want_status} in {time.monotonic() - t0:.2f} s")
+    audit = _run_cli(["verify-artifact", "--audit"], env)
+    rows = audit.strip().splitlines()
+    assert audit.strip() == audit_table() and len(rows) > 2
+    assert all(r.endswith("— (ready) |") for r in rows[2:]), audit
+    wav = root / "field48k.wav"
+    write_pcm16(wav, field_recording(ANALYZE_SECONDS, 48000, 1, SEED + 21),
+                48000)
+    out_dir = root / "out"
+    t0 = time.monotonic()
+    text = _run_cli(["analyze", str(wav), "--checkpoint", str(v24),
+                     "--batch-size", "1", "--threshold", "0", "--rtype",
+                     "both", "--output", str(out_dir)], env)
+    n_win, n_det, elapsed, _ = _summary(text, wav.name)
+    n = ANALYZE_SECONDS // 3
+    assert n_win == n_det == n, text
+    _check_tables(out_dir, wav.name, n, 3.0)
+    print(f"CLI on the imported v2.4 replica, each command its own process: "
+          f"verify-artifact {fields['fingerprint'][:16]}… "
+          f"{', then '.join(lines)}, PASS; verify-artifact --audit equals "
+          f"the audit table; analyze --checkpoint --batch-size 1 on "
+          f"{ANALYZE_SECONDS} s of 48 kHz: {n_win} windows, {n_det} rows in "
+          f"the Raven table and the CSV, analysis {elapsed:.2f} s, process "
+          f"{time.monotonic() - t0:.2f} s with start-up [{card}]")
+
+    launches = {k.__name__: k.launches for k in KERNELS}
+    print(f"imported artifacts: kernel launches {launches} (none expected)")
+    assert not any(launches.values()), launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1396,6 +1656,7 @@ def main() -> None:
     phase_range(dev, card, v24)
     del v24
     phase_offline(dev, card)
+    phase_imported(dev, card)
     print(f"total {time.monotonic() - t0:.1f} s")
     print(f"kernels line: melspec_fused at the v2.4 main path's [{BATCH}, "
           f"{CLIP}] bf16; expand_dw_pool and scale_project summed over the "

@@ -5,11 +5,15 @@ CPU.
 (``--device cpu``); ``analyze`` and ``rangefilter`` of both CLIs on the
 same weights (a tiny float32 model and the Geomodel, JAX ``init`` weights
 carried over), whose tables and species rows must agree; the refusal to
-run on the CPU without ``--device cpu`` where there is no card; and the
-loader, which serves seeded weights only and raises where the JAX loader
-would load real ones.
+run on the CPU without ``--device cpu`` where there is no card; the
+loader, which serves .tflite and .onnx artifacts (given or installed) as
+the JAX loader does, seeded weights where there are none, and raises where
+the JAX loader would read an orbax checkpoint; ``TorchModelBatcher``
+serving an imported model; and ``verify-artifact`` against the JAX
+command.
 """
 
+import dataclasses
 import json
 import logging
 import os
@@ -30,6 +34,7 @@ from birdnet_go_tpu.cli import main as jcli
 from birdnet_go_tpu_torch.audio.wav import write_wav
 from birdnet_go_tpu_torch.cli import main as tcli
 from birdnet_go_tpu_torch.inference import loader as tloader
+from birdnet_go_tpu_torch.inference.backend import TorchClassifier
 from birdnet_go_tpu_torch.inference.params import load_jax_params
 from birdnet_go_tpu_torch.models.bsg import BSGFinland
 from birdnet_go_tpu_torch.models.geomodel import Geomodel, GeomodelConfig
@@ -184,7 +189,8 @@ def test_rangefilter_needs_a_location(capsys):
 
 @pytest.mark.parametrize("command", [["analyze", "x.wav"], ["benchmark"],
                                      ["rangefilter", "--latitude", "1",
-                                      "--longitude", "2"]])
+                                      "--longitude", "2"],
+                                     ["verify-artifact", "--audit"]])
 def test_refuses_the_cpu_without_device_cpu(command, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(tcli, "load_model", None)      # never reached
@@ -252,26 +258,251 @@ def test_load_model_serves_seeded_weights(monkeypatch, tmp_path, caplog):
     assert sorted(tloader._FAMILIES) == sorted(jloader._FAMILIES)
 
 
-def test_loader_raises_where_jax_would_load_weights(monkeypatch, tmp_path):
+# -- imported artifacts --------------------------------------------------------
+
+N_ART = 16                                      # the artifacts' species
+
+
+def _tflite_artifact(path: Path) -> Path:
+    """PCM [B, 144000] → dense → 16 logits, a genuine .tflite."""
+    from birdnet_go_tpu.inference.tflite_import import Op
+    from tests.tflite_builder import ModelBuilder, fully_connected_options
+
+    rng = np.random.default_rng(31)
+    mb = ModelBuilder()
+    x_t = mb.add_tensor([1, 144000], "pcm")
+    w_t = mb.add_tensor([N_ART, 144000], "w", (rng.standard_normal(
+        (N_ART, 144000)) * 3e-3).astype(np.float32))
+    b_t = mb.add_tensor([N_ART], "b", rng.standard_normal(N_ART).astype(
+        np.float32))
+    y_t = mb.add_tensor([1, N_ART], "logits")
+    mb.add_op(Op.FULLY_CONNECTED, [x_t, w_t, b_t], [y_t],
+              lambda b: fully_connected_options(b))
+    mb.inputs, mb.outputs = [x_t], [y_t]
+    path.write_bytes(mb.finish())
+    return path
+
+
+def _onnx_artifact(path: Path) -> Path:
+    """PCM [B, 144000] → Gemm → Relu (the embedding) → Gemm → 16 logits,
+    a genuine .onnx with two outputs."""
+    from tests import onnx_builder as ob
+
+    rng = np.random.default_rng(32)
+    w1 = (rng.standard_normal((144000, 24)) * 3e-3).astype(np.float32)
+    w2 = rng.standard_normal((24, N_ART)).astype(np.float32)
+    nodes = [ob.node("Gemm", ["pcm", "w1"], ["pre"]),
+             ob.node("Relu", ["pre"], ["embedding"]),
+             ob.node("Gemm", ["embedding", "w2", "b2"], ["logits"])]
+    path.write_bytes(ob.model(nodes, [
+        ob.tensor_proto("w1", w1), ob.tensor_proto("w2", w2),
+        ob.tensor_proto("b2", rng.standard_normal(N_ART).astype(
+            np.float32))], ["pcm"], ["logits", "embedding"]))
+    return path
+
+
+def _artifact(kind: str, path: Path) -> Path:
+    return (_tflite_artifact if kind == "tflite" else _onnx_artifact)(
+        path.with_suffix(f".{kind}"))
+
+
+def _field_pcm(n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    t = np.arange(144000) / 48000.0
+    f = rng.uniform(200.0, 12000.0, (n, 1))
+    return (0.05 * np.sin(2 * np.pi * f * t) + rng.standard_normal(
+        (n, 144000)) * 0.01).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind, where", [
+    ("tflite", "checkpoint"), ("onnx", "checkpoint"),
+    ("tflite", "installed"), ("onnx", "installed"), ("both", "installed")])
+def test_loader_serves_artifacts_as_jax(kind, where, monkeypatch, tmp_path,
+                                        caplog):
+    """A .tflite or .onnx, given as the checkpoint or installed as
+    ``<home>/<id>/model.tflite|onnx`` (the .tflite first where both are),
+    loads as an ``ImportedModel`` equal to the JAX loader's."""
     monkeypatch.setenv("BIRDNET_TPU_MODELS", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        tloader.load_model("BirdNET_V2.4", checkpoint="ckpt/")
-    with pytest.raises(NotImplementedError, match="cannot load weights"):
-        tloader.load_model("BirdNET_V2.4", checkpoint="m.tflite")
-    (tmp_path / "BirdNET_V2.4").mkdir()
-    (tmp_path / "BirdNET_V2.4" / "model.onnx").write_bytes(b"x")
-    with pytest.raises(NotImplementedError, match="installed model"):
-        tloader.load_model("BirdNET_V2.4")
-    assert not tloader.geomodel_weights_installed()
-    g = tloader.load_geomodel(num_species=12, seed=7)
-    assert isinstance(g, Geomodel) and g.cfg.num_species == 12
-    (tmp_path / "Geomodel").mkdir()
-    (tmp_path / "Geomodel" / "params").write_bytes(b"x")
-    assert tloader.geomodel_weights_installed()
-    assert jloader.geomodel_weights_installed()
-    with pytest.raises(NotImplementedError, match="installed model"):
-        tloader.load_geomodel()
-    # the CLI does not catch it: no seeded weights in their place
-    with pytest.raises(NotImplementedError):
-        tcli.main(["rangefilter", "--device", "cpu", "--latitude", "1",
-                   "--longitude", "2"])
+    ckpt = None
+    if where == "checkpoint":
+        ckpt = str(_artifact(kind, tmp_path / "model"))
+    else:
+        home = tmp_path / "BirdNET_V2.4"
+        home.mkdir()
+        for k in (("tflite", "onnx") if kind == "both" else (kind,)):
+            _artifact(k, home / "model")
+    with caplog.at_level(logging.INFO, "birdnet_tpu.inference"):
+        tm = tloader.load_model("BirdNET_V2.4", checkpoint=ckpt)
+    jm, params = jloader.load_model("BirdNET_V2.4", checkpoint=ckpt)
+    fmt = "onnx" if kind == "onnx" else "tflite"
+    assert f"imported BirdNET_V2.4 from {fmt}" in caplog.text
+    assert isinstance(tm, tloader.ImportedModel)
+    assert isinstance(tm.graph, tloader.OnnxGraph if fmt == "onnx"
+                      else tloader.TFLiteGraph)
+    assert tm.num_species == jm.num_species == N_ART
+    assert dataclasses.asdict(tm.spec) == dataclasses.asdict(jm.spec)
+    pcm = _field_pcm(1, 5)
+    got = tm.apply(torch.from_numpy(pcm))
+    want = jm.apply(params, pcm)
+    assert got.keys() == want.keys() == {"logits", "embedding"}
+    for k in got:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["orbax_checkpoint", "no_artifact_installed",
+                                  "geomodel_installed"])
+def test_loader_raises_where_jax_would_load_weights(case, monkeypatch,
+                                                    tmp_path):
+    """Where the JAX loader reads an orbax checkpoint (given, or installed
+    without a .tflite/.onnx beside it) the port raises rather than serve
+    random weights; the CLI does not catch it."""
+    monkeypatch.setenv("BIRDNET_TPU_MODELS", str(tmp_path))
+    if case == "orbax_checkpoint":
+        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+            tloader.load_model("BirdNET_V2.4", checkpoint="ckpt/")
+        with pytest.raises(NotImplementedError, match="not orbax"):
+            tcli.main(["analyze", "x.wav", "--device", "cpu",
+                       "--checkpoint", "ckpt/"])
+    elif case == "no_artifact_installed":
+        (tmp_path / "BirdNET_V2.4").mkdir()
+        (tmp_path / "BirdNET_V2.4" / "params").write_bytes(b"x")
+        with pytest.raises(NotImplementedError,
+                           match="no model.tflite or model.onnx there"):
+            tloader.load_model("BirdNET_V2.4")
+    else:
+        assert not tloader.geomodel_weights_installed()
+        g = tloader.load_geomodel(num_species=12, seed=7)
+        assert isinstance(g, Geomodel) and g.cfg.num_species == 12
+        (tmp_path / "Geomodel").mkdir()
+        (tmp_path / "Geomodel" / "params").write_bytes(b"x")
+        assert tloader.geomodel_weights_installed()
+        assert jloader.geomodel_weights_installed()
+        with pytest.raises(NotImplementedError,
+                           match="installed model .*orbax"):
+            tloader.load_geomodel()
+        with pytest.raises(NotImplementedError):
+            tcli.main(["rangefilter", "--device", "cpu", "--latitude", "1",
+                       "--longitude", "2"])
+
+
+@pytest.mark.parametrize("kind", ["tflite", "onnx"])
+def test_batcher_serves_imported_model_as_jax(kind, tmp_path):
+    """``TorchModelBatcher`` serves an ``ImportedModel`` (no int16 path:
+    the step takes the float32 PCM) with the JAX ``ModelBatcher``'s top-10
+    on the same windows."""
+    from birdnet_go_tpu.inference.backend import JaxClassifier
+    from birdnet_go_tpu.scheduler import loop as jloop
+    from birdnet_go_tpu_torch.scheduler import loop as tloop
+
+    path = str(_artifact(kind, tmp_path / "model"))
+    jm, params = jloader.load_model("BirdNET_V2.4", checkpoint=path)
+    tm = tloader.load_model("BirdNET_V2.4", checkpoint=path)
+    assert not hasattr(tm, "apply_int16")
+    pcm = (np.clip(_field_pcm(5, 6), -1, 1) * 32767).astype(np.int16)
+    served = []
+    for b in (jloop.ModelBatcher(JaxClassifier(jm, params), max_batch=4),
+              tloop.TorchModelBatcher(TorchClassifier(tm, "cpu"),
+                                      max_batch=4)):
+        out = []
+        b.on_batch = lambda meta, v, i, cv, out=out: out.append(
+            ([m.source_id for m in meta], np.asarray(v), np.asarray(i)))
+        ids, times = [f"s{k}" for k in range(5)], [float(k) for k in range(5)]
+        assert b.offer_block(pcm, ids, times) == 4          # a full batch
+        b.dispatch()
+        assert b.offer_block(pcm[4:], ids[4:], times[4:]) == 1
+        b.dispatch()
+        b.harvest_all()
+        served.append(out)
+    want, got = served
+    assert [ids for ids, _, _ in got] == [ids for ids, _, _ in want] == \
+        [["s0", "s1", "s2", "s3"], ["s4"]]
+    for (_, tv, ti), (_, jv, ji) in zip(got, want):
+        assert tv.shape == jv.shape and tv.shape[1] == 10
+        np.testing.assert_allclose(tv, jv, rtol=1e-5, atol=1e-6)
+        assert (np.diff(tv, axis=1) <= 0).all()
+        np.testing.assert_array_equal(ti, ji)
+
+
+# -- verify-artifact -------------------------------------------------------------
+
+_VERIFY_KEYS = ("artifact", "sha256", "format", "ops", "inputs", "outputs",
+                "fingerprint", "golden", "raven")
+
+
+def _verify_lines(main, argv, capsys) -> tuple[int, dict, list[str]]:
+    rc = main(argv)
+    lines = capsys.readouterr().out.splitlines()
+    fields = {ln[:12].strip(): ln[12:] for ln in lines
+              if ln[:12].strip() in _VERIFY_KEYS}
+    return rc, fields, lines
+
+
+@pytest.mark.parametrize("kind", ["tflite", "onnx"])
+def test_verify_artifact_prints_the_jax_lines(kind, tmp_path, capsys):
+    """The port's command prints the JAX command's lines: the same
+    artifact, digest, format, op inventory, shapes and statuses, then PASS;
+    its fingerprint is its own and stable across runs (the second run
+    matches the golden the first recorded), exit 0."""
+    path = str(_artifact(kind, tmp_path / "model"))
+    jrc, jf, jlines = _verify_lines(
+        jcli.main, ["verify-artifact", path, "--golden",
+                    str(tmp_path / "jgold")], capsys)
+    runs = [_verify_lines(tcli.main, ["verify-artifact", path, "--device",
+                                      "cpu", "--golden",
+                                      str(tmp_path / "tgold")], capsys)
+            for _ in range(2)]
+    assert jrc == 0 and jf["golden"] == "recorded"
+    for rc, tf, tlines in runs:
+        assert rc == 0 and tlines[-1] == jlines[-1] == "PASS"
+        assert [ln[:12] for ln in tlines] == [ln[:12] for ln in jlines]
+        for key in ("artifact", "sha256", "format", "ops", "inputs",
+                    "outputs", "raven"):
+            assert tf[key] == jf[key], key
+    (_, first, _), (_, second, _) = runs
+    assert (first["golden"], second["golden"]) == ("recorded", "match")
+    assert first["fingerprint"] == second["fingerprint"]
+    assert list((tmp_path / "tgold").iterdir()) == [
+        tmp_path / "tgold" / f"{first['sha256']}.json"]
+
+
+def test_verify_artifact_exit_codes(tmp_path, capsys):
+    """A fingerprint that differs from the recorded one fails with exit 1,
+    as in the JAX command; ``--audit`` alone prints the JAX audit table."""
+    path = str(_artifact("tflite", tmp_path / "model"))
+    gold = tmp_path / "gold"
+    argv = ["verify-artifact", path, "--device", "cpu", "--golden",
+            str(gold)]
+    rc, f, _ = _verify_lines(tcli.main, argv, capsys)
+    assert rc == 0
+    rec = gold / f"{f['sha256']}.json"
+    rec.write_text(rec.read_text().replace(f["fingerprint"], "0" * 64))
+    rc, f, lines = _verify_lines(tcli.main, argv, capsys)
+    assert rc == 1 and f["golden"] == "MISMATCH" and lines[-1] == "FAIL"
+    rc, f, _ = _verify_lines(tcli.main, argv[:-2] + ["--no-golden"], capsys)
+    assert rc == 0 and f["golden"] == "skipped"
+    assert tcli.main(["verify-artifact", "--audit", "--device", "cpu"]) == 0
+    tout = capsys.readouterr().out
+    assert jcli.main(["verify-artifact", "--audit"]) == 0
+    assert tout == capsys.readouterr().out
+    (tmp_path / "m.pb").write_bytes(b"x")
+    with pytest.raises(ValueError, match="unknown artifact format"):
+        tcli.main(["verify-artifact", str(tmp_path / "m.pb"), "--device",
+                   "cpu", "--no-golden"])
+
+
+def test_verify_artifact_wav_leg_writes_the_jax_table(tmp_path, capsys):
+    """With ``--wav`` both commands analyze the file through the imported
+    model: the same detections, so the same Raven table."""
+    path = str(_artifact("onnx", tmp_path / "model"))
+    wav = _wav(tmp_path / "field.wav", 9.0, 48000, 7)
+    for main, gold, extra in ((jcli.main, "jgold", []),
+                              (tcli.main, "tgold", ["--device", "cpu"])):
+        rc, f, _ = _verify_lines(main, ["verify-artifact", path, "--wav",
+                                        str(wav), "--golden",
+                                        str(tmp_path / gold)] + extra,
+                                 capsys)
+        assert rc == 0 and f["raven"] == "recorded"
+    (jt,), (tt,) = ((tmp_path / g).glob("*.raven.txt")
+                    for g in ("jgold", "tgold"))
+    assert tt.read_text() == jt.read_text()

@@ -1,6 +1,9 @@
 """Card-only tests of the port: the CUDA mel and MBConv kernels against
 their plain versions, the wrappers' checks, the torch batcher's CUDA
-events, and the offline path's resampling and analyzer against the CPU.
+events, the offline path's resampling and analyzer against the CPU, and an
+imported graph (the v2.4 replica of ``diag/replicas.py``) on the card:
+float32 under TF32 defaults, its constants read where they lie, and
+through ``TorchClassifier``.
 
 Every test needs a CUDA card and skips without one. The file imports no
 JAX, so it also runs where JAX is missing:
@@ -18,6 +21,7 @@ output within one bf16 step, the pool within 1e-4 · (|ref| + S · 1e-3).
 
 import copy
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -521,3 +525,86 @@ def test_offline_analyzer_on_card_matches_cpu(dev):
     np.testing.assert_allclose([w.confidences for w in got.windows],
                                [w.confidences for w in want.windows],
                                atol=1e-4)
+
+
+@functools.lru_cache(maxsize=2)
+def _v24_replica(batch: int) -> bytes:
+    from birdnet_go_tpu_torch.diag import replicas
+
+    return replicas.v24_tflite(np.random.default_rng(424), batch=batch)
+
+
+def _replica_inputs() -> np.ndarray:
+    from birdnet_go_tpu_torch.diag import replicas
+
+    rng = np.random.default_rng(3)
+    return np.stack([replicas.two_tones(), (rng.standard_normal(144000)
+                                            * 0.05).astype(np.float32)])
+
+
+def test_imported_graph_on_card_keeps_float32_under_tf32(dev):
+    """The v2.4 replica (convolutions, depthwise, dense) on the card with
+    TF32 allowed for cuDNN and cuBLAS: within 1e-5 of the logits' scale of
+    the CPU's float64 run and of its float32 run (TF32 operands would put
+    it near 3e-4; the CPU's float32 is 1.1e-7 off float64)."""
+    from birdnet_go_tpu_torch.inference.tflite_import import load_tflite
+
+    x = _replica_inputs()
+    ref = load_tflite(_v24_replica(2)).double()(x.astype(np.float64))[0]
+    cpu = load_tflite(_v24_replica(2))(x)[0]
+    g = load_tflite(_v24_replica(2)).to(dev)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = g(torch.from_numpy(x).to(dev))[0]
+        assert torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    scale = float(ref.abs().max())
+    got = got.cpu().double()
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    assert float((got - cpu.double()).abs().max()) <= 1e-5 * scale
+
+
+def test_imported_graph_reads_its_buffers_where_they_lie(dev):
+    """After ``.to(cuda)`` a forward on a device input copies nothing from
+    the host: no HtoD copy in its profile, the buffers where they were."""
+    from birdnet_go_tpu_torch.inference.tflite_import import load_tflite
+
+    g = load_tflite(_v24_replica(2)).to(dev)
+    assert all(b.device.type == "cuda" for b in g.buffers())
+    ptrs = {k: v.data_ptr() for k, v in g.named_buffers()}
+    x = torch.from_numpy(_replica_inputs()).to(dev)
+    g(x)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = g(x)[0]
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert any("conv" in n.lower() for n in names), names[:20]
+    assert not [n for n in names if "HtoD" in n], names
+    assert out.device.type == "cuda"
+    assert {k: v.data_ptr() for k, v in g.named_buffers()} == ptrs
+
+
+def test_imported_model_through_classifier_on_card(dev):
+    """``ImportedModel`` through ``TorchClassifier.predict_topk`` on the
+    card against the CPU: top-10 confidences within 1e-5, the same
+    indices where the values are apart."""
+    from birdnet_go_tpu_torch.inference.loader import ImportedModel
+    from birdnet_go_tpu_torch.inference.tflite_import import load_tflite
+
+    x = _replica_inputs()
+    clf = [TorchClassifier(ImportedModel(load_tflite(_v24_replica(2)),
+                                         "BirdNET_V2.4"), where)
+           for where in ("cpu", dev)]
+    assert clf[1].num_species == 6522
+    (vc, ic), (vg, ig) = (c.predict_topk(x) for c in clf)
+    np.testing.assert_allclose(vg, vc, rtol=0, atol=1e-5)
+    apart = np.abs(np.diff(vc, axis=1)) > 1e-5
+    np.testing.assert_array_equal(ig[:, :-1][apart], ic[:, :-1][apart])

@@ -395,6 +395,13 @@ def test_port_imports_with_jax_and_jax_package_blocked():
             "birdnet_go_tpu_torch.cli.main",
             "birdnet_go_tpu_torch.analysis.offline",
             "birdnet_go_tpu_torch.inference.loader",
+            "birdnet_go_tpu_torch.inference.flatbuf",
+            "birdnet_go_tpu_torch.inference.protowire",
+            "birdnet_go_tpu_torch.inference.tflite_import",
+            "birdnet_go_tpu_torch.inference.onnx_import",
+            "birdnet_go_tpu_torch.inference.opaudit",
+            "birdnet_go_tpu_torch.inference.verify_artifact",
+            "birdnet_go_tpu_torch.diag.replicas",
             "birdnet_go_tpu_torch.taxonomy.labels"} <= set(mods)
     res = subprocess.run([sys.executable, "-c",
                           _GUARDED_IMPORT % (_BLOCKED, mods)],

@@ -1,21 +1,25 @@
 """Command line of the PyTorch port: analyze / benchmark / rangefilter /
-verify-artifact (ports of those commands of ``birdnet_go_tpu/cli/main.py``).
+train / model / verify-artifact (ports of those commands of
+``birdnet_go_tpu/cli/main.py``).
 
     python -m birdnet_go_tpu_torch analyze recording.wav
     python -m birdnet_go_tpu_torch analyze recordings/ --device cpu
     python -m birdnet_go_tpu_torch analyze rec.wav --checkpoint model.tflite
+    python -m birdnet_go_tpu_torch train dataset/ --output ckpt/
+    python -m birdnet_go_tpu_torch model list
     python -m birdnet_go_tpu_torch verify-artifact model.tflite
 
 Global flags mirror the reference's persistent flags (cmd/root.go:86-106):
 threshold, sensitivity, overlap, locale, latitude/longitude. Output lines
-and exit codes are the JAX CLI's. Every command runs on the CUDA card
-unless ``--device`` names another device; without a card it stops with an
-error rather than run on the CPU.
+and exit codes are the JAX CLI's. Every command that computes runs on the
+CUDA card unless ``--device`` names another device; without a card it
+stops with an error rather than run on the CPU. ``model`` only moves files.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import json
 import logging
@@ -41,10 +45,30 @@ from birdnet_go_tpu_torch.inference.loader import (
     load_geomodel,
     load_model,
 )
+from birdnet_go_tpu_torch.inference.checkpoint import save_params
 from birdnet_go_tpu_torch.inference.opaudit import audit_table
 from birdnet_go_tpu_torch.inference.verify_artifact import verify_artifact
+from birdnet_go_tpu_torch.models.birdnet_v24 import BirdNETv24
+from birdnet_go_tpu_torch.models.catalog import (
+    ModelManager,
+    catalog_entries,
+    get_entry,
+)
+from birdnet_go_tpu_torch.models.efficientnet import (
+    BlockSpec,
+    EfficientNetConfig,
+)
 from birdnet_go_tpu_torch.models.geomodel import birdnet_week
+from birdnet_go_tpu_torch.ops.melspec import MelConfig
+from birdnet_go_tpu_torch.ops.precision import full_float32
 from birdnet_go_tpu_torch.taxonomy.labels import load_labels
+from birdnet_go_tpu_torch.train.dataset import load_directory_dataset
+from birdnet_go_tpu_torch.train.trainer import (
+    evaluate,
+    init_train_state,
+    make_eval_step,
+    make_train_step,
+)
 
 _LOG_FORMAT = "%(asctime)s %(levelname)s %(name)s: %(message)s"
 
@@ -66,9 +90,11 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--model", default="BirdNET_V2.4",
                         help="model family id (default BirdNET_V2.4)")
         sp.add_argument("--checkpoint", default=None,
-                        help="a .tflite or .onnx model file to serve "
-                             "(default: the installed model, else random "
-                             "init; an orbax checkpoint raises)")
+                        help="a .tflite or .onnx model file, or a "
+                             "directory holding params.npz (as train "
+                             "writes), to serve (default: the installed "
+                             "model, else random init; an orbax "
+                             "checkpoint raises)")
         sp.add_argument("--sensitivity", type=float, default=1.0,
                         help="sigmoid sensitivity 0.0-1.5 (default 1.0)")
         sp.add_argument("--threshold", type=float, default=0.8,
@@ -107,6 +133,25 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--csv", action="store_true")
     common_model_flags(r)
 
+    t = sub.add_parser("train", help="train a custom classifier")
+    t.add_argument("dataset", help="directory-per-species WAV dataset root")
+    t.add_argument("--output", default="data/models/Custom",
+                   help="checkpoint output dir")
+    t.add_argument("--epochs", type=int, default=10)
+    t.add_argument("--batch-size", type=int, default=16)
+    t.add_argument("--learning-rate", type=float, default=1e-3)
+    t.add_argument("--tiny", action="store_true",
+                   help="tiny backbone (fast smoke runs / tests)")
+    t.add_argument("--val-split", type=float, default=0.1,
+                   help="stratified validation fraction (0 disables)")
+    common_model_flags(t)
+
+    mdl = sub.add_parser("model", help="model gallery: list/install/remove")
+    mdl.add_argument("action", choices=["list", "install", "remove"])
+    mdl.add_argument("model_id", nargs="?")
+    mdl.add_argument("--from-file", default=None,
+                     help="install from a local .tflite/.onnx artifact")
+
     va = sub.add_parser(
         "verify-artifact",
         help="import a .tflite/.onnx artifact, fingerprint its outputs "
@@ -136,13 +181,16 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO,
                         format=_LOG_FORMAT)
-    if args.device.type == "cuda" and not torch.cuda.is_available():
+    device = getattr(args, "device", None)      # `model` computes nothing
+    if device is not None and device.type == "cuda" \
+            and not torch.cuda.is_available():
         print(f"error: no CUDA card (torch.cuda.is_available() is false); "
               f"pass --device cpu to run {args.command} on the CPU",
               file=sys.stderr)
         return 1
     return {"analyze": _cmd_analyze, "benchmark": _cmd_benchmark,
-            "rangefilter": _cmd_rangefilter,
+            "rangefilter": _cmd_rangefilter, "train": _cmd_train,
+            "model": _cmd_model,
             "verify-artifact": _cmd_verify_artifact}[args.command](args)
 
 
@@ -275,6 +323,96 @@ def _cmd_rangefilter(args) -> int:
             print(f"  {s:.3f}  {sp.common} ({sp.scientific})")
         if len(rows) > 50:
             print(f"  ... and {len(rows) - 50} more (use --csv for all)")
+    return 0
+
+
+def _tiny_v24(n_classes: int) -> BirdNETv24:
+    """The float32 v2.4 of ``train --tiny``: a 32-band mel at hop 4096 and
+    two narrow MBConv stages."""
+    return BirdNETv24(
+        num_species=n_classes,
+        mel=MelConfig(sample_rate=48000, n_fft=512, hop=4096, n_mels=32),
+        compute_dtype=torch.float32,
+        net=EfficientNetConfig(
+            blocks=(BlockSpec(1, 8, 3, 2, 1), BlockSpec(4, 16, 3, 2, 1)),
+            embedding_dim=32, num_classes=n_classes))
+
+
+def _cmd_train(args) -> int:
+    full = load_directory_dataset(args.dataset, device=args.device)
+    n_classes = len(full.class_names)
+    ds, val = full.split(args.val_split) if args.val_split > 0 \
+        else (full, None)
+    print(f"dataset: {len(ds)} train / {len(val) if val else 0} val "
+          f"windows, {n_classes} classes: {full.class_names}")
+
+    model = (_tiny_v24(n_classes) if args.tiny
+             else BirdNETv24(num_species=n_classes))
+    model.init(torch.Generator().manual_seed(0)).to(args.device)
+    state = init_train_state(model, args.learning_rate)
+    # BN in inference mode during training: batch-norm acts as a learnable
+    # affine, so the trained params behave identically at inference time
+    # (no running-stat updates needed — the standard fine-tuning recipe)
+    train_step = make_train_step(model.apply, train=False)
+    # a float32 model keeps cuDNN's convolutions off TF32, as JAX's float32
+    precision = (full_float32 if model.compute_dtype == torch.float32
+                 else contextlib.nullcontext)
+
+    def to_dev(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(args.device)
+
+    step = 0
+    with precision():
+        for pcm, labels in ds.batches(args.batch_size, epochs=args.epochs):
+            state, metrics = train_step(state, to_dev(pcm), to_dev(labels))
+            step += 1
+            if step % 10 == 1:
+                print(f"step {step}: loss={float(metrics['loss']):.4f} "
+                      f"grad_norm={float(metrics['grad_norm']):.3f}")
+        if val is not None and len(val):
+            m = evaluate(make_eval_step(model.apply), val,
+                         batch_size=min(args.batch_size, len(val)),
+                         device=args.device)
+            print(f"validation: accuracy={m['accuracy']:.3f} "
+                  f"loss={m['loss']:.4f} (n={m['n']})")
+    out = Path(args.output)
+    save_params(model, out)
+    (out / "labels.json").write_text(json.dumps(full.class_names))
+    print(f"trained {step} steps; checkpoint + labels written to {out}")
+    return 0
+
+
+def _cmd_model(args) -> int:
+    mgr = ModelManager()
+    if args.action == "list":
+        installed = {m["model_id"] for m in mgr.installed()}
+        print(f"{'model':<18} {'installed':<10} description")
+        for e in catalog_entries():
+            mark = "yes" if e.model_id in installed else "-"
+            print(f"{e.model_id:<18} {mark:<10} {e.description}")
+        return 0
+    if not args.model_id:
+        print("model id required", file=sys.stderr)
+        return 1
+    if args.action == "remove":
+        ok = mgr.remove(args.model_id)
+        print("removed" if ok else "not installed")
+        return 0 if ok else 1
+    # install
+    if args.from_file:
+        dest = mgr.install_from_file(args.model_id, args.from_file)
+        print(f"installed to {dest}")
+        return 0
+    entry = get_entry(args.model_id)
+    if entry is None:
+        print(f"unknown model {args.model_id}", file=sys.stderr)
+        return 1
+    try:
+        dest = mgr.install_from_url(entry)
+    except ValueError as e:
+        print(f"install failed: {e}", file=sys.stderr)
+        return 1
+    print(f"installed to {dest}")
     return 0
 
 

@@ -7,9 +7,11 @@ backbone → sigmoid, top-10) of BirdNET v2.4 at [256, 144000] and BirdNET
 v3.0 at [256, 160000], random weights from seed 0, and the served step of
 an imported graph (float32 PCM → the graph → sigmoid, top-10): the v2.4
 replica of ``diag/replicas.py`` at the batches 1 and 16 the smoke runs it
-at. Prints per model the step's wall time, the device time of its
-kernels, the device's idle share over the profiled steps, and the kernels
-that take the most device time.
+at. Then the training step as ``train`` runs it (full-width v2.4, bf16,
+three classes: float32 PCM → plain mel → backbone → loss, backward,
+AdamW) at batch 16 and 64. Prints per step the wall time, the device time
+of its kernels, the device's idle share over the profiled steps, and the
+kernels that take the most device time.
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ from birdnet_go_tpu_torch.models.birdnet_v24 import BirdNETv24
 from birdnet_go_tpu_torch.ops.postprocess import (
     sigmoid_confidence,
     top_k_results,
+)
+from birdnet_go_tpu_torch.train.trainer import (
+    init_train_state,
+    make_train_step,
 )
 
 
@@ -53,7 +59,7 @@ def profile(cls, clip: int, rate: int, steps: int, card: str) -> None:
     dev = torch.device("cuda", 0)
     model = cls().init(torch.Generator().manual_seed(0)).to(dev).eval()
     pcm = torch.from_numpy(_pcm((256, clip), rate)).to(dev)
-    _profile(lambda: model.apply_int16(pcm),
+    _profile(_served(lambda: model.apply_int16(pcm)),
              f"{model.spec.model_id} unfused bf16 [256, {clip}]", steps,
              card)
 
@@ -65,19 +71,39 @@ def profile_imported(batch: int, steps: int, card: str) -> None:
     buf = replicas.v24_tflite(np.random.default_rng(424), batch=batch)
     model = ImportedModel(load_tflite(buf), "BirdNET_V2.4").to(dev)
     pcm = torch.from_numpy(_pcm((batch, replicas.CLIP), 48000)).to(dev)
-    _profile(lambda: model.apply(pcm.float() / 32768.0),
+    _profile(_served(lambda: model.apply(pcm.float() / 32768.0)),
              f"imported v2.4 replica float32 [{batch}, {replicas.CLIP}]",
              steps, card)
 
 
-def _profile(apply, label: str, steps: int, card: str) -> None:
+def profile_train(batch: int, steps: int, card: str) -> None:
+    """The full-width v2.4 training step as ``train`` runs it (BN on its
+    stored statistics), three classes."""
+    dev = torch.device("cuda", 0)
+    model = BirdNETv24(num_species=3).init(
+        torch.Generator().manual_seed(0)).to(dev)
+    state = init_train_state(model, 1e-3)
+    train_step = make_train_step(model.apply, train=False)
+    pcm = torch.from_numpy(_pcm((batch, 144000), 48000)).to(dev) / 32768.0
+    labels = torch.eye(3, device=dev)[torch.arange(batch, device=dev) % 3]
+    _profile(lambda: train_step(state, pcm, labels),
+             f"train step v2.4 bf16 [{batch}, 144000] (forward, backward, "
+             f"AdamW)", steps, card, grad=True)
+
+
+def _served(apply):
     def step():
         logits = apply()["logits"]
         return top_k_results(sigmoid_confidence(logits, 1.0), 10)
 
+    return step
+
+
+def _profile(step, label: str, steps: int, card: str,
+             grad: bool = False) -> None:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.inference_mode():
+    with torch.enable_grad() if grad else torch.inference_mode():
         for _ in range(3):
             step()
         torch.cuda.synchronize()
@@ -87,8 +113,11 @@ def _profile(apply, label: str, steps: int, card: str) -> None:
                 step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+    # a user annotation on the device (``Optimizer.step#AdamW.step``)
+    # spans kernels that are counted on their own
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     n_kernels = sum(e.count for e in kernels)
     print(f"profile {label}, {steps} steps: "
@@ -116,6 +145,8 @@ def main() -> None:
     profile(BirdNETv3, 160000, 32000, args.steps, card)
     for batch in (1, 16):
         profile_imported(batch, args.steps, card)
+    for batch in (16, 64):
+        profile_train(batch, args.steps, card)
 
 
 if __name__ == "__main__":

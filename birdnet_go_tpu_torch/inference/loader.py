@@ -4,18 +4,20 @@
 Weight order of precedence, as in the JAX loader:
 1. an explicit checkpoint: a .tflite flatbuffer or a .onnx proto, imported
    through the port's readers (``tflite_import``, ``onnx_import``) and
-   served as an ``ImportedModel``;
+   served as an ``ImportedModel``; or a checkpoint directory of the port's
+   own format (``params.npz``, ``inference/checkpoint.py``, written by
+   ``train``), loaded strictly into the family;
 2. the installed model dir ``<model_home>/<model_id>``
    ($BIRDNET_TPU_MODELS, default ./data/models): its ``model.tflite``,
-   else its ``model.onnx``;
+   else its ``model.onnx``, else its ``params.npz``;
 3. deterministic random init (clearly warned: not field-accurate).
 
-The JAX loader also reads orbax checkpoints, given or installed. The port
-cannot: orbax's OCDBT layout is not readable without orbax and tensorstore,
-which the card's machine does not have. Where the JAX loader would read
-one, the port raises ``NotImplementedError`` rather than serve random
-weights in its place. A port model holds its own parameters, so the
-loaders return the module.
+Where the JAX loader reads orbax, the port reads ``params.npz``: orbax's
+OCDBT layout is not readable without orbax and tensorstore, which the
+card's machine does not have. A checkpoint or installed dir without any of
+these files raises ``NotImplementedError`` rather than serve random weights
+in its place. A port model holds its own parameters, so the loaders return
+the module.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from pathlib import Path
 import torch
 from torch import nn
 
+from birdnet_go_tpu_torch.inference.checkpoint import has_params, read_params
 from birdnet_go_tpu_torch.inference.onnx_import import OnnxGraph, load_onnx
 from birdnet_go_tpu_torch.inference.tflite_import import (
     TFLiteGraph,
@@ -149,22 +152,35 @@ class ImportedModel(nn.Module):
 
 def _no_orbax(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: the PyTorch port reads .tflite and .onnx artifacts, not "
-        f"orbax checkpoints (orbax's OCDBT layout needs orbax and "
-        f"tensorstore, which the card's machine lacks); checkpoints come "
-        f"with training and inference/checkpoint.py, ROADMAP queue 1 item 4")
+        f"{what}: the PyTorch port reads .tflite and .onnx artifacts and its "
+        f"own checkpoints (a directory holding params.npz, as train "
+        f"writes), not orbax checkpoints (orbax's OCDBT layout needs orbax "
+        f"and tensorstore, which the card's machine lacks)")
+
+
+def _from_checkpoint(model_id: str, path: Path, **kwargs) -> nn.Module:
+    """The family on the weights under `path`. Its head is as wide as the
+    checkpoint's, as the JAX loader, which restores the tree as saved,
+    serves logits of the checkpoint's width."""
+    state = read_params(path)
+    kwargs["num_species"] = state["backbone.classifier.w"].shape[0]
+    model = build_model(model_id, **kwargs)
+    model.load_state_dict(state, strict=True)
+    log.info("loaded %s weights from %s", model_id, path)
+    return model
 
 
 def load_model(model_id: str, checkpoint: str | None = None, seed: int = 0,
                **kwargs) -> nn.Module:
     """The model to serve, on the CPU: `checkpoint` may be a .tflite
-    flatbuffer or a .onnx proto (an ``ImportedModel``); else the installed
-    dir's ``model.tflite`` or ``model.onnx``; else the family with
-    deterministic random weights from `seed`.
+    flatbuffer or a .onnx proto (an ``ImportedModel``) or a directory
+    holding ``params.npz``; else the installed dir's ``model.tflite``,
+    ``model.onnx`` or ``params.npz``; else the family with deterministic
+    random weights from `seed`.
 
     Raises ``NotImplementedError`` where the JAX loader would read an
     orbax checkpoint: any other `checkpoint`, or a non-empty
-    ``model_home()/<id>`` without such an artifact.
+    ``model_home()/<id>`` without such a file.
     """
     if checkpoint and str(checkpoint).endswith(".tflite"):
         model = ImportedModel(load_tflite(checkpoint), model_id)
@@ -183,10 +199,14 @@ def load_model(model_id: str, checkpoint: str | None = None, seed: int = 0,
                 return load_model(model_id, checkpoint=str(artifact),
                                   seed=seed, **kwargs)
     if checkpoint:
+        if has_params(checkpoint):
+            return _from_checkpoint(model_id, Path(checkpoint), **kwargs)
         raise _no_orbax(f"checkpoint {checkpoint}")
     if installed is not None:
-        raise _no_orbax(f"installed model {installed} (no model.tflite or "
-                        f"model.onnx there)")
+        if has_params(installed):
+            return _from_checkpoint(model_id, installed, **kwargs)
+        raise _no_orbax(f"installed model {installed} (no model.tflite, "
+                        f"model.onnx or params.npz there)")
     model = build_model(model_id, **kwargs)
     log.warning(
         "no weights for %s (no checkpoint given, nothing installed under "
@@ -195,21 +215,34 @@ def load_model(model_id: str, checkpoint: str | None = None, seed: int = 0,
     return model.init(torch.Generator().manual_seed(seed))
 
 
-def geomodel_weights_installed() -> bool:
-    """True when ``model_home()/Geomodel`` holds trained weights, which the
-    JAX loader would serve rather than random init (whose scores are
-    plausible-looking nonsense — callers presenting range-filter output to
-    a user must surface that)."""
-    return _installed("Geomodel") is not None
+def geomodel_weights_installed(checkpoint: str | None = None) -> bool:
+    """True when load_geomodel would serve trained weights rather than
+    deterministic random init (whose scores are plausible-looking
+    nonsense — callers presenting range-filter output to a user must
+    surface that)."""
+    return bool(checkpoint) or _installed("Geomodel") is not None
 
 
-def load_geomodel(num_species: int = 6522, seed: int = 7) -> Geomodel:
-    """The Geomodel with deterministic random weights from `seed`; raises
-    ``NotImplementedError`` when ``model_home()/Geomodel`` is non-empty
-    (the JAX loader reads an orbax checkpoint there)."""
-    installed = _installed("Geomodel")
-    if installed is not None:
-        raise _no_orbax(f"installed model {installed}")
+def load_geomodel(checkpoint: str | None = None, num_species: int = 6522,
+                  seed: int = 7) -> Geomodel:
+    """The Geomodel on the weights of `checkpoint` (a directory holding
+    ``params.npz``), else of ``model_home()/Geomodel``, else deterministic
+    random weights from `seed`. The checkpoint's output width wins over
+    `num_species`, as the JAX loader's restored tree does. Raises
+    ``NotImplementedError`` for a checkpoint or a non-empty installed dir
+    without ``params.npz`` (the JAX loader reads orbax there)."""
+    path = Path(checkpoint) if checkpoint else _installed("Geomodel")
+    if path is not None:
+        if not has_params(path):
+            raise _no_orbax(f"checkpoint {checkpoint}" if checkpoint
+                            else f"installed model {path}")
+        state = read_params(path)
+        last = max(int(k.split(".")[1]) for k in state)
+        g = Geomodel(GeomodelConfig(
+            num_species=state[f"mlp.{last}.w"].shape[0]))
+        g.load_state_dict(state, strict=True)
+        log.info("loaded geomodel weights from %s", path)
+        return g
     log.warning("no geomodel weights — using deterministic random init")
     g = Geomodel(GeomodelConfig(num_species=num_species))
     return g.init(torch.Generator().manual_seed(seed))

@@ -45,12 +45,14 @@ class MelCnnModel(nn.Module):
         """float32 PCM [B, T] → mel features NHWC [B, frames, mels, 1]."""
         return melspec(pcm, self.mel)[..., None]
 
-    def apply(self, pcm: torch.Tensor) -> dict[str, torch.Tensor]:
+    def apply(self, pcm: torch.Tensor, train: bool = False
+              ) -> dict[str, torch.Tensor]:
         """float32 PCM [B, T] → {"logits", "embedding"} through the plain
         mel, as the JAX XLA path runs. `fused_blocks` reaches the backbone
-        here and in ``apply_int16``."""
+        here and in ``apply_int16``; `train` makes BN use the batch's
+        statistics (the training path)."""
         return self.backbone(self.features(pcm).to(self.compute_dtype),
-                             self.fused_blocks)
+                             self.fused_blocks, train)
 
     def _fused_ok(self) -> bool:
         """The mel config fits the fused kernel (n_fft 2048, hop % 128 == 0,

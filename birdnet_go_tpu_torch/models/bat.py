@@ -65,11 +65,12 @@ class BatClassifier(MelCnnModel):
         logits = self.head(emb, self.compute_dtype)
         return {"logits": logits.to(torch.float32), "embedding": emb}
 
-    def apply(self, pcm: torch.Tensor) -> dict[str, torch.Tensor]:
+    def apply(self, pcm: torch.Tensor, train: bool = False
+              ) -> dict[str, torch.Tensor]:
         """float32 PCM → logits of the regional head and the embedding,
         through the plain mel."""
         feats = self.features(pcm).to(self.compute_dtype)
-        emb = self.backbone(feats, self.fused_blocks)["embedding"]
+        emb = self.backbone(feats, self.fused_blocks, train)["embedding"]
         return self._heads(emb)
 
     def apply_int16(self, pcm_i16: torch.Tensor) -> dict[str, torch.Tensor]:

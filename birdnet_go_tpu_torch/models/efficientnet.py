@@ -7,7 +7,8 @@ JAX layout, NHWC [B, frames, mels, C]; the module runs NCHW inside.
 
 ``forward(x, fused_blocks=True)`` routes each block that
 ``fused_block_ok`` admits through the two fused kernels
-(``ops/pallas_mbconv.py``), as ``apply_efficientnet`` does.
+(``ops/pallas_mbconv.py``), as ``apply_efficientnet`` does; with
+``train=True`` BN takes the batch's statistics and no block is fused.
 """
 
 from __future__ import annotations
@@ -101,15 +102,15 @@ class EfficientNet(nn.Module):
         self.classifier.init(generator)
         return self
 
-    def forward(self, x: torch.Tensor, fused_blocks: bool = False
-                ) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, fused_blocks: bool = False,
+                train: bool = False) -> dict[str, torch.Tensor]:
         dt = self.compute_dtype
         h = x.permute(0, 3, 1, 2)              # NHWC → NCHW (channels_last)
-        h = L.swish(self.stem_bn(self.stem_conv(h, dt)))
+        h = L.swish(self.stem_bn(self.stem_conv(h, dt), train))
         channels_last = False
         for blk in self.blocks:
             if (fused_blocks and fused_block_ok(blk.dw.stride, h.shape[2],
-                                                h.shape[3], False)):
+                                                h.shape[3], train)):
                 if not channels_last:
                     # the kernels read [B, H·W, C], a view of channels_last
                     # memory; the convolutions of the unfused blocks keep
@@ -118,8 +119,8 @@ class EfficientNet(nn.Module):
                     channels_last = True
                 h = mbconv_fused(blk, h, kernel=blk.dw.k, compute_dtype=dt)
             else:
-                h = blk(h, dt)
-        h = L.swish(self.head_bn(self.head_conv(h, dt)))
+                h = blk(h, dt, train)
+        h = L.swish(self.head_bn(self.head_conv(h, dt), train))
         emb = h.mean(dim=(2, 3))               # global average pool
         logits = self.classifier(emb, dt)
         return {"logits": logits.to(torch.float32),

@@ -6,7 +6,12 @@ parameters under the JAX pytree's names, so
 ``inference.params.params_from_jax`` maps one onto the other key for key. Compute follows the JAX contract: inputs and weights are
 cast to `compute_dtype` (bf16 by default), products accumulate in float32,
 and convolution outputs are stored in `compute_dtype`. BatchNorm runs in
-its folded inference form, eps 1e-3. Serving only: there is no train mode.
+its folded form, eps 1e-3, on its stored statistics, or on the batch's with
+``train=True`` (``apply_bn(train=True)``).
+
+Parameters are made with ``requires_grad=False`` for serving;
+``train.trainer.init_train_state`` turns every one of them trainable, BN
+statistics included, as every leaf of the JAX tree is.
 """
 
 from __future__ import annotations
@@ -70,7 +75,12 @@ def depthwise(c: int, k: int, stride: int = 1) -> Conv:
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm, folded: y = x·k + b with k = scale/√(var+eps)."""
+    """BatchNorm, folded: y = x·k + b with k = scale/√(var+eps).
+
+    With `train` the mean and population variance are the batch's, over
+    every axis but channels and in the activation's dtype, as JAX's
+    ``jnp.mean``/``jnp.var`` give them; the stored statistics are then
+    unused (and get no gradient)."""
 
     def __init__(self, c: int, eps: float = 1e-3):
         super().__init__()
@@ -81,9 +91,14 @@ class BatchNorm(nn.Module):
         self.mean = _param(c)
         self.var = nn.Parameter(torch.ones(c), requires_grad=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = self.scale * torch.rsqrt(self.var + self.eps)
-        b = self.bias - self.mean * k
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        else:
+            mean, var = self.mean, self.var
+        # for a bf16 x, var + eps and its rsqrt stay bf16, as in JAX
+        k = self.scale * torch.rsqrt(var + self.eps)
+        b = self.bias - mean * k
         return (x * k.to(x.dtype)[:, None, None]
                 + b.to(x.dtype)[:, None, None])
 
@@ -162,14 +177,16 @@ class MBConv(nn.Module):
                 m.init(generator)
 
     def forward(self, x: torch.Tensor,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.bfloat16,
+                train: bool = False) -> torch.Tensor:
         h = x
         if self.expand_conv is not None:
-            h = swish(self.expand_bn(self.expand_conv(h, compute_dtype)))
-        h = swish(self.dw_bn(self.dw(h, compute_dtype)))
+            h = swish(self.expand_bn(self.expand_conv(h, compute_dtype),
+                                     train))
+        h = swish(self.dw_bn(self.dw(h, compute_dtype), train))
         if self.se is not None:
             h = self.se(h, compute_dtype)
-        h = self.project_bn(self.project_conv(h, compute_dtype))
+        h = self.project_bn(self.project_conv(h, compute_dtype), train)
         if self.residual:
             h = h + x.to(h.dtype)
         return h

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's realtime device step on one CUDA card: BirdNET
 v2.4 (EfficientNet-B0), and BirdNET v3.0 and Perch v2 (B1) through the fused
-MBConv kernels; then its offline analysis and CLI, and imported .tflite and
-.onnx artifacts.
+MBConv kernels; then its offline analysis and CLI, imported .tflite and
+.onnx artifacts, and custom-classifier training with the model gallery.
 
     python3 chip_smoke.py
 
@@ -77,7 +77,20 @@ Phases, in order; any failure propagates and exits non-zero:
    (``phase_loop``); then ``verify-artifact`` twice (recorded, match),
    ``verify-artifact --audit`` and ``analyze --checkpoint --batch-size 1``,
    each in a process of its own. None of the three kernels launches: an
-   imported graph runs its own front end as plain torch ops.
+   imported graph runs its own front end as plain torch ops;
+12. training, under ``build/train_smoke/``: ``python -m
+   birdnet_go_tpu_torch train`` at full v2.4 width (B0, bf16, batch 16) in
+   its own process on a directory of three tone classes over noise at
+   field level (one file at 44.1 kHz, resampled), whose loss must fall;
+   its checkpoint served by ``load_model(..., checkpoint=...)`` on the
+   card and held to held-out tones of each class; the full-width step
+   (forward, backward, AdamW) timed at batch 16 and 64 with its peak
+   memory; the float32 ``--tiny`` step on the card against the CPU from
+   the same weights; and ``model install --from-file`` of the v2.4
+   replica, ``model list`` and ``model remove`` in processes of their own,
+   with the JAX command's lines. None of the three kernels launches: the
+   training path takes float32 PCM through the plain mel and unfused
+   blocks, as in the JAX package.
 
 Every kernel line carries its bound (``ops/roofline.py``: the larger of its
 bytes over the memory rate and its operations over the peak for their type)
@@ -93,6 +106,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import functools
 import io
 import json
@@ -147,6 +161,7 @@ from birdnet_go_tpu_torch.models.bat import BatClassifier
 from birdnet_go_tpu_torch.models.birdnet_v3 import BirdNETv3
 from birdnet_go_tpu_torch.models.birdnet_v24 import BirdNETv24
 from birdnet_go_tpu_torch.models.bsg import BSGFinland
+from birdnet_go_tpu_torch.models.catalog import catalog_entries
 from birdnet_go_tpu_torch.models.geomodel import Geomodel
 from birdnet_go_tpu_torch.models.perch_v2 import PerchV2
 from birdnet_go_tpu_torch.ops import _build
@@ -171,6 +186,7 @@ from birdnet_go_tpu_torch.ops.pallas_melspec import (
     melspec_fused_work,
 )
 from birdnet_go_tpu_torch.ops.pcm import pcm16_to_float32
+from birdnet_go_tpu_torch.ops.precision import full_float32
 from birdnet_go_tpu_torch.ops.postprocess import (
     sigmoid_confidence,
     top_k_results,
@@ -188,6 +204,10 @@ from birdnet_go_tpu_torch.ops.ultrasonic import ultrasonic_frame_cv
 from birdnet_go_tpu_torch.ops.windows import slice_overlapped_windows
 from birdnet_go_tpu_torch.scheduler.loop import DeviceLoop, TorchModelBatcher
 from birdnet_go_tpu_torch.taxonomy.labels import load_labels
+from birdnet_go_tpu_torch.train.trainer import (
+    init_train_state,
+    make_train_step,
+)
 from birdnet_go_tpu_torch.utils.tracing import GLOBAL_SPANS
 
 REPO = Path(__file__).resolve().parent
@@ -1618,6 +1638,198 @@ def phase_imported(dev: torch.device, card: str) -> None:
     assert not any(launches.values()), launches
 
 
+# phase 12: three tone classes (Hz), each TRAIN_FILES files of
+# TRAIN_SECONDS (10 windows of 3 s); "low"'s first file is at 44.1 kHz
+TRAIN_FREQS = {"high": 6000.0, "low": 700.0, "mid": 2500.0}
+TRAIN_FILES = 6
+TRAIN_SECONDS = 30
+HELD_OUT = 8                 # held-out windows a class
+TRAIN_ACCURACY = 0.9         # the trained checkpoint on held-out windows
+TIMED_BATCHES = (16, 64)     # the full-width step, timed
+TINY_STEPS = 3
+# the float32 tiny step, card against CPU after TINY_STEPS: the largest
+# parameter difference over the largest parameter magnitude (predicted in
+# PERF.md before the first run)
+TINY_GAP = 1e-4
+_STEP = re.compile(r"^step (\d+): loss=([\d.]+) grad_norm=([\d.]+)$", re.M)
+_VALIDATION = re.compile(
+    r"^validation: accuracy=([\d.]+) loss=([\d.]+) \(n=(\d+)\)$", re.M)
+
+
+def tone_windows(n: int, seconds: float, rate: int, freq: float,
+                 seed: int) -> np.ndarray:
+    """float32 [n, seconds·rate]: a tone within 5% of `freq` at -26 dBFS
+    with a random phase over -40 dBFS white noise, one draw a row."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    f = freq * rng.uniform(0.95, 1.05, (n, 1))
+    x = 0.05 * np.sin(2 * np.pi * f * t + rng.uniform(0, 2 * np.pi, (n, 1)))
+    return (x + rng.standard_normal(x.shape) * 0.01).astype(np.float32)
+
+
+def _train_batch(batch: int, seed: int, dev) -> tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """A batch of the three classes' tones and one-hot labels on `dev`."""
+    names = sorted(TRAIN_FREQS)
+    labels = np.arange(batch) % len(names)
+    pcm = np.concatenate([tone_windows(1, 3.0, 48000,
+                                       TRAIN_FREQS[names[c]], seed + i)
+                          for i, c in enumerate(labels)])
+    return (torch.from_numpy(pcm).to(dev),
+            torch.from_numpy(np.eye(len(names), dtype=np.float32)[labels]
+                             ).to(dev))
+
+
+def _max_rel_gap(a: torch.nn.Module, b: torch.nn.Module) -> float:
+    sa = {k: v.detach().cpu() for k, v in a.state_dict().items()}
+    sb = b.state_dict()
+    gap = max(float((sa[k] - sb[k]).abs().max()) for k in sb)
+    return gap / max(float(v.abs().max()) for v in sb.values())
+
+
+def phase_train(dev: torch.device, card: str) -> None:
+    """Training and the model gallery on the card (see the module
+    docstring, phase 12). None of the three kernels launches."""
+    root = REPO / "build" / "train_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    for k in KERNELS:
+        k.launches = 0
+    names = sorted(TRAIN_FREQS)
+    seed = SEED + 30
+    for name in names:
+        (root / "ds" / name).mkdir(parents=True)
+        for i in range(TRAIN_FILES):
+            rate = 44100 if (name, i) == ("low", 0) else 48000
+            x = tone_windows(1, TRAIN_SECONDS, rate, TRAIN_FREQS[name], seed)
+            write_pcm16(root / "ds" / name / f"{i}.wav",
+                        np.clip(x.T * 32767, -32768, 32767).astype(np.int16),
+                        rate)
+            seed += 1
+
+    # train at full width in a process of its own
+    ckpt = root / "ckpt"
+    t0 = time.monotonic()
+    out = _run_cli(["train", str(root / "ds"), "--output", str(ckpt),
+                    "--batch-size", "16"])
+    proc_s = time.monotonic() - t0
+    per_class = TRAIN_FILES * TRAIN_SECONDS // 3
+    n_val = len(names) * max(1, round(per_class * 0.1))
+    n_train = len(names) * per_class - n_val
+    lines = out.splitlines()
+    assert lines[0] == (f"dataset: {n_train} train / {n_val} val windows, "
+                        f"{len(names)} classes: {names}"), out
+    steps = [(int(m[0]), float(m[1]), float(m[2]))
+             for m in _STEP.findall(out)]
+    n_steps = n_train // 16 * 10
+    assert [s[0] for s in steps] == list(range(1, n_steps + 1, 10)), out
+    val_acc, val_loss, val_n = _VALIDATION.search(out).groups()
+    assert lines[-1] == (f"trained {n_steps} steps; checkpoint + labels "
+                         f"written to {ckpt}"), out
+    assert json.loads((ckpt / "labels.json").read_text()) == names
+    print(f"train, full-width v2.4 (B0, bf16, 3 classes), its own process: "
+          f"{n_train} windows (one file resampled from 44.1 kHz), "
+          f"{n_steps} steps of batch 16; loss {steps[0][1]:.4f} at step 1 → "
+          f"{steps[-1][1]:.4f} at step {steps[-1][0]} (grad norm "
+          f"{steps[0][2]:.3f} → {steps[-1][2]:.3f}); validation accuracy "
+          f"{val_acc} loss {val_loss} (n={val_n}); process "
+          f"{proc_s:.2f} s [{card}]")
+    assert steps[-1][1] < steps[0][1], "train: the loss did not fall"
+
+    # the checkpoint served on the card, on held-out tones
+    model = load_model("BirdNET_V2.4", checkpoint=str(ckpt)).to(dev)
+    assert isinstance(model, BirdNETv24) and model.num_species == 3
+    held = np.concatenate([tone_windows(HELD_OUT, 3.0, 48000,
+                                        TRAIN_FREQS[n], SEED + 90 + c)
+                           for c, n in enumerate(names)])
+    want = np.repeat(np.arange(len(names)), HELD_OUT)
+    with torch.inference_mode():
+        logits = model.apply(torch.from_numpy(held).to(dev))["logits"]
+    assert torch.isfinite(logits).all()
+    acc = float((logits.argmax(-1).cpu().numpy() == want).mean())
+    print(f"trained checkpoint served by load_model on the card: held-out "
+          f"accuracy {acc:.3f} over {len(want)} windows (>= "
+          f"{TRAIN_ACCURACY}) [{card}]")
+    assert acc >= TRAIN_ACCURACY, "train: held-out accuracy"
+    del model
+
+    # the full-width step (forward, backward, AdamW), timed
+    for batch in TIMED_BATCHES:
+        # what earlier phases left allocated, apart from the step's peak
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        model = BirdNETv24(num_species=len(names)).init(
+            torch.Generator().manual_seed(SEED)).to(dev)
+        state = init_train_state(model, 1e-3)
+        step = make_train_step(model.apply, train=False)
+        pcm, labels = _train_batch(batch, SEED + 40, dev)
+        for _ in range(3):
+            step(state, pcm, labels)
+        ms = [event_ms(lambda: step(state, pcm, labels))
+              for _ in range(REPS)]
+        _, metrics = step(state, pcm, labels)
+        assert np.isfinite(float(metrics["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        med = float(np.median(ms))
+        print(f"train step, full-width v2.4 bf16 [{batch}, {CLIP}] (forward, "
+              f"backward, AdamW): {med:.4f} ms [{min(ms):.4f}, "
+              f"{max(ms):.4f}] (median [min, max] of {REPS}, CUDA events), "
+              f"{batch / med * 1e3:.1f} windows/s trained, peak memory "
+              f"{peak / 2**30:.3f} GiB (max_memory_allocated), "
+              f"{(peak - held) / 2**30:.3f} GiB above the "
+              f"{held / 2**30:.3f} GiB held before the model [{card}]")
+        del model, state, step, pcm, labels, metrics
+
+    # the float32 tiny step, card against CPU, from the same weights
+    cpu = cli._tiny_v24(3).init(torch.Generator().manual_seed(SEED))
+    on_card = copy.deepcopy(cpu).to(dev)
+    states = [init_train_state(m, 3e-3) for m in (cpu, on_card)]
+    stepfns = [make_train_step(m.apply, train=False) for m in (cpu, on_card)]
+    loss_gap = 0.0
+    with full_float32():
+        for i in range(TINY_STEPS):
+            pcm, labels = _train_batch(4, SEED + 50 + 4 * i, "cpu")
+            _, mc = stepfns[0](states[0], pcm, labels)
+            _, mk = stepfns[1](states[1], pcm.to(dev), labels.to(dev))
+            loss_gap = max(loss_gap, abs(float(mk["loss"]) -
+                                         float(mc["loss"])) /
+                           float(mc["loss"]))
+    gap = _max_rel_gap(on_card, cpu)
+    print(f"train --tiny float32 step, card against CPU over {TINY_STEPS} "
+          f"steps from the same weights, TF32 off: parameters max rel gap "
+          f"{gap:.3e} (<= {TINY_GAP:g}), loss max rel gap {loss_gap:.3e} "
+          f"[{card}]")
+    assert gap <= TINY_GAP, "train: the tiny step on the card vs the CPU"
+
+    # the model gallery, each command in its own process
+    replica = root / "v24.tflite"
+    replica.write_bytes(replicas.v24_tflite(np.random.default_rng(424)))
+    home = root / "models"
+    env = dict(os.environ, BIRDNET_TPU_MODELS=str(home))
+    dest = home / "BirdNET_V2.4" / "model.tflite"
+    out = _run_cli(["model", "install", "BirdNET_V2.4", "--from-file",
+                    str(replica)], env)
+    assert out == f"installed to {dest}\n", out
+    assert dest.read_bytes() == replica.read_bytes()
+    staged = len(list((home / "BirdNET_V2.4" / "labels").glob("*.txt")))
+    listing = _run_cli(["model", "list"], env).splitlines()
+    assert listing == [f"{'model':<18} {'installed':<10} description"] + [
+        f"{e.model_id:<18} "
+        f"{'yes' if e.model_id == 'BirdNET_V2.4' else '-':<10} "
+        f"{e.description}" for e in catalog_entries()], listing
+    assert _run_cli(["model", "remove", "BirdNET_V2.4"], env) == \
+        "removed\n"
+    assert not (home / "BirdNET_V2.4").exists()
+    print(f"model gallery, each command its own process: install "
+          f"--from-file of the v2.4 replica ({replica.stat().st_size} bytes, "
+          f"{staged} label files staged), list ({len(listing) - 1} entries, "
+          f"BirdNET_V2.4 installed), remove: the JAX command's lines")
+
+    launches = {k.__name__: k.launches for k in KERNELS}
+    print(f"training: kernel launches {launches} (none expected)")
+    assert not any(launches.values()), launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1657,6 +1869,7 @@ def main() -> None:
     del v24
     phase_offline(dev, card)
     phase_imported(dev, card)
+    phase_train(dev, card)
     print(f"total {time.monotonic() - t0:.1f} s")
     print(f"kernels line: melspec_fused at the v2.4 main path's [{BATCH}, "
           f"{CLIP}] bf16; expand_dw_pool and scale_project summed over the "

@@ -9,8 +9,10 @@ run on the CPU without ``--device cpu`` where there is no card; the
 loader, which serves .tflite and .onnx artifacts (given or installed) as
 the JAX loader does, seeded weights where there are none, and raises where
 the JAX loader would read an orbax checkpoint; ``TorchModelBatcher``
-serving an imported model; and ``verify-artifact`` against the JAX
-command.
+serving an imported model; ``verify-artifact`` against the JAX command;
+``train --tiny`` against the JAX command on the same initial weights, and
+on its own; and the model gallery (``ModelManager`` and ``model
+list|install|remove``) against the JAX package's.
 """
 
 import dataclasses
@@ -190,7 +192,8 @@ def test_rangefilter_needs_a_location(capsys):
 @pytest.mark.parametrize("command", [["analyze", "x.wav"], ["benchmark"],
                                      ["rangefilter", "--latitude", "1",
                                       "--longitude", "2"],
-                                     ["verify-artifact", "--audit"]])
+                                     ["verify-artifact", "--audit"],
+                                     ["train", "dataset"]])
 def test_refuses_the_cpu_without_device_cpu(command, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(tcli, "load_model", None)      # never reached
@@ -355,11 +358,11 @@ def test_loader_serves_artifacts_as_jax(kind, where, monkeypatch, tmp_path,
 def test_loader_raises_where_jax_would_load_weights(case, monkeypatch,
                                                     tmp_path):
     """Where the JAX loader reads an orbax checkpoint (given, or installed
-    without a .tflite/.onnx beside it) the port raises rather than serve
-    random weights; the CLI does not catch it."""
+    without a .tflite/.onnx or the port's params.npz beside it) the port
+    raises rather than serve random weights; the CLI does not catch it."""
     monkeypatch.setenv("BIRDNET_TPU_MODELS", str(tmp_path))
     if case == "orbax_checkpoint":
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        with pytest.raises(NotImplementedError, match="params.npz"):
             tloader.load_model("BirdNET_V2.4", checkpoint="ckpt/")
         with pytest.raises(NotImplementedError, match="not orbax"):
             tcli.main(["analyze", "x.wav", "--device", "cpu",
@@ -368,7 +371,8 @@ def test_loader_raises_where_jax_would_load_weights(case, monkeypatch,
         (tmp_path / "BirdNET_V2.4").mkdir()
         (tmp_path / "BirdNET_V2.4" / "params").write_bytes(b"x")
         with pytest.raises(NotImplementedError,
-                           match="no model.tflite or model.onnx there"):
+                           match="no model.tflite, model.onnx or params.npz "
+                                 "there"):
             tloader.load_model("BirdNET_V2.4")
     else:
         assert not tloader.geomodel_weights_installed()
@@ -506,3 +510,337 @@ def test_verify_artifact_wav_leg_writes_the_jax_table(tmp_path, capsys):
     (jt,), (tt,) = ((tmp_path / g).glob("*.raven.txt")
                     for g in ("jgold", "tgold"))
     assert tt.read_text() == jt.read_text()
+
+
+# -- train ---------------------------------------------------------------------
+
+def _tone_dataset(root: Path, seed: int = 0) -> Path:
+    """The JAX CLI test's dataset: two tone classes over a 0.01 noise
+    floor, 2 files of 12 s (4 windows) each."""
+    rng = np.random.default_rng(seed)
+    for cls, freq in (("lowtone", 500.0), ("hightone", 6000.0)):
+        d = root / cls
+        d.mkdir(parents=True)
+        for i in range(2):
+            t = np.arange(48000 * 12) / 48000.0
+            x = 0.4 * np.sin(2 * np.pi * freq * t) \
+                + 0.01 * rng.standard_normal(len(t))
+            write_wav(d / f"{i}.wav", x.astype(np.float32), 48000)
+    return root
+
+
+TRAIN_ARGS = ["--epochs", "15", "--batch-size", "4", "--tiny",
+              "--learning-rate", "3e-3"]
+STEP = re.compile(r"^step (\d+): loss=([\d.]+) grad_norm=([\d.]+)$")
+VALIDATION = re.compile(r"^validation: accuracy=([\d.]+) loss=([\d.]+) "
+                        r"\(n=(\d+)\)$")
+
+
+def _train_lines(out: str) -> dict:
+    lines = out.splitlines()
+    steps = [STEP.match(ln) for ln in lines if ln.startswith("step ")]
+    (val,) = [VALIDATION.match(ln) for ln in lines
+              if ln.startswith("validation")]
+    return {"dataset": lines[0],
+            "steps": [(int(m[1]), float(m[2]), float(m[3])) for m in steps],
+            "validation": (float(val[1]), float(val[2]), int(val[3])),
+            "last": lines[-1]}
+
+
+def test_train_cli_matches_jax_cli(tmp_path, monkeypatch, capsys):
+    """Both ``train --tiny`` commands on one dataset, the port's model
+    carrying the JAX command's initial weights (``PRNGKey(0)``): the same
+    lines, losses and grad norms within their printed rounding."""
+    ds = _tone_dataset(tmp_path / "ds")
+    from birdnet_go_tpu.models.birdnet_v24 import BirdNETv24 as JBirdNETv24
+    from birdnet_go_tpu.models.efficientnet import BlockSpec as JBlock
+    from birdnet_go_tpu.models.efficientnet import EfficientNetConfig as JNet
+    from birdnet_go_tpu.ops.melspec import MelConfig as JMel
+
+    ref = JBirdNETv24(num_species=2, mel=JMel(sample_rate=48000, n_fft=512,
+                                              hop=4096, n_mels=32),
+                      compute_dtype=jax.numpy.float32)
+    ref.net = JNet(blocks=(JBlock(1, 8, 3, 2, 1), JBlock(4, 16, 3, 2, 1)),
+                   embedding_dim=32, num_classes=2)
+    carried = tcli._tiny_v24(2)
+    load_jax_params(carried.backbone,
+                    _np_tree(ref.init(jax.random.PRNGKey(0))))
+    carried.init = lambda generator=None: carried
+    monkeypatch.setattr(tcli, "_tiny_v24", lambda n: carried)
+
+    assert jcli.main(["train", str(ds), "--output", str(tmp_path / "j"),
+                      *TRAIN_ARGS]) == 0
+    want = _train_lines(capsys.readouterr().out)
+    assert tcli.main(["train", str(ds), "--output", str(tmp_path / "t"),
+                      "--device", "cpu", *TRAIN_ARGS]) == 0
+    got = _train_lines(capsys.readouterr().out)
+    assert got["dataset"] == want["dataset"] == (
+        "dataset: 14 train / 2 val windows, 2 classes: "
+        "['hightone', 'lowtone']")
+    assert [s[0] for s in got["steps"]] == [s[0] for s in want["steps"]] \
+        == [1, 11, 21, 31, 41]
+    for (_, gl, gn), (_, wl, wn) in zip(got["steps"], want["steps"]):
+        assert abs(gl - wl) <= 1.5e-4 and abs(gn - wn) <= 1.5e-3
+    assert got["validation"][0] == want["validation"][0]
+    assert abs(got["validation"][1] - want["validation"][1]) <= 1.5e-4
+    assert got["validation"][2] == want["validation"][2] == 2
+    for side, d in (("t", got), ("j", want)):
+        assert d["last"] == (f"trained 45 steps; checkpoint + labels "
+                             f"written to {tmp_path / side}")
+    assert (tmp_path / "t" / "labels.json").read_text() == \
+        (tmp_path / "j" / "labels.json").read_text()
+
+
+def test_train_cli_end_to_end(tmp_path, capsys):
+    """``test_train_cli_end_to_end`` of the JAX package through the port
+    on its own initial weights: the checkpoint it writes separates the
+    two tones."""
+    rng = np.random.default_rng(0)
+    ds = _tone_dataset(tmp_path / "ds")
+    out = tmp_path / "ckpt"
+    rc = tcli.main(["train", str(ds), "--output", str(out), "--device",
+                    "cpu", *TRAIN_ARGS])
+    assert rc == 0
+    lines = _train_lines(capsys.readouterr().out)
+    assert lines["steps"][-1][1] < lines["steps"][0][1]
+    assert json.loads((out / "labels.json").read_text()) == \
+        ["hightone", "lowtone"]
+    assert sorted(p.name for p in out.iterdir()) == ["labels.json",
+                                                     "params.npz"]
+
+    from birdnet_go_tpu_torch.inference.checkpoint import load_params
+
+    model = load_params(out, like=tcli._tiny_v24(2))
+    t = np.arange(48000 * 3) / 48000.0
+    # same distribution as training: tone + the 0.01 noise floor
+    noise = 0.01 * rng.standard_normal(len(t))
+    low = 0.4 * np.sin(2 * np.pi * 500.0 * t) + noise
+    high = 0.4 * np.sin(2 * np.pi * 6000.0 * t) + noise
+    with torch.inference_mode():
+        logits = model.apply(torch.from_numpy(
+            np.stack([low, high]).astype(np.float32)))["logits"].numpy()
+    # class order: ["hightone", "lowtone"]
+    assert logits[0, 1] > logits[0, 0]      # low tone → "lowtone"
+    assert logits[1, 0] > logits[1, 1]      # high tone → "hightone"
+
+
+# -- model gallery -------------------------------------------------------------
+
+def test_catalog_equals_jax():
+    from birdnet_go_tpu.models import catalog as jcatalog
+    from birdnet_go_tpu_torch.models import catalog as tcatalog
+
+    assert [dataclasses.asdict(e) for e in tcatalog.catalog_entries()] == \
+        [dataclasses.asdict(e) for e in jcatalog.catalog_entries()]
+    ids = {e.model_id for e in tcatalog.catalog_entries()}
+    assert {"BirdNET_V2.4", "Perch_V2", "BattyBirdNET"} <= ids
+    assert tcatalog.get_entry("BirdNET_V2.4").file_name == "model.tflite"
+    assert tcatalog.get_entry("nope") is None
+
+
+def _toy_tflite(path: Path) -> Path:
+    """The JAX gallery test's artifact: [1, 8] → dense of ones → 3."""
+    from birdnet_go_tpu.inference.tflite_import import Op
+    from tests.tflite_builder import ModelBuilder, fully_connected_options
+
+    mb = ModelBuilder()
+    x_t = mb.add_tensor([1, 8], "in")
+    w_t = mb.add_tensor([3, 8], "w", np.ones((3, 8), np.float32))
+    y_t = mb.add_tensor([1, 3], "out")
+    mb.add_op(Op.FULLY_CONNECTED, [x_t, w_t, -1], [y_t],
+              lambda b: fully_connected_options(b))
+    mb.inputs, mb.outputs = [x_t], [y_t]
+    path.write_bytes(mb.finish())
+    return path
+
+
+def test_manager_install_from_file_and_loader(tmp_path, monkeypatch):
+    from birdnet_go_tpu_torch.models.catalog import ModelManager
+
+    artifact = _toy_tflite(tmp_path / "toy.tflite")
+    home = tmp_path / "models"
+    mgr = ModelManager(home=home)
+    dest = mgr.install_from_file("Toy_X", artifact)
+    assert dest == home / "Toy_X" / "model.tflite"
+    assert mgr.is_installed("Toy_X")
+    inv = mgr.installed()
+    assert inv[0]["model_id"] == "Toy_X" and inv[0]["bytes"] > 0
+    monkeypatch.setenv("BIRDNET_TPU_MODELS", str(home))
+    model = tloader.load_model("Toy_X")           # the installed artifact
+    assert isinstance(model, tloader.ImportedModel)
+    with torch.inference_mode():
+        out = model.apply(torch.ones((1, 8)))
+    np.testing.assert_allclose(out["logits"].numpy(), [[8.0, 8.0, 8.0]],
+                               rtol=1e-5)
+    assert mgr.remove("Toy_X")
+    assert not mgr.is_installed("Toy_X")
+    assert not mgr.remove("Toy_X")
+
+
+def test_manager_refuses_unpinned_download(tmp_path):
+    from birdnet_go_tpu_torch.models.catalog import CatalogEntry, ModelManager
+
+    mgr = ModelManager(home=tmp_path)
+    with pytest.raises(ValueError, match="unpinned"):
+        mgr.install_from_url(CatalogEntry(
+            model_id="X", display_name="X", description="",
+            url="http://example/x.onnx", sha256="", file_name="model.onnx"))
+    with pytest.raises(ValueError, match="no artifact URL"):
+        mgr.install_from_url(CatalogEntry(
+            model_id="X", display_name="X", description="", url="",
+            sha256="0" * 64, file_name="model.onnx"))
+    assert not (tmp_path / "X").exists()
+
+
+class _Resp:
+    def __init__(self, payload):
+        self.payload = payload
+        self.headers = {"Content-Length": str(len(payload))}
+
+    def raise_for_status(self):
+        pass
+
+    def iter_bytes(self, n):
+        for i in range(0, len(self.payload), n):
+            yield self.payload[i:i + n]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        pass
+
+
+class _Session:
+    """An httpx-like session serving one payload; no network."""
+
+    def __init__(self, payload):
+        self.payload = payload
+        self.urls = []
+
+    def stream(self, method, url):
+        self.urls.append((method, url))
+        return _Resp(self.payload)
+
+
+def test_manager_verifies_sha256(tmp_path):
+    import hashlib
+
+    from birdnet_go_tpu_torch.models.catalog import CatalogEntry, ModelManager
+
+    payload = b"fake model bytes"
+    good = hashlib.sha256(payload).hexdigest()
+    session = _Session(payload)
+    mgr = ModelManager(home=tmp_path, session=session)
+    seen = []
+    entry = CatalogEntry(model_id="Y", display_name="Y", description="",
+                         url="http://example/y.onnx", sha256=good,
+                         file_name="model.onnx")
+    dest = mgr.install_from_url(entry, progress=lambda g, t: seen.append(
+        (g, t)))
+    assert dest == tmp_path / "Y" / "model.onnx"
+    assert dest.read_bytes() == payload
+    assert session.urls == [("GET", "http://example/y.onnx")]
+    assert seen == [(len(payload), len(payload))]
+    assert not list(tmp_path.glob("Y/*.tmp"))
+    bad = dict(model_id="Z", display_name="Z", description="",
+               url="http://example/z.onnx", sha256="0" * 64,
+               file_name="model.onnx")
+    with pytest.raises(ValueError, match="sha256 mismatch"):
+        mgr.install_from_url(CatalogEntry(**bad))
+    assert not (tmp_path / "Z" / "model.onnx").exists()
+
+
+def test_manager_downloads_through_urllib_without_a_session(tmp_path,
+                                                            monkeypatch):
+    """Without a session the download goes through ``urllib.request``
+    (stubbed here: no test reaches the network), in 1 MiB reads."""
+    import hashlib
+    import io
+    import urllib.request
+
+    from birdnet_go_tpu_torch.models import catalog as tcatalog
+
+    payload = bytes(range(256)) * 5000              # 1.28 MB, two reads
+    calls = []
+
+    class _Urlopen(io.BytesIO):
+        headers = {"Content-Length": str(len(payload))}
+
+        def __init__(self, req, timeout):
+            calls.append((req.full_url, req.get_method(), timeout))
+            super().__init__(payload)
+
+    monkeypatch.setattr(urllib.request, "urlopen", _Urlopen)
+    entry = tcatalog.CatalogEntry(
+        model_id="W", display_name="W", description="",
+        url="https://example/w.tflite",
+        sha256=hashlib.sha256(payload).hexdigest(), file_name="model.tflite")
+    seen = []
+    dest = tcatalog.ModelManager(home=tmp_path).install_from_url(
+        entry, progress=lambda g, t: seen.append(g))
+    assert dest.read_bytes() == payload
+    assert calls == [("https://example/w.tflite", "GET", 120.0)]
+    assert seen == [1 << 20, len(payload)]
+
+
+def test_model_install_stages_labels_beside_weights(tmp_path, monkeypatch):
+    from birdnet_go_tpu_torch.models.catalog import ModelManager
+    from birdnet_go_tpu_torch.taxonomy import labels as labels_mod
+
+    art = tmp_path / "model.tflite"
+    art.write_bytes(b"\x00" * 64)
+    mgr = ModelManager(home=tmp_path / "home")
+    mgr.install_from_file("BirdNET_V2.4", art)
+    staged = tmp_path / "home" / "BirdNET_V2.4" / "labels"
+    assert len(list(staged.glob("*.txt"))) == 42
+    # host with NO data dir at all: only the staged copies resolve
+    monkeypatch.delenv("BIRDNET_TPU_DATA", raising=False)
+    monkeypatch.setattr(labels_mod, "_DEFAULT_DATA_DIRS", ())
+    monkeypatch.setenv("BIRDNET_TPU_MODELS", str(tmp_path / "home"))
+    ls = labels_mod.load_labels(model_id="BirdNET_V2.4", locale="de")
+    assert len(ls.species) == 6522
+    assert "Synthetica" not in ls.species[0].scientific
+    assert mgr.install_from_file("Toy_Z", art).parent == \
+        tmp_path / "home" / "Toy_Z"
+    assert not (tmp_path / "home" / "Toy_Z" / "labels").exists()
+
+
+_LOG_RECORD = re.compile(r"^\d{4}-\d\d-\d\d ")
+
+
+def _model_cli(main, argv, home, monkeypatch, capsys):
+    """One ``model`` command on `home`: (exit code, stdout, stderr lines
+    that are not log records), the home's path written as <home>."""
+    monkeypatch.setenv("BIRDNET_TPU_MODELS", str(home))
+    rc = main(["model", *argv])
+    out = capsys.readouterr()
+    err = [ln for ln in out.err.splitlines() if not _LOG_RECORD.match(ln)]
+    return (rc, out.out.replace(str(home), "<home>"),
+            [ln.replace(str(home), "<home>") for ln in err])
+
+
+def test_model_cli_matches_jax(tmp_path, monkeypatch, capsys):
+    """``model list|install|remove`` of both CLIs, each on a model home of
+    its own, step by step: the same output lines, errors, exit codes and
+    installed files. The port's ``model`` needs no card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    artifact = _toy_tflite(tmp_path / "toy.tflite")
+    steps = [["list"], ["install"], ["remove"],
+             ["install", "Toy_X", "--from-file", str(artifact)],
+             ["list"], ["install", "Nope"], ["install", "BirdNET_V2.4"],
+             ["install", "BirdNET_V2.4", "--from-file", str(artifact)],
+             ["list"], ["remove", "Toy_X"], ["remove", "Toy_X"],
+             ["remove", "BirdNET_V2.4"], ["list"]]
+    homes = {"t": tmp_path / "t", "j": tmp_path / "j"}
+
+    def tree(home):
+        return sorted(str(p.relative_to(home)) for p in home.rglob("*"))
+
+    for argv in steps:
+        got = _model_cli(tcli.main, argv, homes["t"], monkeypatch, capsys)
+        want = _model_cli(jcli.main, argv, homes["j"], monkeypatch, capsys)
+        assert got == want, argv
+        assert tree(homes["t"]) == tree(homes["j"]), argv
+    assert want[0] == 0 and want[1].splitlines()[0].split() == [
+        "model", "installed", "description"]

@@ -3,7 +3,9 @@ their plain versions, the wrappers' checks, the torch batcher's CUDA
 events, the offline path's resampling and analyzer against the CPU, and an
 imported graph (the v2.4 replica of ``diag/replicas.py``) on the card:
 float32 under TF32 defaults, its constants read where they lie, and
-through ``TorchClassifier``.
+through ``TorchClassifier``; and the training step: ``train --tiny``'s
+float32 step on the card against the CPU, and no kernel launched by a
+train step.
 
 Every test needs a CUDA card and skips without one. The file imports no
 JAX, so it also runs where JAX is missing:
@@ -608,3 +610,68 @@ def test_imported_model_through_classifier_on_card(dev):
     np.testing.assert_allclose(vg, vc, rtol=0, atol=1e-5)
     apart = np.abs(np.diff(vc, axis=1)) > 1e-5
     np.testing.assert_array_equal(ig[:, :-1][apart], ic[:, :-1][apart])
+
+
+# -- training ------------------------------------------------------------------
+
+def _tone_batch(n, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(144000) / 48000.0
+    cls = np.arange(n) % 3
+    f = np.asarray([700.0, 2500.0, 6000.0])[cls][:, None]
+    pcm = (0.05 * np.sin(2 * np.pi * f * t)
+           + 0.01 * rng.standard_normal((n, 144000))).astype(np.float32)
+    return torch.from_numpy(pcm), torch.from_numpy(
+        np.eye(3, dtype=np.float32)[cls])
+
+
+def test_tiny_float32_train_step_on_card_matches_cpu(dev):
+    """``train --tiny``'s float32 model, three AdamW steps from the same
+    weights on the card and the CPU under ``full_float32``: losses within
+    1e-5, parameters within 1e-4 of the largest magnitude."""
+    from birdnet_go_tpu_torch.cli.main import _tiny_v24
+    from birdnet_go_tpu_torch.ops.precision import full_float32
+    from birdnet_go_tpu_torch.train.trainer import (
+        init_train_state,
+        make_train_step,
+    )
+
+    cpu = _tiny_v24(3).init(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(dev)
+    states = [init_train_state(m, 3e-3) for m in (cpu, card)]
+    steps = [make_train_step(m.apply, train=False) for m in (cpu, card)]
+    with full_float32():
+        for i in range(3):
+            pcm, labels = _tone_batch(4, i)
+            _, mc = steps[0](states[0], pcm, labels)
+            _, mk = steps[1](states[1], pcm.to(dev), labels.to(dev))
+            np.testing.assert_allclose(float(mk["loss"]), float(mc["loss"]),
+                                       rtol=1e-5)
+    want = cpu.state_dict()
+    scale = max(float(v.abs().max()) for v in want.values())
+    for k, v in card.state_dict().items():
+        np.testing.assert_allclose(v.cpu().numpy(), want[k].numpy(), rtol=0,
+                                   atol=1e-4 * scale, err_msg=k)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_train_step_launches_no_kernel(dev, train):
+    """A train step takes float32 PCM through the plain mel and unfused
+    blocks (with batch statistics the fused gate refuses even a model
+    that asks for fused blocks): none of the three kernels launches."""
+    from birdnet_go_tpu_torch.train.trainer import (
+        init_train_state,
+        make_train_step,
+    )
+
+    model = _narrow_model(n_classes=3).to(dev)
+    model.fused_blocks = train
+    state = init_train_state(model, 1e-3)
+    step = make_train_step(model.apply, train=train)
+    kernels = (melspec_fused, M.expand_dw_pool, M.scale_project)
+    for k in kernels:
+        k.launches = 0
+    pcm, labels = _tone_batch(4, 0)
+    _, m = step(state, pcm[:, :48000].to(dev), labels.to(dev))
+    assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    assert [k.launches for k in kernels] == [0, 0, 0]

@@ -367,9 +367,9 @@ def _port_modules() -> list[str]:
 
 
 # the JAX package and what the card's machine lacks: JAX, and the yaml,
-# aiohttp, orbax and optax the JAX host modules import
+# aiohttp, orbax, optax and httpx the JAX host modules import
 _BLOCKED = ("jax", "jaxlib", "birdnet_go_tpu", "yaml", "aiohttp", "orbax",
-            "optax")
+            "optax", "httpx")
 
 _GUARDED_IMPORT = """
 import importlib, sys
@@ -402,7 +402,12 @@ def test_port_imports_with_jax_and_jax_package_blocked():
             "birdnet_go_tpu_torch.inference.opaudit",
             "birdnet_go_tpu_torch.inference.verify_artifact",
             "birdnet_go_tpu_torch.diag.replicas",
-            "birdnet_go_tpu_torch.taxonomy.labels"} <= set(mods)
+            "birdnet_go_tpu_torch.taxonomy.labels",
+            "birdnet_go_tpu_torch.train",
+            "birdnet_go_tpu_torch.train.dataset",
+            "birdnet_go_tpu_torch.train.trainer",
+            "birdnet_go_tpu_torch.inference.checkpoint",
+            "birdnet_go_tpu_torch.models.catalog"} <= set(mods)
     res = subprocess.run([sys.executable, "-c",
                           _GUARDED_IMPORT % (_BLOCKED, mods)],
                          cwd=REPO, capture_output=True, text=True,

@@ -215,6 +215,20 @@ def load_model(model_id: str, checkpoint: str | None = None, seed: int = 0,
     return model.init(torch.Generator().manual_seed(seed))
 
 
+def apply_serving_options(model, realtime) -> None:
+    """Apply config-driven serving options to a freshly loaded model.
+
+    `realtime.act_int8` (read by duck typing: the JAX package's
+    ``RealtimeSettings`` or any object with the attribute) turns on the
+    int8 activation boundary of the mel-CNN families
+    (``MelCnnModel.act_int8``). Models without the knob, imported graphs
+    and the Geomodel, are left alone."""
+    if getattr(realtime, "act_int8", False) and hasattr(model, "act_int8"):
+        model.act_int8 = True
+        log.info("act_int8 serving path enabled for %s",
+                 getattr(model.spec, "model_id", type(model).__name__))
+
+
 def geomodel_weights_installed(checkpoint: str | None = None) -> bool:
     """True when load_geomodel would serve trained weights rather than
     deterministic random init (whose scores are plausible-looking

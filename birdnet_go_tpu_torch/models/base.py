@@ -25,6 +25,9 @@ class MelCnnModel(nn.Module):
     # route the stride-1 blocks through the fused MBConv kernels; off, as in
     # the JAX package
     fused_blocks = False
+    # store the stem's and every block's output as int8 (the activation
+    # boundary, ``efficientnet.int8_boundary``); off, as in the JAX package
+    act_int8 = False
 
     def __init__(self, num_species: int, mel: MelConfig,
                  net: EfficientNetConfig,
@@ -48,11 +51,11 @@ class MelCnnModel(nn.Module):
     def apply(self, pcm: torch.Tensor, train: bool = False
               ) -> dict[str, torch.Tensor]:
         """float32 PCM [B, T] → {"logits", "embedding"} through the plain
-        mel, as the JAX XLA path runs. `fused_blocks` reaches the backbone
-        here and in ``apply_int16``; `train` makes BN use the batch's
-        statistics (the training path)."""
+        mel, as the JAX XLA path runs. `fused_blocks` and `act_int8` reach
+        the backbone here and in ``apply_int16``; `train` makes BN use the
+        batch's statistics (the training path) and turns the boundary off."""
         return self.backbone(self.features(pcm).to(self.compute_dtype),
-                             self.fused_blocks, train)
+                             self.fused_blocks, train, self.act_int8)
 
     def _fused_ok(self) -> bool:
         """The mel config fits the fused kernel (n_fft 2048, hop % 128 == 0,
@@ -66,7 +69,8 @@ class MelCnnModel(nn.Module):
         plain version for one on the CPU. Other configs take ``apply``."""
         if self._fused_ok():
             m = melspec_fused(pcm_i16, self.mel, out_dtype=self.compute_dtype)
-            return self.backbone(m[..., None], self.fused_blocks)
+            return self.backbone(m[..., None], self.fused_blocks,
+                                 act_int8=self.act_int8)
         return self.apply(pcm16_to_float32(pcm_i16))
 
     def forward(self, pcm: torch.Tensor) -> dict[str, torch.Tensor]:

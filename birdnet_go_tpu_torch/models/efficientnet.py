@@ -9,11 +9,14 @@ JAX layout, NHWC [B, frames, mels, C]; the module runs NCHW inside.
 ``fused_block_ok`` admits through the two fused kernels
 (``ops/pallas_mbconv.py``), as ``apply_efficientnet`` does; with
 ``train=True`` BN takes the batch's statistics and no block is fused.
+``act_int8=True`` stores the stem's and every block's output as int8
+(``int8_boundary``), never with ``train``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
@@ -54,6 +57,41 @@ B1_BLOCKS = (
     BlockSpec(6, 192, 5, 2, 5),
     BlockSpec(6, 320, 3, 1, 2),
 )
+
+
+# the int8 activation boundary's static scale: block outputs are O(1), and
+# [-8, 8] covers them with headroom
+ACT_INT8_SCALE = 8.0 / 127.0
+
+
+@functools.cache
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`: a Python scalar that elementwise ops
+    take exactly (they compute bf16 in float32 and round the result)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def quantize_boundary(h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`h` → int8 codes clip(round(h · inv), ±127): inv = 1 /
+    ACT_INT8_SCALE rounded to the compute `dtype`, the product rounded in
+    `dtype` before ``round`` (half to even), as JAX's ``_int8_boundary``.
+    Elementwise ops keep `h`'s memory format."""
+    inv = _in_dtype(1.0 / ACT_INT8_SCALE, dtype)
+    return torch.round(h.to(dtype) * inv).clamp_(-127, 127).to(torch.int8)
+
+
+def dequantize_boundary(q: torch.Tensor, dtype: torch.dtype
+                        ) -> torch.Tensor:
+    """int8 codes → `dtype`, times ACT_INT8_SCALE rounded to `dtype` (bf16:
+    0.06298828125, not 8/127), the product rounded in `dtype`."""
+    return q.to(dtype) * _in_dtype(ACT_INT8_SCALE, dtype)
+
+
+def int8_boundary(h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Store an inter-block activation as int8 and read it back in the
+    compute `dtype`. Eager torch materialises the int8 tensor, so no
+    barrier is needed."""
+    return dequantize_boundary(quantize_boundary(h, dtype), dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,10 +141,14 @@ class EfficientNet(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor, fused_blocks: bool = False,
-                train: bool = False) -> dict[str, torch.Tensor]:
+                train: bool = False, act_int8: bool = False
+                ) -> dict[str, torch.Tensor]:
         dt = self.compute_dtype
+        boundary = act_int8 and not train
         h = x.permute(0, 3, 1, 2)              # NHWC → NCHW (channels_last)
         h = L.swish(self.stem_bn(self.stem_conv(h, dt), train))
+        if boundary:
+            h = int8_boundary(h, dt)
         channels_last = False
         for blk in self.blocks:
             if (fused_blocks and fused_block_ok(blk.dw.stride, h.shape[2],
@@ -120,6 +162,8 @@ class EfficientNet(nn.Module):
                 h = mbconv_fused(blk, h, kernel=blk.dw.k, compute_dtype=dt)
             else:
                 h = blk(h, dt, train)
+            if boundary:
+                h = int8_boundary(h, dt)
         h = L.swish(self.head_bn(self.head_conv(h, dt), train))
         emb = h.mean(dim=(2, 3))               # global average pool
         logits = self.classifier(emb, dt)

@@ -79,7 +79,7 @@ class WindowDataset:
 def load_directory_dataset(root: str | Path, sample_rate: int = 48000,
                            clip_seconds: float = 3.0,
                            max_windows_per_file: int = 20,
-                           device: torch.device | str = "cpu"
+                           device: torch.device | str = "cuda"
                            ) -> WindowDataset:
     """<root>/<species label>/*.wav → non-overlapping training windows; a
     file longer than half a clip but shorter than one is zero-padded to

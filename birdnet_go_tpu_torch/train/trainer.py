@@ -96,7 +96,7 @@ def make_eval_step(apply_fn: Callable) -> Callable:
 
 
 def evaluate(eval_step: Callable, dataset, batch_size: int = 64,
-             device: torch.device | str = "cpu") -> dict[str, float]:
+             device: torch.device | str = "cuda") -> dict[str, float]:
     """Run eval_step over every full batch of a WindowDataset."""
     accs, losses, n = [], [], 0
     for pcm, labels in dataset.batches(batch_size, epochs=1):

@@ -2,7 +2,8 @@
 """Drive the PyTorch port's realtime device step on one CUDA card: BirdNET
 v2.4 (EfficientNet-B0), and BirdNET v3.0 and Perch v2 (B1) through the fused
 MBConv kernels; then its offline analysis and CLI, imported .tflite and
-.onnx artifacts, and custom-classifier training with the model gallery.
+.onnx artifacts, custom-classifier training with the model gallery, and
+int8 quantization with mesh-sharded serving.
 
     python3 chip_smoke.py
 
@@ -90,7 +91,24 @@ Phases, in order; any failure propagates and exits non-zero:
    replica, ``model list`` and ``model remove`` in processes of their own,
    with the JAX command's lines. None of the three kernels launches: the
    training path takes float32 PCM through the plain mel and unfused
-   blocks, as in the JAX package.
+   blocks, as in the JAX package;
+13. int8 and meshes (``phase_int8``), bf16 unless stated, on field-level
+   audio: the ``act_int8`` step of v2.4 (unfused) and of v3.0 (fused
+   blocks) at [256, T], their launches (mel 1; A and B 13 on v3.0), the
+   CPU's boundary step on the same weights (8 rows) and the gap to the
+   step without the boundary against JAX's contract, both steps timed;
+   the int8 PTQ backbone of v2.4 (``ops/quant.py``) calibrated on two
+   batches of 32 and run on the mel kernel's float32 features, every int8
+   conv's int32 sums equal to the CPU's on the same int8 input, its
+   logits the CPU's within ``INT8_LOGIT_GAP``, against bf16 (printed) and
+   timed; ``apply_dense_int8`` at 1280 → 6522 and 1280 → 14795 under
+   JAX's head gate, timed against the bf16 ``Dense``; ``ShardedClassifier``
+   on ``make_mesh()`` and on meshes that list the card 2, 2 and 4 times
+   (2x1, 1x2, 2x2) against ``TorchClassifier`` on a ragged batch of 255
+   (gated in float32, printed in bf16), and a ``TorchModelBatcher``
+   serving the 2x2 mesh through ``DeviceLoop`` (the mel kernel twice a
+   batch, one launch per data row). No exception is caught and nothing
+   falls back to the CPU or to a float product.
 
 Every kernel line carries its bound (``ops/roofline.py``: the larger of its
 bytes over the memory rate and its operations over the peak for their type)
@@ -157,6 +175,7 @@ from birdnet_go_tpu_torch.inference import onnx_import, tflite_import
 from birdnet_go_tpu_torch.inference.loader import ImportedModel, load_model
 from birdnet_go_tpu_torch.inference.opaudit import audit_table
 from birdnet_go_tpu_torch.models import efficientnet
+from birdnet_go_tpu_torch.models import layers as L
 from birdnet_go_tpu_torch.models.bat import BatClassifier
 from birdnet_go_tpu_torch.models.birdnet_v3 import BirdNETv3
 from birdnet_go_tpu_torch.models.birdnet_v24 import BirdNETv24
@@ -164,7 +183,7 @@ from birdnet_go_tpu_torch.models.bsg import BSGFinland
 from birdnet_go_tpu_torch.models.catalog import catalog_entries
 from birdnet_go_tpu_torch.models.geomodel import Geomodel
 from birdnet_go_tpu_torch.models.perch_v2 import PerchV2
-from birdnet_go_tpu_torch.ops import _build
+from birdnet_go_tpu_torch.ops import _build, quant
 from birdnet_go_tpu_torch.ops.melspec import (
     MelConfig,
     _mel_filterbank_np,
@@ -202,6 +221,7 @@ from birdnet_go_tpu_torch.ops.soundlevel import (
 )
 from birdnet_go_tpu_torch.ops.ultrasonic import ultrasonic_frame_cv
 from birdnet_go_tpu_torch.ops.windows import slice_overlapped_windows
+from birdnet_go_tpu_torch.parallel import ShardedClassifier, make_mesh
 from birdnet_go_tpu_torch.scheduler.loop import DeviceLoop, TorchModelBatcher
 from birdnet_go_tpu_torch.taxonomy.labels import load_labels
 from birdnet_go_tpu_torch.train.trainer import (
@@ -714,15 +734,21 @@ KERNELS = (melspec_fused, expand_dw_pool, scale_project)
 
 
 def phase_loop(model, dev: torch.device, card: str, n_streams: int,
-               n_ticks: int, batch: int = BATCH) -> tuple[dict, int, float]:
+               n_ticks: int, batch: int = BATCH,
+               classifier=None) -> tuple[dict, int, float]:
     """Returns each kernel's launches during the loop run, the number of
     batches and the loop's windows/s. A raw-rate (bat) model's streams
     carry ultrasound at its capture rate, and every window must come back
     with a finite ultrasonic CV. A mel-CNN model launches the mel kernel
-    once a batch; an imported graph (float32 PCM, no int16 path) launches
-    none of the three kernels."""
-    batcher = TorchModelBatcher(TorchClassifier(model, dev), max_batch=batch,
-                                top_k=10, pipeline_depth=2)
+    once a batch, and once a batch per data row when `classifier` (serving
+    `model` in place of a ``TorchClassifier``) is a ``ShardedClassifier``;
+    an imported graph (float32 PCM, no int16 path) launches none of the
+    three kernels."""
+    classifier = classifier or TorchClassifier(model, dev)
+    rows = classifier.mesh.shape["data"] if hasattr(classifier, "mesh") \
+        else 1
+    batcher = TorchModelBatcher(classifier, max_batch=batch, top_k=10,
+                                pipeline_depth=2)
     spec = batcher.spec
     rate = spec.effective_sample_rate
     overlap, read = (n // 2 for n in spec.buffer_dimensions())   # samples
@@ -778,7 +804,7 @@ def phase_loop(model, dev: torch.device, card: str, n_streams: int,
         else:
             assert cv is None
     batches = batcher.stats.batches_dispatched
-    mel = batches if hasattr(model, "apply_int16") else 0
+    mel = batches * rows if hasattr(model, "apply_int16") else 0
     assert batches > 0 and launches["melspec_fused"] == mel, (
         launches, batches)
     if mel == 0:
@@ -802,7 +828,9 @@ def phase_loop(model, dev: torch.device, card: str, n_streams: int,
         h2d.append((time.perf_counter() - t1) * 1e3)
     fused = getattr(model, "fused_blocks", False)
     label = (f"{spec.model_id}{' fused blocks' if fused else ''}"
-             f"{'' if mel else ' imported graph'}")
+             f"{'' if mel else ' imported graph'}"
+             + (f" on a {'x'.join(map(str, classifier.mesh.shape.values()))}"
+                f" mesh" if hasattr(classifier, "mesh") else ""))
     print(f"step {label} [{batch},{spec.clip_samples}] on the card: "
           f"{step_ms:.4f} ms [{min(steps):.4f}, {max(steps):.4f}] ("
           f"{batch / step_ms * 1e3:.1f} windows/s device-bound); H2D "
@@ -1830,6 +1858,448 @@ def phase_train(dev: torch.device, card: str) -> None:
     assert not any(launches.values()), launches
 
 
+# phase 13: int8 and meshes
+INT8_CAL = (2, 32)           # calibration: 2 batches of 32 field-level windows
+INT8_EXACT_ROWS = 16         # rows whose int32 sums are held to the CPU's
+INT8_CPU_ROWS = 8            # rows of the int8 step held to the CPU's logits
+# card vs CPU with the card's codes forced at every int8 quantization (the
+# act_int8 boundaries; the int8 backbone's requantizations): the share of
+# positions where the CPU's own code differs, a value one ulp apart on the
+# two devices falling on the other side of a half step
+INT8_FLIPS = 1e-2
+# the int8 backbone so forced, card vs CPU: |dlogit| <= INT8_LOGIT_GAP x
+# max(1, max|logit|) (the int32 sums are exact on both; the float32
+# epilogues after the last requantization may differ by ulps)
+INT8_LOGIT_GAP = 1e-2
+MESH_STREAMS = 256
+MESH_TICKS = 4
+MESH_SPLITS = ((2, 1), (1, 2), (2, 2))
+
+
+def _counted(fn):
+    """fn() with each kernel's launches counted from 0."""
+    for k in KERNELS:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in KERNELS}
+
+
+def _boundary_contract(a: torch.Tensor, b: torch.Tensor
+                       ) -> tuple[float, int]:
+    """(max post-sigmoid difference, least top-5 overlap of a row): JAX's
+    contract for the boundary is < 0.02 and >= 4."""
+    dconf = float((torch.sigmoid(a) - torch.sigmoid(b)).abs().max())
+    ia = torch.topk(a, 5).indices.cpu().numpy()
+    ib = torch.topk(b, 5).indices.cpu().numpy()
+    return dconf, min(len(set(x) & set(y)) for x, y in zip(ia, ib))
+
+
+def _bn_from_batch(model, pcm: torch.Tensor) -> None:
+    """Set every BN's statistics to those of its input over the int16
+    windows `pcm` (one forward with batch statistics), as a trained
+    network's BN holds its inputs' statistics. With identity statistics the
+    random-weight backbone's block outputs shrink with depth below half the
+    boundary's step (8/127 · 1/2), so every code of the deep boundaries is
+    0, and so are the logits: the boundary would be checked on zeros."""
+    stats = {}
+
+    def note(mod, args):
+        stats[mod] = torch.var_mean(args[0].float(), dim=(0, 2, 3),
+                                    correction=0)
+
+    hooks = [m.register_forward_pre_hook(note) for m in model.modules()
+             if isinstance(m, L.BatchNorm)]
+    try:
+        with torch.no_grad():
+            model.apply(pcm16_to_float32(pcm), train=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    with torch.no_grad():
+        for m, (var, mean) in stats.items():
+            m.mean.copy_(mean)
+            m.var.copy_(var)
+
+
+def _observe_codes(fn, module, name: str, forced: list | None = None,
+                   keep: bool = False):
+    """fn() with every int8 quantization of the call through
+    ``module.name`` observed (the act_int8 boundary's
+    ``efficientnet.quantize_boundary``, the int8 backbone's
+    ``quant.quantize_tensor``): (fn(), {"zero", "clipped": shares of codes 0
+    and ±127; "codes": each call's codes if `keep`}). With `forced` (the
+    codes of another run, in order), each call returns the forced codes in
+    place of its own, and the stats also give the share of its own codes
+    that differ ("flips") and the largest difference ("step")."""
+    orig = getattr(module, name)
+    it = iter(forced) if forced is not None else None
+    tally = {"zero": 0, "clipped": 0, "n": 0, "flips": 0, "step": 0}
+    codes = []
+
+    def observed(*args):
+        q = orig(*args)
+        qi = q.to(torch.int16)
+        tally["zero"] += int((qi == 0).sum())
+        tally["clipped"] += int((qi.abs() == 127).sum())
+        tally["n"] += q.numel()
+        if it is not None:
+            f = next(it).to(q.device)
+            d = (qi - f.to(torch.int16)).abs()
+            tally["flips"] += int((d > 0).sum())
+            tally["step"] = max(tally["step"], int(d.max()))
+            q = f
+        if keep:
+            codes.append(q)
+        return q
+
+    setattr(module, name, observed)
+    try:
+        out = fn()
+    finally:
+        setattr(module, name, orig)
+    if it is not None:
+        assert next(it, None) is None, "fewer quantizations than forced"
+    n = tally["n"]
+    return out, {"zero": tally["zero"] / n, "clipped": tally["clipped"] / n,
+                 "flips": tally["flips"] / n, "step": tally["step"],
+                 "codes": codes}
+
+
+def _act_int8_step(model, pcm: torch.Tensor, fused: bool, dev, card: str,
+                   want_launches: dict) -> None:
+    """One `model` int16 step at [BATCH, T] with the int8 boundary on the
+    card: its launches and codes; then the first INT8_CPU_ROWS rows on the
+    card against the CPU's boundary step on the same weights, segment by
+    segment: the CPU runs with the card's codes forced at every boundary,
+    so that each block is held to the card's on the same int8 input. Gates:
+    the CPU's own codes differ from the card's in at most INT8_FLIPS of the
+    positions (a value one bf16 ulp apart on the two devices may fall on
+    the other side of a half step, one code step, 8 ulps at |h| ~ 1), and
+    the logits meet phase 5's bf16 gate. Printed: the CPU's free-running
+    step (its own codes, where a flip propagates through the rest of the
+    random-weight network), the gap to the card's step without the
+    boundary against JAX's contract, and both steps' times."""
+    name = f"{model.spec.model_id}{' fused blocks' if fused else ''}"
+    model.fused_blocks = fused
+    rows = pcm[:INT8_CPU_ROWS]
+    with torch.inference_mode():
+        model.act_int8 = True
+        (out, full), launches = _counted(lambda: _observe_codes(
+            lambda: model.apply_int16(pcm), efficientnet,
+            "quantize_boundary"))
+        card8, st8 = _observe_codes(lambda: model.apply_int16(rows),
+                                    efficientnet, "quantize_boundary",
+                                    keep=True)
+        model.act_int8 = False
+        plain = model.apply_int16(pcm)["logits"]
+        cpu = _cpu_copy(model, torch.bfloat16)
+        cpu.fused_blocks, cpu.act_int8 = fused, True
+        free = cpu.apply_int16(rows.cpu())["logits"]
+        want, forced = _observe_codes(
+            lambda: cpu.apply_int16(rows.cpu()), efficientnet,
+            "quantize_boundary", forced=[c.cpu() for c in st8["codes"]])
+        del st8
+    lq = out["logits"]
+    assert lq.shape == plain.shape and torch.isfinite(lq).all()
+    assert launches == want_launches, (name, launches)
+    dcpu, ocpu = _agreement(card8["logits"].cpu(), want["logits"])
+    dfree, ofree = _agreement(card8["logits"].cpu(), free)
+    dq, oq = _boundary_contract(lq, plain)
+
+    def step(on):
+        model.act_int8 = on
+        return _device_step(model, pcm, fused)
+
+    with torch.inference_mode():
+        t_plain, t_q = timed_pair(lambda: step(False), lambda: step(True))
+    model.act_int8 = False
+    print(f"act_int8 {name} bf16 [{BATCH},{pcm.shape[1]}]: launches "
+          f"{launches}; codes {full['zero']:.4f} zero, "
+          f"{full['clipped']:.2e} clipped; logits max |l| "
+          f"{float(lq.abs().max()):.3f} ({float(plain.abs().max()):.3f} "
+          f"without); card vs CPU [{INT8_CPU_ROWS}] block by block (the "
+          f"card's codes forced): the CPU's own codes differ at "
+          f"{forced['flips']:.3e} of the positions (<= {INT8_FLIPS}), by up "
+          f"to {forced['step']} code, logits max post-sigmoid diff "
+          f"{dcpu:.3e} (< 0.02), top-10 overlap {ocpu:.4f} (>= 0.9); "
+          f"free-running {dfree:.3e}, {ofree:.4f}; vs the card's step "
+          f"without the boundary: max post-sigmoid diff {dq:.3e}, least "
+          f"top-5 overlap {oq}/5 (JAX's contract < 0.02, >= 4/5: "
+          f"{'met' if dq < 0.02 and oq >= 4 else 'not met'}); step "
+          f"{np.median(t_q):.4f} ms [{min(t_q):.4f}, {max(t_q):.4f}] against "
+          f"{np.median(t_plain):.4f} ms [{min(t_plain):.4f}, "
+          f"{max(t_plain):.4f}] without (median [min, max] of {REPS}) "
+          f"[{card}]")
+    assert forced["flips"] <= INT8_FLIPS, f"act_int8 {name}: code flips"
+    assert dcpu < 0.02 and ocpu >= 0.9, f"act_int8 {name}: card vs CPU"
+
+
+def _ptq_backbone(v24, pcm: torch.Tensor, dev, card: str) -> None:
+    """The int8 PTQ backbone of v2.4: calibrated on field-level batches
+    (float32, on the card), quantized, and run on the mel kernel's
+    float32 features. Gates: every int8 conv's int32 sums on the card equal
+    the CPU's on the same int8 input (the first INT8_EXACT_ROWS rows); and,
+    with the card's codes forced at every requantization of the CPU's run
+    (as for the boundary), the CPU's own codes differ in at most INT8_FLIPS
+    of the positions (a float32 epilogue value one ulp apart on a half
+    step) and the logits are the card's within INT8_LOGIT_GAP. Printed: the
+    CPU's free-running logits, int8 against the bf16 and float32 backbones
+    on the same mel with bf16 against float32 as the yardstick, and the int8
+    and bf16 steps' times."""
+    mel_of = lambda x: melspec_fused(                       # noqa: E731
+        x, v24.mel, out_dtype=torch.float32)[..., None]
+    with torch.inference_mode():
+        cal = [mel_of(torch.from_numpy(pcm_batch(
+            (INT8_CAL[1], CLIP), SEED + 20 + i)).to(dev))
+            for i in range(INT8_CAL[0])]
+    t0 = time.monotonic()
+    scales = quant.calibrate_efficientnet(v24.backbone, cal)
+    q = quant.quantize_efficientnet(v24.backbone, scales)
+    q_cpu = copy.deepcopy(q)
+    q.to(dev)
+    t_quant = time.monotonic() - t0
+
+    # the int32 sums, card against CPU, on the int8 input each conv got
+    seen = []
+    acc_i8 = quant._acc_i8
+
+    def record(x_q, layer):
+        acc = acc_i8(x_q, layer)
+        seen.append((x_q, acc))
+        return acc
+
+    rows = INT8_CPU_ROWS
+    with torch.inference_mode():
+        mel = mel_of(pcm)
+        quant._acc_i8 = record
+        try:
+            q(mel[:INT8_EXACT_ROWS])
+        finally:
+            quant._acc_i8 = acc_i8
+        layers = quant.int8_layers(q_cpu)
+        assert len(seen) == len(layers)
+        n_values = 0
+        for (x_q, acc), layer in zip(seen, layers):
+            want = acc_i8(x_q.cpu(), layer)
+            assert acc.dtype == torch.int32 and torch.equal(acc.cpu(), want), \
+                "int8 backbone: int32 sums, card vs CPU"
+            n_values += want.numel()
+        del seen
+        out, launches = _counted(lambda: q(mel_of(pcm)))
+        lq = out["logits"]
+        assert lq.shape == (BATCH, 6522) and torch.isfinite(lq).all()
+        assert launches == {"melspec_fused": 1, "expand_dw_pool": 0,
+                            "scale_project": 0}, launches
+        card8, st8 = _observe_codes(lambda: q(mel[:rows]), quant,
+                                    "quantize_tensor", keep=True)
+        want, forced = _observe_codes(
+            lambda: q_cpu(mel[:rows].cpu()), quant, "quantize_tensor",
+            forced=[c.cpu() for c in st8["codes"]])
+        del st8
+        free = q_cpu(mel[:rows].cpu())["logits"]
+        ref16 = v24.backbone(mel.to(torch.bfloat16))["logits"]
+        m32 = BirdNETv24(compute_dtype=torch.float32)
+        m32.load_state_dict(v24.state_dict())
+        ref32 = m32.to(dev).eval().backbone(mel)["logits"]
+        del m32
+    scale = max(1.0, float(want["logits"].abs().max()))
+    gap = float((card8["logits"].cpu() - want["logits"]).abs().max())
+    free_gap = float((card8["logits"].cpu() - free).abs().max())
+
+    def versus(a, b) -> str:
+        k = 5
+        ia = torch.topk(a, k).indices.cpu().numpy()
+        ib = torch.topk(b, k).indices.cpu().numpy()
+        overlap = np.mean([len(set(x) & set(y)) / k for x, y in zip(ia, ib)])
+        dconf = float((torch.sigmoid(a) - torch.sigmoid(b)).abs().max())
+        corr = np.corrcoef(a.cpu().numpy().ravel(),
+                           b.cpu().numpy().ravel())[0, 1]
+        return (f"top-{k} overlap {overlap:.4f}, max post-sigmoid gap "
+                f"{dconf:.3e}, logit correlation {corr:.4f}")
+
+    def bf16_step():
+        v24.fused_blocks = False
+        return v24.apply_int16(pcm)["logits"]
+
+    with torch.inference_mode():
+        t16, t8 = timed_pair(bf16_step, lambda: q(mel_of(pcm))["logits"])
+    print(f"int8 PTQ v2.4 backbone [{BATCH},{CLIP}]: calibrated on "
+          f"{INT8_CAL[0]} x {INT8_CAL[1]} windows and quantized in "
+          f"{t_quant:.2f} s; int32 sums of all {len(layers)} int8 convs "
+          f"equal the CPU's on the same int8 input ({n_values} values, "
+          f"{INT8_EXACT_ROWS} rows); launches {launches}; card vs CPU [{rows}]"
+          f" with the card's codes forced: the CPU's own codes differ at "
+          f"{forced['flips']:.3e} of the positions (<= {INT8_FLIPS}), by up "
+          f"to {forced['step']} code, max |dlogit| {gap:.3e} (<= "
+          f"{INT8_LOGIT_GAP} x {scale:.2f}); free-running {free_gap:.3e}; "
+          f"codes {forced['zero']:.4f} zero, {forced['clipped']:.2e} "
+          f"clipped. Printed, not gated at full depth: int8 vs bf16 backbone "
+          f"on the same mel: {versus(lq, ref16)}; int8 vs float32: "
+          f"{versus(lq, ref32)}; bf16 vs float32: {versus(ref16, ref32)}. "
+          f"Step (mel kernel + backbone) int8 {np.median(t8):.4f} ms "
+          f"[{min(t8):.4f}, {max(t8):.4f}] against bf16 unfused "
+          f"{np.median(t16):.4f} ms [{min(t16):.4f}, {max(t16):.4f}] (median "
+          f"[min, max] of {REPS}) [{card}]")
+    assert forced["flips"] <= INT8_FLIPS, "int8 backbone: code flips"
+    assert gap <= INT8_LOGIT_GAP * scale, "int8 backbone: card vs CPU"
+
+
+def _dense_heads(dev, card: str) -> None:
+    """``apply_dense_int8`` at 1280 → 6522 and 1280 → 14795, B = 256, held
+    to JAX's gate against the float32 head (post-sigmoid < 0.02, top-10
+    overlap >= 9 each row), timed against the bf16 ``Dense``."""
+    rng = np.random.default_rng(11)
+    for cout in (6522, 14795):
+        dense = L.Dense(1280, cout)
+        dense.load_state_dict({
+            "w": torch.from_numpy((rng.standard_normal((cout, 1280))
+                                   * 0.03).astype(np.float32)),
+            "b": torch.from_numpy((rng.standard_normal(cout)
+                                   * 0.01).astype(np.float32))})
+        q = {k: v.to(dev) for k, v in quant.quantize_dense_head(dense).items()}
+        dense.to(dev)
+        emb = torch.from_numpy(np.abs(rng.standard_normal(
+            (BATCH, 1280))).astype(np.float32)).to(dev)
+        with torch.inference_mode():
+            got = quant.apply_dense_int8(q, emb)
+            with full_float32():
+                ref = dense(emb, torch.float32)
+            t16, t8 = median_ms_pair(lambda: dense(emb, torch.bfloat16),
+                                     lambda: quant.apply_dense_int8(q, emb))
+        dconf = float((sigmoid_confidence(got, 1.0)
+                       - sigmoid_confidence(ref, 1.0)).abs().max())
+        ig = torch.topk(got, 10).indices.cpu().numpy()
+        ir = torch.topk(ref, 10).indices.cpu().numpy()
+        least = min(len(set(a) & set(b)) for a, b in zip(ig, ir))
+        print(f"int8 head 1280 -> {cout} [{BATCH}]: max post-sigmoid diff "
+              f"{dconf:.3e} (< 0.02), least top-10 overlap {least}/10 (>= "
+              f"9); apply_dense_int8 {t8:.4f} ms against the bf16 Dense "
+              f"{t16:.4f} ms (medians of {REPS}, per call) [{card}]")
+        assert dconf < 0.02 and least >= 9, f"int8 head {cout}"
+
+
+def _topk_gap(ref_conf: torch.Tensor, v1, i1, v2, i2) -> tuple[float, int]:
+    """(largest relative gap of the values, number of index positions that
+    differ and are not ties) between two classifiers' top-k; a position is a
+    tie where the species the second names has the first's value there in
+    `ref_conf`, within 2e-4."""
+    rel = float((np.abs(v2 - v1) / np.maximum(np.abs(v1), 1e-6)).max())
+    conf = ref_conf.cpu().numpy()
+    rows, cols = np.nonzero(i1 != i2)
+    tie = np.abs(conf[rows, i2[rows, cols]] - v1[rows, cols]) <= (
+        2e-4 * np.abs(v1[rows, cols]) + 1e-6)
+    return rel, int((~tie).sum())
+
+
+def phase_int8(dev: torch.device, card: str) -> None:
+    """Phase 13: the act_int8 steps of v2.4 (unfused) and v3.0 (fused
+    blocks), the int8 PTQ backbone of v2.4, the int8 heads, and the mesh
+    (``phase_mesh``). The two models' BN statistics come from a field-level
+    batch (``_bn_from_batch``)."""
+    t0 = time.monotonic()
+    v24 = BirdNETv24().init(torch.Generator().manual_seed(SEED)).to(
+        dev).eval()
+    _bn_from_batch(v24, torch.from_numpy(pcm_batch(
+        (INT8_CAL[1], CLIP), SEED + 30)).to(dev))
+    pcm = torch.from_numpy(pcm_batch((BATCH, CLIP), SEED + 13)).to(dev)
+    _act_int8_step(v24, pcm, False, dev, card,
+                   {"melspec_fused": 1, "expand_dw_pool": 0,
+                    "scale_project": 0})
+    v3 = BirdNETv3().init(torch.Generator().manual_seed(SEED)).to(dev).eval()
+    _bn_from_batch(v3, torch.from_numpy(pcm_batch(
+        (INT8_CAL[1], CLIP32), SEED + 31, rate=32000)).to(dev))
+    pcm32 = torch.from_numpy(pcm_batch((BATCH, CLIP32), SEED + 14,
+                                       rate=32000)).to(dev)
+    _act_int8_step(v3, pcm32, True, dev, card,
+                   {"melspec_fused": 1, "expand_dw_pool": V3_FUSED,
+                    "scale_project": V3_FUSED})
+    del v3, pcm32
+    _ptq_backbone(v24, pcm, dev, card)
+    _dense_heads(dev, card)
+    phase_mesh(v24, pcm, dev, card)
+    print(f"phase 13 (int8, meshes) {time.monotonic() - t0:.1f} s [{card}]")
+
+
+def phase_mesh(v24, pcm: torch.Tensor, dev: torch.device, card: str) -> None:
+    """``ShardedClassifier`` on ``make_mesh()`` (every visible card: 1x1
+    here), equal to ``TorchClassifier``; on meshes that list the card 2, 2
+    and 4 times, on a ragged batch of 255: in float32 (TF32 off) indices
+    equal up to ties and values within 2e-4 relative; in bf16 the same
+    printed, since a split batch or head changes the shapes cuDNN and
+    cuBLAS see, so their order of summation, and in bf16 a value one ulp
+    apart may round to the other bf16 neighbour; each timed beside
+    ``TorchClassifier``; the int16 step's host dispatch against its device
+    time, single and 2x2; then a
+    ``TorchModelBatcher`` serving the bf16 2x2 mesh's classifier through
+    ``DeviceLoop`` (``phase_loop``: every window's top-10 checked, the mel
+    kernel launched once a batch per data row)."""
+    x = pcm16_to_float32(pcm[:BATCH - 1])
+    m32 = BirdNETv24(compute_dtype=torch.float32)
+    m32.load_state_dict(v24.state_dict())
+    m32.to(dev).eval()
+    for model in (v24, m32):
+        dt = str(model.compute_dtype).removeprefix("torch.")
+        gated = model is m32
+        with torch.inference_mode():
+            ref_conf = sigmoid_confidence(model.apply(x)["logits"], 1.0)
+        single = TorchClassifier(model, dev)
+        v1, i1 = single.predict_topk(x)
+        t = [event_ms(lambda: single.predict_topk(x)) for _ in range(REPS)]
+        print(f"mesh baseline {dt}: TorchClassifier.predict_topk "
+              f"[{BATCH - 1},{CLIP}] {np.median(t):.4f} ms [{min(t):.4f}, "
+              f"{max(t):.4f}] (median [min, max] of {REPS}) [{card}]")
+        mesh = make_mesh()
+        v2, i2 = ShardedClassifier(model, mesh=mesh).predict_topk(x)
+        if mesh.size == 1:
+            np.testing.assert_array_equal(i2, i1)
+            np.testing.assert_array_equal(v2, v1)
+        print(f"mesh make_mesh() {mesh.shape} {dt}: top-10 of "
+              f"[{BATCH - 1},{CLIP}] {'equal to' if mesh.size == 1 else 'vs'}"
+              f" TorchClassifier's, gap {_topk_gap(ref_conf, v1, i1, v2, i2)}"
+              f" [{card}]")
+        for d, m in MESH_SPLITS:
+            mesh = make_mesh(d * m, d, m, devices=[dev] * (d * m))
+            sharded = ShardedClassifier(model, mesh=mesh)
+            v2, i2 = sharded.predict_topk(x)
+            rel, swaps = _topk_gap(ref_conf, v1, i1, v2, i2)
+            t = [event_ms(lambda: sharded.predict_topk(x))
+                 for _ in range(REPS)]
+            print(f"mesh {d}x{m} of {dev} {dt}: top-10 of [{BATCH - 1},"
+                  f"{CLIP}] against TorchClassifier's: largest relative "
+                  f"value gap {rel:.3e}, {swaps} index positions differ that "
+                  f"are not ties{' (gates: < 2e-4, 0)' if gated else ''}; "
+                  f"predict_topk {np.median(t):.4f} ms [{min(t):.4f}, "
+                  f"{max(t):.4f}] (median [min, max] of {REPS}) [{card}]")
+            if gated:
+                assert rel < 2e-4 and swaps == 0, f"mesh {d}x{m}"
+    del m32
+    # the int16 step's host dispatch against its device time: a data row
+    # runs the whole backbone, so a 2-row mesh of one card dispatches twice
+    # the kernels of the single step
+    mesh = make_mesh(4, 2, 2, devices=[dev] * 4)
+    sharded = ShardedClassifier(v24, mesh=mesh)
+    with torch.inference_mode():
+        for label, fn in (("single", lambda: v24.apply_int16(pcm)),
+                          ("2x2", lambda: sharded.model.apply_int16(pcm))):
+            fn()
+            torch.cuda.synchronize()
+            host = []
+
+            def dispatch():
+                t1 = time.perf_counter()
+                fn()
+                host.append((time.perf_counter() - t1) * 1e3)
+
+            dev_ms = [event_ms(dispatch) for _ in range(REPS)]
+            print(f"mesh step {label} [{BATCH},{CLIP}]: host dispatch "
+                  f"{np.median(host):.4f} ms, CUDA events around it "
+                  f"{np.median(dev_ms):.4f} ms (medians of {REPS}) [{card}]")
+    launches, batches, _ = phase_loop(
+        v24, dev, card, MESH_STREAMS, MESH_TICKS, classifier=sharded)
+    assert launches["melspec_fused"] == 2 * batches, (launches, batches)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1870,6 +2340,7 @@ def main() -> None:
     phase_offline(dev, card)
     phase_imported(dev, card)
     phase_train(dev, card)
+    phase_int8(dev, card)
     print(f"total {time.monotonic() - t0:.1f} s")
     print(f"kernels line: melspec_fused at the v2.4 main path's [{BATCH}, "
           f"{CLIP}] bf16; expand_dw_pool and scale_project summed over the "

@@ -3,9 +3,12 @@ their plain versions, the wrappers' checks, the torch batcher's CUDA
 events, the offline path's resampling and analyzer against the CPU, and an
 imported graph (the v2.4 replica of ``diag/replicas.py``) on the card:
 float32 under TF32 defaults, its constants read where they lie, and
-through ``TorchClassifier``; and the training step: ``train --tiny``'s
+through ``TorchClassifier``; the training step: ``train --tiny``'s
 float32 step on the card against the CPU, and no kernel launched by a
-train step.
+train step; and int8 and meshes: ``int_mm`` exact at the shapes
+``_int_mm`` refuses, the depthwise float route equal to int32 tap sums,
+the ``act_int8`` step against the CPU, and ``ShardedClassifier`` on meshes
+that list the card more than once.
 
 Every test needs a CUDA card and skips without one. The file imports no
 JAX, so it also runs where JAX is missing:
@@ -675,3 +678,113 @@ def test_train_step_launches_no_kernel(dev, train):
     _, m = step(state, pcm[:, :48000].to(dev), labels.to(dev))
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
     assert [k.launches for k in kernels] == [0, 0, 0]
+
+
+# -- int8: _int_mm, the depthwise float route, act_int8, meshes ---------------
+
+@pytest.mark.parametrize("m,k,n", [(8, 1280, 6522), (256, 1280, 14795),
+                                   (5, 20, 3), (4096, 16, 96),
+                                   (4096, 96, 24)])
+def test_int_mm_on_card_is_exact(dev, m, k, n):
+    """``int_mm`` on the card (padding what ``_int_mm`` refuses) equals the
+    int64 product exactly."""
+    from birdnet_go_tpu_torch.ops.quant import int_mm
+
+    rng = np.random.default_rng(m + n)
+    a = rng.integers(-127, 128, (m, k), dtype=np.int8)
+    w = rng.integers(-127, 128, (n, k), dtype=np.int8)
+    got = int_mm(torch.from_numpy(a).to(dev), torch.from_numpy(w).to(dev))
+    assert got.shape == (m, n) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  a.astype(np.int64) @ w.astype(np.int64).T)
+
+
+@pytest.mark.parametrize("c,h,w,k,stride", [(96, 139, 48, 3, 2),
+                                            (240, 35, 12, 5, 1),
+                                            (672, 18, 6, 5, 2)])
+def test_depthwise_float_route_exact_on_card(dev, c, h, w, k, stride):
+    """The int8 depthwise sums as a float32 cuDNN convolution of int8 values
+    equal int32 tap sums over TF-SAME padding, at v2.4 shapes, codes at
+    ±127 included."""
+    from birdnet_go_tpu_torch.models.layers import same_pad
+    from birdnet_go_tpu_torch.ops import quant as Q
+
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy(rng.integers(-127, 128, (16, h, w, c),
+                                      dtype=np.int8))
+    x[0] = 127
+    layer = Q.QConv(c, c, k, stride, depthwise=True)
+    layer.w_q.copy_(torch.from_numpy(rng.integers(-127, 128, (c, 1, k, k),
+                                                  dtype=np.int8)))
+    got = Q._acc_i8(x.to(dev), copy.deepcopy(layer).to(dev))
+    assert got.dtype == torch.int32
+    xp = same_pad(x.permute(0, 3, 1, 2).to(torch.int32), k, stride)
+    ho, wo = got.shape[1:3]
+    want = torch.zeros((16, c, ho, wo), dtype=torch.int32)
+    for dy in range(k):
+        for dx in range(k):
+            tap = xp[:, :, dy:dy + stride * ho:stride,
+                     dx:dx + stride * wo:stride]
+            want += tap * layer.w_q[:, 0, dy, dx].to(torch.int32)[:, None,
+                                                                  None]
+    assert torch.equal(got.cpu(), want.permute(0, 2, 3, 1))
+
+
+def test_act_int8_step_on_card_matches_cpu(dev):
+    """The narrow float32 model's int16 step with the boundary: card (mel
+    kernel) against CPU (plain mel); codes may differ where the two mel
+    paths put a value on either side of a half step."""
+    cpu = _narrow_model()
+    cpu.act_int8 = True
+    card = copy.deepcopy(cpu).to(dev)
+    pcm = _pcm((4, 48000), 3)
+    with torch.inference_mode():
+        want = cpu.apply_int16(pcm)["logits"]
+        got = card.apply_int16(pcm.to(dev))["logits"].cpu()
+        plain = card.apply(pcm16_to_float32(pcm).to(dev))["logits"].cpu()
+    assert torch.isfinite(got).all()
+    dconf = float((torch.sigmoid(got) - torch.sigmoid(want)).abs().max())
+    assert dconf < 0.02, dconf
+    assert float((torch.sigmoid(got) - torch.sigmoid(plain)).abs().max()
+                 ) < 0.02
+
+
+@pytest.mark.parametrize("d,m", [(1, 1), (2, 1), (1, 2), (2, 2)])
+def test_sharded_classifier_on_repeated_card(dev, d, m):
+    """Meshes that list the card d·m times serve what ``TorchClassifier``
+    serves, a ragged batch included."""
+    from birdnet_go_tpu_torch.parallel import ShardedClassifier, make_mesh
+
+    model = _narrow_model()
+    single = TorchClassifier(copy.deepcopy(model), dev)
+    sharded = ShardedClassifier(model, mesh=make_mesh(
+        d * m, d, m, devices=[dev] * (d * m)))
+    assert sharded.device == dev
+    pcm = pcm16_to_float32(_pcm((7, 48000), 4)).numpy()
+    v1, i1 = single.predict_topk(pcm, k=5)
+    v2, i2 = sharded.predict_topk(pcm, k=5)
+    np.testing.assert_array_equal(i1, i2)
+    np.testing.assert_allclose(v1, v2, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_boundary_on_card_equals_cpu(dev, dtype):
+    """The act_int8 boundary on one input, card against CPU: equal codes
+    and equal dequantised values, half steps and clipping included; a
+    channels_last input stays channels_last."""
+    from birdnet_go_tpu_torch.models.efficientnet import (
+        int8_boundary,
+        quantize_boundary,
+    )
+
+    rng = np.random.default_rng(1)
+    h = torch.from_numpy(rng.standard_normal((4, 24, 35, 12)).astype(
+        np.float32) * 4.0)
+    h.view(-1)[:260] = torch.arange(-130, 130) * (8.0 / 127.0) + 4.0 / 127.0
+    h = h.to(dtype).contiguous(memory_format=torch.channels_last)
+    q = quantize_boundary(h.to(dev), dtype)
+    assert q.dtype == torch.int8
+    assert q.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(q.cpu(), quantize_boundary(h, dtype))
+    assert torch.equal(int8_boundary(h.to(dev), dtype).cpu(),
+                       int8_boundary(h, dtype))

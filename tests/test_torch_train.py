@@ -92,7 +92,7 @@ def datasets(tmp_path_factory):
             seed += 1
     (root / "gamma" / "notes.txt").write_text("not audio")
     return (jdataset.load_directory_dataset(root),
-            tdataset.load_directory_dataset(root))
+            tdataset.load_directory_dataset(root, device="cpu"))
 
 
 def test_directory_dataset_matches_jax(datasets):
@@ -140,13 +140,13 @@ def test_batches_match_jax(datasets, batch_size, seed, epochs):
 
 def test_dataset_errors_match_jax(tmp_path):
     with pytest.raises(ValueError, match="no class directories"):
-        tdataset.load_directory_dataset(tmp_path)
+        tdataset.load_directory_dataset(tmp_path, device="cpu")
     (tmp_path / "cls").mkdir()
     write_wav(tmp_path / "cls" / "tiny.wav", _tone(0.5, 48000, 500.0, 0),
               48000)
     (tmp_path / "cls" / "bad.wav").write_bytes(b"RIFF0000WAVEjunk")
     with pytest.raises(ValueError, match="no usable audio"):
-        tdataset.load_directory_dataset(tmp_path)
+        tdataset.load_directory_dataset(tmp_path, device="cpu")
     with pytest.raises(ValueError, match="no usable audio"):
         jdataset.load_directory_dataset(tmp_path)
 
@@ -348,7 +348,7 @@ def test_evaluate_matches_jax(batch_size):
                              batch_size=batch_size)
     got = ttrainer.evaluate(ttrainer.make_eval_step(tm.apply),
                             tdataset.WindowDataset(windows, labels, names),
-                            batch_size=batch_size)
+                            batch_size=batch_size, device="cpu")
     assert got["n"] == want["n"] == (13 // batch_size * batch_size
                                      if batch_size <= 13 else 13)
     np.testing.assert_allclose(got["accuracy"], want["accuracy"], atol=1e-6)

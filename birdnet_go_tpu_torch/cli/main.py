@@ -1,5 +1,5 @@
 """Command line of the PyTorch port: analyze / benchmark / rangefilter /
-train / model / verify-artifact (ports of those commands of
+train / model / verify-artifact / soak (ports of those commands of
 ``birdnet_go_tpu/cli/main.py``).
 
     python -m birdnet_go_tpu_torch analyze recording.wav
@@ -8,12 +8,16 @@ train / model / verify-artifact (ports of those commands of
     python -m birdnet_go_tpu_torch train dataset/ --output ckpt/
     python -m birdnet_go_tpu_torch model list
     python -m birdnet_go_tpu_torch verify-artifact model.tflite
+    python -m birdnet_go_tpu_torch soak --streams 2000 --seconds 45
 
 Global flags mirror the reference's persistent flags (cmd/root.go:86-106):
 threshold, sensitivity, overlap, locale, latitude/longitude. Output lines
 and exit codes are the JAX CLI's. Every command that computes runs on the
 CUDA card unless ``--device`` names another device; without a card it
 stops with an error rather than run on the CPU. ``model`` only moves files.
+``soak`` runs the whole realtime server (``scheduler/soak.py``) on the card,
+on the CPU with ``--device cpu``, or against a latency model of the card's
+step with ``--device stub``.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from birdnet_go_tpu_torch.models.efficientnet import (
 from birdnet_go_tpu_torch.models.geomodel import birdnet_week
 from birdnet_go_tpu_torch.ops.melspec import MelConfig
 from birdnet_go_tpu_torch.ops.precision import full_float32
+from birdnet_go_tpu_torch.scheduler import soak
 from birdnet_go_tpu_torch.taxonomy.labels import load_labels
 from birdnet_go_tpu_torch.train.dataset import load_directory_dataset
 from birdnet_go_tpu_torch.train.trainer import (
@@ -174,6 +179,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "ops vs importer tables) and exit")
     device_flag(va)
 
+    sk = sub.add_parser("soak", help="full-pipeline concurrent-stream soak "
+                        "(ingest→scheduler→processor→datastore)")
+    soak.add_arguments(sk)
+
     return p
 
 
@@ -181,9 +190,9 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO,
                         format=_LOG_FORMAT)
-    device = getattr(args, "device", None)      # `model` computes nothing
-    if device is not None and device.type == "cuda" \
-            and not torch.cuda.is_available():
+    # `model` computes nothing; `soak --device stub` models the card
+    device = str(getattr(args, "device", None))
+    if device.startswith("cuda") and not torch.cuda.is_available():
         print(f"error: no CUDA card (torch.cuda.is_available() is false); "
               f"pass --device cpu to run {args.command} on the CPU",
               file=sys.stderr)
@@ -191,7 +200,8 @@ def main(argv: list[str] | None = None) -> int:
     return {"analyze": _cmd_analyze, "benchmark": _cmd_benchmark,
             "rangefilter": _cmd_rangefilter, "train": _cmd_train,
             "model": _cmd_model,
-            "verify-artifact": _cmd_verify_artifact}[args.command](args)
+            "verify-artifact": _cmd_verify_artifact,
+            "soak": soak.run}[args.command](args)
 
 
 def _load_classifier(args) -> TorchClassifier:

@@ -155,7 +155,10 @@ def _no_orbax(what: str) -> NotImplementedError:
         f"{what}: the PyTorch port reads .tflite and .onnx artifacts and its "
         f"own checkpoints (a directory holding params.npz, as train "
         f"writes), not orbax checkpoints (orbax's OCDBT layout needs orbax "
-        f"and tensorstore, which the card's machine lacks)")
+        f"and tensorstore, which the card's machine lacks); convert one "
+        f"where JAX and orbax are installed with python3 "
+        f"convert_jax_checkpoint.py <orbax_dir> <out_dir> [--tiny | "
+        f"--geomodel]")
 
 
 def _from_checkpoint(model_id: str, path: Path, **kwargs) -> nn.Module:

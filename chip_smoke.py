@@ -2,8 +2,9 @@
 """Drive the PyTorch port's realtime device step on one CUDA card: BirdNET
 v2.4 (EfficientNet-B0), and BirdNET v3.0 and Perch v2 (B1) through the fused
 MBConv kernels; then its offline analysis and CLI, imported .tflite and
-.onnx artifacts, custom-classifier training with the model gallery, and
-int8 quantization with mesh-sharded serving.
+.onnx artifacts, custom-classifier training with the model gallery, int8
+quantization with mesh-sharded serving, and the whole realtime server in a
+2,000-stream soak.
 
     python3 chip_smoke.py
 
@@ -108,7 +109,18 @@ Phases, in order; any failure propagates and exits non-zero:
    (gated in float32, printed in bf16), and a ``TorchModelBatcher``
    serving the 2x2 mesh through ``DeviceLoop`` (the mel kernel twice a
    batch, one launch per data row). No exception is caught and nothing
-   falls back to the CPU or to a float product.
+   falls back to the CPU or to a float product;
+14. the full-pipeline soak (``phase_soak``): the v2.4 unfused int16 step
+   timed at B = 64 and 256 (the stub's latency model, ``base_ms`` and
+   ``per_window_us``), then ``python -m birdnet_go_tpu_torch soak
+   --device cuda --streams 2000 --seconds 45`` in its own process: the
+   native stream farm, ``DeviceLoop``, the device step, the ``Processor``,
+   ``FlushLoop``, the job queue with the realistic action mix and a SQLite
+   file under ``build/soak_smoke/``. It must exit 0 (no sample lost, no
+   window dropped, no critical job dropped), hold latency p95 from each
+   window's realtime end below 1,500 ms and steady windows/s at 0.95 of
+   those offered, calibrate a threshold, persist every approval (the
+   db's rows), and launch the mel kernel once for every batch.
 
 Every kernel line carries its bound (``ops/roofline.py``: the larger of its
 bytes over the memory rate and its operations over the peak for their type)
@@ -131,6 +143,7 @@ import json
 import os
 import re
 import shutil
+import sqlite3
 import struct
 import subprocess
 import sys
@@ -162,6 +175,7 @@ from birdnet_go_tpu_torch.diag.mbconv_cases import (
 from birdnet_go_tpu_torch.diag.timing import (
     REPS,
     event_ms,
+    graph_ms,
     graph_ms_pair,
     median_ms_pair,
     timed_pair,
@@ -2300,6 +2314,149 @@ def phase_mesh(v24, pcm: torch.Tensor, dev: torch.device, card: str) -> None:
     assert launches["melspec_fused"] == 2 * batches, (launches, batches)
 
 
+SOAK_STREAMS = 2000          # the survey's north star: >= 2,000 streams
+SOAK_SECONDS = 45
+SOAK_RING_SECONDS = 27       # run_soak's rings (27 s at 48 kHz, int16)
+SOAK_P95_MS = 1500.0         # half the 3 s clip
+SOAK_RATE = 0.95             # steady windows/s against those offered
+STUB_BATCHES = (64, 256)     # the step's two batch sizes for the stub
+
+
+def _mem_available_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def phase_soak(dev: torch.device, card: str) -> None:
+    """Phase 14: the v2.4 step timed at the stub's two batch sizes (by
+    CUDA events around one call, in turns, after three calls of each
+    shape; the host's share and the device time by graph replay printed
+    beside them), then the full-pipeline soak (``python -m
+    birdnet_go_tpu_torch soak``) in a process of its own: 2,000 streams
+    of BirdNET v2.4 at full width,
+    served unfused at batch 256, in real time, with the realistic action
+    mix, into a SQLite file. Its own process keeps ``gc.freeze()`` and the
+    rings out of this heap. Gates: the CLI exits 0 (no sample lost, no
+    window dropped, no critical job dropped); latency p95 below half the
+    clip; steady windows/s at least 0.95 of those offered; calibration set
+    a threshold; every approval persisted, and the db file holds as many
+    rows; the mel kernel launched once a batch."""
+    t0 = time.monotonic()
+    v24 = BirdNETv24().init(torch.Generator().manual_seed(SEED))
+    batcher = TorchModelBatcher(TorchClassifier(v24, dev), max_batch=256)
+    xs = {b: torch.from_numpy(pcm_batch((b, CLIP), SEED + 40)).to(dev)
+          for b in STUB_BATCHES}
+    sens = torch.tensor(1.0, device=dev)     # a graph captures no H2D copy
+    for x in xs.values():                    # first calls of a shape tune
+        for _ in range(3):
+            batcher._step(x, sens, 10, None)
+    torch.cuda.synchronize()
+    events = {b: [] for b in xs}
+    host = {b: [] for b in xs}
+
+    def host_timed(b):
+        t1 = time.perf_counter()
+        batcher._step(xs[b], sens, 10, None)
+        host[b].append((time.perf_counter() - t1) * 1e3)
+
+    for _ in range(2 * REPS):                # the two sizes in turns
+        for b in xs:
+            events[b].append(event_ms(lambda: host_timed(b)))
+    step = {b: float(np.median(t)) for b, t in events.items()}
+    for b, x in xs.items():
+        dev_ms = graph_ms(lambda: batcher._step(x, sens, 10, None))
+        print(f"soak stub: v2.4 unfused int16 step [{b},{CLIP}] by CUDA "
+              f"events {step[b]:.4f} ms [{min(events[b]):.4f}, "
+              f"{max(events[b]):.4f}] (median [min, max] of {2 * REPS}, "
+              f"in turns), host call {np.median(host[b]):.4f} ms, device "
+              f"by graph replay {dev_ms:.4f} ms [{card}]")
+    lo, hi = STUB_BATCHES
+    per_window_us = (step[hi] - step[lo]) / (hi - lo) * 1e3
+    base_ms = step[lo] - lo * per_window_us / 1e3
+    print(f"soak stub: base_ms={base_ms:.4f} per_window_us="
+          f"{per_window_us:.4f} (the line through the event times) "
+          f"[{card}]")
+    del batcher, v24, xs
+    torch.cuda.empty_cache()
+
+    ring_gib = SOAK_STREAMS * SOAK_RING_SECONDS * 48000 * 2 / 2**30
+    avail = _mem_available_gib()
+    print(f"soak host: {avail:.1f} GiB available, the rings take "
+          f"{ring_gib:.1f} GiB ({SOAK_STREAMS} streams x "
+          f"{SOAK_RING_SECONDS} s x 48 kHz x int16)")
+    assert avail > 2 * ring_gib, "the host lacks memory for the soak's rings"
+    out = REPO / "build" / "soak_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    db, rec_path = out / "soak.db", out / "soak.json"
+    cmd = [sys.executable, "-m", "birdnet_go_tpu_torch", "soak", "--device",
+           "cuda", "--streams", str(SOAK_STREAMS), "--seconds",
+           str(SOAK_SECONDS), "--db", str(db), "--out", str(rec_path)]
+    t1 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=SOAK_SECONDS + 300)
+    wall = time.monotonic() - t1
+    (out / "soak.log").write_text(proc.stderr)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-6000:])
+    assert proc.returncode == 0, f"soak exited {proc.returncode}"
+    rec = json.loads(rec_path.read_text())["runs"][-1]
+    lat, cal = rec["latency_ms"], rec["calibration"]
+    thr = cal["threshold_calibration"]
+    acts, da = rec["actions"], rec["drop_accounting"]
+    with contextlib.closing(sqlite3.connect(str(db))) as conn:
+        rows = conn.execute("SELECT COUNT(*) FROM detections").fetchone()[0]
+    tick = rec["timeline"][-1]
+    print(f"soak: {rec['streams']} v2.4 streams for {rec['seconds']} s in "
+          f"{wall:.1f} s of process (warmup {cal['warmup_s']} s): "
+          f"{rec['windows_per_second']} windows/s, steady "
+          f"{rec['steady_windows_per_second']} of "
+          f"{rec['expected_windows_per_second']} offered, stream "
+          f"equivalents sustained {rec['stream_equivalents_sustained']} "
+          f"[{cal['card']}]")
+    print(f"soak latency from the window's realtime end (steady, ms): p50 "
+          f"{lat['p50']} p95 {lat['p95']} p99 {lat['p99']} max {lat['max']}"
+          f" [{card}]")
+    print(f"soak calibration: threshold {thr['threshold']} at sensitivity "
+          f"{thr['sensitivity']} after {thr['passes']} passes of 1,024 "
+          f"windows (target {thr['target_detection_rate']})")
+    print(f"soak detections: {acts['approved']} approved = "
+          f"{acts['approved'] / rec['seconds']:.2f}/s, persisted "
+          f"{acts['detections_persisted']}, rows in the db {rows}, clips "
+          f"{acts['clips_written']}, mqtt {acts['mqtt_published']}, alerts "
+          f"{acts['alerts_evaluated']}")
+    print("soak job queue by category: " + ", ".join(
+        f"{c} {v['enqueued']}/{v['completed']}/{v['dropped']}"
+        for c, v in rec["jobqueue_by_category"].items() if v["enqueued"])
+        + " (enqueued/completed/dropped)")
+    print(f"soak drops: {da}; mel kernel launches "
+          f"{cal['mel_kernel_launches']} for {cal['batches_dispatched']} "
+          f"batches ({rec['windows_processed'] / cal['batches_dispatched']:.1f}"
+          f" windows a batch)")
+    print(f"soak host plane: scheduler_stall_ms_max "
+          f"{rec['ring']['scheduler_stall_ms_max']}, tick_busy_ms "
+          f"{tick['tick_busy_ms']} over {tick['ticks']} ticks, GC pauses "
+          f"over 50 ms {rec['host']['gc_pauses_over_50ms']}, maxrss "
+          f"{rec['host']['maxrss_mb']} MB, ring high water "
+          f"{rec['ring']['backlog_high_water_pct']}%, grown "
+          f"{rec['ring']['grown']}")
+    assert da["farm_samples_lost"] == 0 and \
+        da["scheduler_windows_dropped"] == 0 and \
+        da["jobqueue_dropped_critical"] == 0, da
+    assert lat["p95"] < SOAK_P95_MS, lat
+    assert rec["steady_windows_per_second"] >= \
+        SOAK_RATE * rec["expected_windows_per_second"], rec
+    assert thr["threshold"] is not None, thr
+    assert acts["detections_persisted"] == acts["approved"] == rows, \
+        (acts, rows)
+    assert cal["mel_kernel_launches"] == cal["batches_dispatched"] > 0, cal
+    print(f"phase 14 (soak) {time.monotonic() - t0:.1f} s [{card}]")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -2341,6 +2498,7 @@ def main() -> None:
     phase_imported(dev, card)
     phase_train(dev, card)
     phase_int8(dev, card)
+    phase_soak(dev, card)
     print(f"total {time.monotonic() - t0:.1f} s")
     print(f"kernels line: melspec_fused at the v2.4 main path's [{BATCH}, "
           f"{CLIP}] bf16; expand_dw_pool and scale_project summed over the "

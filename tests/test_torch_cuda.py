@@ -788,3 +788,39 @@ def test_int8_boundary_on_card_equals_cpu(dev, dtype):
     assert torch.equal(q.cpu(), quantize_boundary(h, dtype))
     assert torch.equal(int8_boundary(h.to(dev), dtype).cpu(),
                        int8_boundary(h, dtype))
+
+
+def test_soak_on_card_launches_the_mel_kernel_once_a_batch(dev, tmp_path):
+    """A short ``run_soak(device="cuda")``: full-width v2.4 on the card,
+    64 streams; no sample lost, no window dropped, the mel kernel launched
+    once for every batch dispatched, and the card named in the record."""
+    from birdnet_go_tpu_torch.scheduler.soak import run_soak
+
+    rec = run_soak(streams=64, seconds=6.0, device="cuda",
+                   db_path=str(tmp_path / "soak.db"), sample_seconds=2.0)
+    da, cal = rec["drop_accounting"], rec["calibration"]
+    assert da["farm_samples_lost"] == da["scheduler_windows_dropped"] == 0
+    assert rec["windows_processed"] > 0
+    assert cal["mel_kernel_launches"] == cal["batches_dispatched"] > 0
+    assert cal["mode"] == "device step (cuda)" and "H100" in cal["card"]
+
+
+def test_soak_cli_refuses_without_a_card(monkeypatch, capsys, tmp_path):
+    """Without a card, ``soak`` (cuda by default) exits 1 and names
+    ``--device cpu``; ``run_soak(device="cuda")`` raises. Runs on the CPU
+    too: the card is hidden."""
+    from birdnet_go_tpu_torch.cli import main as tcli
+    from birdnet_go_tpu_torch.scheduler import soak
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    called = []
+    monkeypatch.setattr(soak, "run_soak", lambda **kw: called.append(kw))
+    for argv in (["soak"], ["soak", "--device", "cuda", "--streams", "8"]):
+        assert tcli.main(argv) == 1
+        assert "pass --device cpu" in capsys.readouterr().err
+    assert called == []
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        soak.run_soak(streams=4, seconds=1.0, device="cuda",
+                      db_path=str(tmp_path / "x.db"))

@@ -407,7 +407,20 @@ def test_port_imports_with_jax_and_jax_package_blocked():
             "birdnet_go_tpu_torch.train.dataset",
             "birdnet_go_tpu_torch.train.trainer",
             "birdnet_go_tpu_torch.inference.checkpoint",
-            "birdnet_go_tpu_torch.models.catalog"} <= set(mods)
+            "birdnet_go_tpu_torch.models.catalog",
+            "birdnet_go_tpu_torch.config",
+            "birdnet_go_tpu_torch.config.settings",
+            "birdnet_go_tpu_torch.taxonomy.nonbird",
+            "birdnet_go_tpu_torch.taxonomy.openfauna",
+            "birdnet_go_tpu_torch.utils.suncalc",
+            "birdnet_go_tpu_torch.analysis.deep_detection",
+            "birdnet_go_tpu_torch.analysis.dynamic_threshold",
+            "birdnet_go_tpu_torch.analysis.processor",
+            "birdnet_go_tpu_torch.analysis.jobqueue",
+            "birdnet_go_tpu_torch.analysis.actions",
+            "birdnet_go_tpu_torch.datastore",
+            "birdnet_go_tpu_torch.datastore.sqlite",
+            "birdnet_go_tpu_torch.scheduler.soak"} <= set(mods)
     res = subprocess.run([sys.executable, "-c",
                           _GUARDED_IMPORT % (_BLOCKED, mods)],
                          cwd=REPO, capture_output=True, text=True,
@@ -433,3 +446,15 @@ def test_no_import_of_the_jax_package(where):
     for f in files:
         for name in _imported_names(f):
             assert name.split(".")[0] not in _BLOCKED, (f, name)
+
+
+def test_only_the_bridge_imports_both_packages():
+    """Outside the tests, ``convert_jax_checkpoint.py`` is the one file
+    that imports both the JAX package and the port."""
+    files = [*REPO.glob("*.py"), *(REPO / "birdnet_go_tpu").rglob("*.py"),
+             *(REPO / "birdnet_go_tpu_torch").rglob("*.py")]
+    assert REPO / "chip_smoke.py" in files
+    both = [str(f.relative_to(REPO)) for f in sorted(files)
+            if {"birdnet_go_tpu", "birdnet_go_tpu_torch"} <= {
+                n.split(".")[0] for n in _imported_names(f)}]
+    assert both == ["convert_jax_checkpoint.py"]

@@ -7,19 +7,17 @@ sequentially, so the SSE/MQTT payloads carry the DB-assigned detection id.
 SaveAudio extracts the clip from the CaptureBuffer by wall-clock and is
 scheduled separately.
 
-``SaveAudioAction`` is left out of this copy: it needs the capture buffer,
-loudness normalisation, the streaming resampler and the clip encoder,
-which the port does not have yet.
-
 A copy of ``birdnet_go_tpu/analysis/actions.py`` for the port, which
 imports nothing of the JAX package; ``tests/test_torch_detection.py``
-holds it to the original.
+(``SaveAudioAction``: ``tests/test_torch_aux.py``) holds it to the
+original.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from pathlib import Path
 from typing import Any, Callable, Protocol
 
@@ -68,6 +66,97 @@ class DatabaseAction:
             contributions=self.contributions, results=self.results)
         if self.on_saved:
             self.on_saved(self.assigned_id)
+
+
+@dataclasses.dataclass
+class SaveAudioAction:
+    """Clip export: CaptureBuffer.read_segment by wall-clock → WAV.
+
+    Reference: SaveAudioAction w/ deferred retries for extended capture
+    (extended_capture.go) — if the requested span isn't fully buffered yet
+    the action raises so the JobQueue retries later.
+    """
+
+    capture_buffer: Any               # audio.CaptureBuffer
+    start_time: float
+    end_time: float
+    out_path: str | Path
+    sample_rate: int = 48000
+    description: str = "export audio clip"
+    # Fallback: the detection window's own PCM (queued through the pipeline,
+    # process.go:388-396 deep copy). Used when the CaptureBuffer ring has
+    # already overwritten the requested span (slow flush / long deadline).
+    fallback_pcm: Any = None          # np.ndarray | None
+    fallback_rate: int = 0
+    # Bird detections recorded through a shared high-rate (bat) source
+    # are downsampled before encoding (reference: export.go — bird clips
+    # → 48 kHz; bat clips keep native rate so echolocation survives).
+    downsample_to: int = 0
+    # Loudness: one gain resolved per clip before ANY encoder runs
+    # (reference: actions_database.go:854-880 encodeClip). When
+    # normalization["enabled"], the EBU R128 gain measured by audionorm
+    # (target LUFS capped by true peak) REPLACES the static gain_db.
+    gain_db: float = 0.0
+    normalization: dict | None = None
+
+    def _resolve_gain_lin(self, pcm, rate: int) -> float:
+        """Linear gain factor for the exported clip — the static gain_db
+        setting, or (when normalization is enabled) plan_gain's
+        LUFS/true-peak plan, used directly without a dB round-trip."""
+        norm = self.normalization or {}
+        if not norm.get("enabled"):
+            return float(10.0 ** (float(self.gain_db) / 20.0))
+        import numpy as _np
+
+        from birdnet_go_tpu_torch.audio.audionorm import (
+            NormalizeOptions,
+            plan_gain,
+        )
+
+        opts = NormalizeOptions(
+            target_lufs=float(norm.get("target_lufs", -23.0)),
+            max_true_peak_db=float(norm.get("true_peak_db", -2.0)))
+        return float(plan_gain(
+            pcm.astype(_np.float32) / 32768.0, rate, opts))
+
+    def execute(self) -> None:
+        if time.time() < self.end_time:
+            raise RuntimeError("clip span not fully captured yet")
+        pcm = self.capture_buffer.read_segment(self.start_time, self.end_time)
+        # locals only: a JobQueue RETRY re-runs execute() from the top, so
+        # mutating self.sample_rate would make the second attempt encode
+        # native-rate PCM under a downsampled header
+        rate = self.sample_rate
+        if not pcm.any() and self.fallback_pcm is not None \
+                and self.fallback_rate:
+            pcm = self.fallback_pcm
+            rate = self.fallback_rate
+        if self.downsample_to and rate > self.downsample_to:
+            import numpy as _np
+
+            from birdnet_go_tpu_torch.audio.resampler import StreamingResampler
+
+            rs = StreamingResampler(rate, self.downsample_to)
+            # the resampler is float32 at the INPUT'S scale — convert back
+            # to int16 or write_wav would rescale by 32768 and clip every
+            # sample to full scale
+            y = _np.concatenate([rs.process(pcm), rs.flush()])
+            pcm = _np.clip(_np.round(y), -32768, 32767).astype(_np.int16)
+            rate = self.downsample_to
+        gain_lin = self._resolve_gain_lin(pcm, rate)
+        if gain_lin != 1.0:
+            import numpy as _np
+
+            pcm = _np.clip(_np.round(
+                pcm.astype(_np.float32) * gain_lin),
+                -32768, 32767).astype(_np.int16)
+        from birdnet_go_tpu_torch.audio.encode import encode_clip
+
+        out = Path(self.out_path)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        # format by suffix: native wav/flac, ffmpeg-gated aac/opus/mp3
+        # (falls back to FLAC when ffmpeg is absent); atomic temp+rename
+        encode_clip(pcm, rate, out)
 
 
 _PARAM_NAME_OK = None   # compiled lazily

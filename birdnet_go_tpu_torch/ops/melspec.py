@@ -194,9 +194,17 @@ def _rdft_power_matmul(frames: torch.Tensor, n_fft: int) -> torch.Tensor:
     return flat[..., _const(pos_of_k, frames.device)]
 
 
+@functools.lru_cache(maxsize=16)
+def _window_on(cfg: MelConfig, device: torch.device) -> torch.Tensor:
+    """``_window_fn(cfg)`` uploaded to `device` once (an ordinary tensor,
+    also when the first caller runs in inference mode)."""
+    with torch.inference_mode(False):
+        return _const(_window_fn(cfg), device)
+
+
 def _spectrum(frames: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     """Windowed frames → power (or magnitude) spectrum [..., F, n_bins]."""
-    fw = frames * _const(_window_fn(cfg), frames.device)
+    fw = frames * _window_on(cfg, frames.device)
     if cfg.use_matmul_fft:
         power = _rdft_power_matmul(fw, cfg.n_fft)
     else:

@@ -53,6 +53,16 @@ def _band_matrix(sample_rate: int, n_fft: int, fmin: float, fmax: float
     return m, centers
 
 
+@functools.lru_cache(maxsize=16)
+def _band_matrix_on(sample_rate: int, n_fft: int, fmin: float, fmax: float,
+                    device: torch.device) -> torch.Tensor:
+    """``_band_matrix`` uploaded to `device` once (an ordinary tensor, also
+    when the first caller runs in inference mode)."""
+    m, _ = _band_matrix(sample_rate, n_fft, fmin, fmax)
+    with torch.inference_mode(False):
+        return torch.from_numpy(m).to(device)
+
+
 def band_levels_db(pcm: torch.Tensor, cfg: SoundLevelConfig
                    ) -> tuple[torch.Tensor, np.ndarray]:
     """float32 PCM [..., T] → (levels dBFS [..., n_bands], centers).
@@ -64,9 +74,10 @@ def band_levels_db(pcm: torch.Tensor, cfg: SoundLevelConfig
                         hop=cfg.hop, window="hann", use_matmul_fft=False)
     frames = frame_signal(pcm, mel_cfg)
     power = _spectrum(frames, mel_cfg)           # [..., F, bins]
-    m, centers = _band_matrix(cfg.sample_rate, cfg.n_fft, cfg.fmin, cfg.fmax)
-    band_power = torch.einsum("...fk,kb->...b", power,
-                              torch.from_numpy(m).to(power.device))
+    _, centers = _band_matrix(cfg.sample_rate, cfg.n_fft, cfg.fmin,
+                              cfg.fmax)
+    band_power = torch.einsum("...fk,kb->...b", power, _band_matrix_on(
+        cfg.sample_rate, cfg.n_fft, cfg.fmin, cfg.fmax, power.device))
     # normalize: window energy + frame count → mean-square per sample
     n_frames = frames.shape[-2]
     win = np.hanning(cfg.n_fft)

@@ -24,9 +24,12 @@ Per-window serving latency is measured against the window's realtime
 deadline (the moment its last sample was produced), so queueing, packing,
 dispatch, device time, and result fan-out are all inside the number.
 
-Not ported: the kitchen-sink aux planes (live HLS, sound levels, LUFS,
-spectrogram pre-rendering, range rebuilds, the dual-write migration),
-whose modules the port does not have yet; ``kitchen_sink=True`` raises.
+``kitchen_sink=True`` runs every aux plane in the soak's process
+(``_AuxPlanes``): a live FLAC HLS session, sound levels and LUFS, the
+spectrogram pre-renderer, range-filter rebuilds and a dual-write legacy
+migration. Their device work (renders, band levels, the Geomodel) runs on
+the soak's device, the card for "cuda" and the CPU for "cpu" and "stub",
+on a CUDA stream of its own on the card.
 """
 
 from __future__ import annotations
@@ -119,6 +122,219 @@ def _cpu_steal() -> tuple[int, int] | None:
         return (vals[7] if len(vals) > 7 else 0, sum(vals))
     except (OSError, ValueError, IndexError):
         return None
+
+
+class _AuxPlanes:
+    """Everything-on-at-once auxiliary load ("kitchen sink"): a live HLS
+    session cutting real FLAC fMP4 segments from a tone capture,
+    per-second sound-level computation (IEC third-octave + BS.1770 LUFS),
+    spectrogram pre-rendering to PNG, periodic range-filter (geomodel MLP)
+    rebuilds, and a dual-write legacy-DB migration against the soak's OWN
+    datastore — all inside the soak process, to prove the aux planes
+    don't contaminate the hot path. The reference runs all of this
+    concurrently in one process (audio_pipeline_service.go:139).
+
+    The port's copy of the JAX soak's planes. The renders, band levels and
+    Geomodel run on `device`; on the card every plane's device work goes
+    to a CUDA stream of the planes' own (the pre-renderer's worker to one
+    of its own), so none queues behind the served step."""
+
+    def __init__(self, store, device: torch.device):
+        import sqlite3
+        import tempfile
+
+        self.counters = {"hls_segments": 0, "soundlevel_blocks": 0,
+                         "lufs_blocks": 0, "range_rebuilds": 0,
+                         "aux_errors": 0}
+        self.device = device
+        self._stop = threading.Event()
+        self._threads: list[threading.Thread] = []
+        self._tmp = tempfile.TemporaryDirectory(prefix="soak_aux_")
+        self.store = store
+
+        # tone bank shared by the HLS / soundlevel / spectrogram planes
+        t = np.arange(48000 * 3) / 48000.0
+        self._tone = (8000 * np.sin(2 * np.pi * 1200 * t)
+                      + 1500 * np.sin(2 * np.pi * 7300 * t)).astype(np.int16)
+
+        # legacy DB for the live dual-write migration (miniature of the
+        # reference GORM schema — datastore/model.go)
+        self._legacy = f"{self._tmp.name}/legacy.db"
+        conn = sqlite3.connect(self._legacy)
+        conn.executescript("""
+        CREATE TABLE notes (id INTEGER PRIMARY KEY, source_node TEXT,
+          date TEXT, time TEXT, scientific_name TEXT, common_name TEXT,
+          species_code TEXT, confidence REAL, latitude REAL,
+          longitude REAL, threshold REAL, sensitivity REAL,
+          clip_name TEXT);
+        CREATE TABLE results (id INTEGER PRIMARY KEY, note_id INTEGER,
+          species TEXT, confidence REAL);
+        CREATE TABLE note_reviews (id INTEGER PRIMARY KEY, note_id INTEGER,
+          verified TEXT, created_at TEXT, updated_at TEXT);
+        CREATE TABLE note_comments (id INTEGER PRIMARY KEY,
+          note_id INTEGER, entry TEXT, created_at TEXT, updated_at TEXT);
+        CREATE TABLE note_locks (id INTEGER PRIMARY KEY, note_id INTEGER,
+          locked_at TEXT);
+        """)
+        # sized so the throttled copy (~200 rows/s) cannot finish inside
+        # a 240 s leg — the hot path must coexist with the migration for
+        # the WHOLE soak, not a warmup sliver
+        rows = [("2024-05-02", f"{6 + (i // 60) % 12:02d}:{i % 60:02d}:00",
+                 f"Migratus species{i}", f"Migrant {i}", f"mig{i}",
+                 0.5 + (i % 40) / 100.0, "") for i in range(150_000)]
+        conn.executemany(
+            "INSERT INTO notes (date, time, scientific_name, common_name,"
+            " species_code, confidence, clip_name) VALUES (?,?,?,?,?,?,?)",
+            rows)
+        conn.commit()
+        conn.close()
+        self.migration = None
+        self.prerenderer = None
+
+    def _spawn(self, fn, name):
+        th = threading.Thread(target=fn, name=name, daemon=True)
+        th.start()
+        self._threads.append(th)
+
+    def start(self):
+        from birdnet_go_tpu_torch.analysis.spectrogram import PreRenderer
+        from birdnet_go_tpu_torch.audio.audionorm import measure_lufs
+        from birdnet_go_tpu_torch.audio.buffers import CaptureBuffer
+        from birdnet_go_tpu_torch.audio.hlsmux import HlsSession
+        from birdnet_go_tpu_torch.datastore.migration import MigrationWorker
+        from birdnet_go_tpu_torch.models.geomodel import (
+            Geomodel,
+            GeomodelConfig,
+        )
+        from birdnet_go_tpu_torch.ops.soundlevel import (
+            SoundLevelConfig,
+            band_levels_db,
+        )
+        from birdnet_go_tpu_torch.ops.streams import on_stream, side_stream
+
+        dev = self.device
+        stream = side_stream(dev)
+        cb = CaptureBuffer(48000, capacity_seconds=30.0)
+        sess = HlsSession("aux:hls", cb, segment_seconds=2.0)
+
+        def hls_plane():
+            pos = 0
+            while not self._stop.wait(0.25):
+                chunk = np.resize(self._tone[pos:pos + 12000], 12000)
+                pos = (pos + 12000) % len(self._tone)
+                try:
+                    cb.write(chunk)
+                    if sess.tick():
+                        self.counters["hls_segments"] += 1
+                except Exception:
+                    log.exception("aux hls")
+                    self.counters["aux_errors"] += 1
+
+        cfg = SoundLevelConfig(sample_rate=48000)
+        pcm_f = self._tone[:48000].astype(np.float32) / 32768.0
+
+        def levels():
+            with on_stream(stream):
+                band_levels_db(torch.from_numpy(pcm_f).to(dev),
+                               cfg)[0].cpu()
+
+        # warm every aux device path SYNCHRONOUSLY, before the soak clock
+        # starts (start() runs before loop.start()/farm.start()): cuFFT
+        # plans, cuDNN's choices and the cached constants are made here,
+        # not inside the leg
+        levels()
+        measure_lufs(pcm_f, 48000)
+
+        def soundlevel_plane():
+            while not self._stop.wait(1.0):
+                try:
+                    levels()
+                    self.counters["soundlevel_blocks"] += 1
+                    measure_lufs(pcm_f, 48000)
+                    self.counters["lufs_blocks"] += 1
+                except Exception:
+                    log.exception("aux soundlevel")
+                    self.counters["aux_errors"] += 1
+
+        self.prerenderer = PreRenderer(workers=1, device=dev)
+        self.prerenderer.start()
+        # warm the render path on the worker itself: submit one and wait
+        # for the render to land
+        self.prerenderer.submit(self._tone, 48000,
+                                f"{self._tmp.name}/spec_warm.png", width=400)
+        warm_deadline = time.monotonic() + 30.0
+        while (self.prerenderer.rendered + self.prerenderer.dropped) < 1 \
+                and time.monotonic() < warm_deadline:
+            time.sleep(0.05)
+
+        def spectro_plane():
+            i = 0
+            while not self._stop.wait(2.0):
+                try:
+                    self.prerenderer.submit(
+                        self._tone, 48000,
+                        f"{self._tmp.name}/spec_{i % 8}.png", width=400)
+                    i += 1
+                except Exception:
+                    log.exception("aux spectrogram")
+                    self.counters["aux_errors"] += 1
+
+        gm = Geomodel(GeomodelConfig(hidden=(256, 256))).init(
+            torch.Generator().manual_seed(3)).to(dev).eval()
+        grid = torch.from_numpy(np.stack([
+            np.random.default_rng(5).uniform(-60, 60, 256),
+            np.random.default_rng(6).uniform(-180, 180, 256),
+            np.full(256, 21.0)], axis=-1).astype(np.float32)).to(dev)
+
+        def rebuild():
+            with on_stream(stream), torch.inference_mode():
+                scores = gm(grid).cpu().numpy()
+            return int((scores > 0.03).sum())   # included-species count
+
+        rebuild()                                # warm (see above)
+
+        def range_plane():
+            while not self._stop.wait(45.0):
+                try:
+                    rebuild()
+                    self.counters["range_rebuilds"] += 1
+                except Exception:
+                    log.exception("aux range rebuild")
+                    self.counters["aux_errors"] += 1
+
+        # ~200 rows/s: a deliberately throttled production-shaped copy
+        # rate — a coexistence proof shares the host with the load
+        # generator, the whole pipeline and every aux plane; an
+        # unthrottled bulk copy is a benchmark of sqlite
+        self.migration = MigrationWorker(self.store, self._legacy,
+                                         batch_size=200,
+                                         sleep_between=1.0)
+        self.migration.start()
+        self._spawn(hls_plane, "aux-hls")
+        self._spawn(soundlevel_plane, "aux-soundlevel")
+        self._spawn(spectro_plane, "aux-spectrogram")
+        self._spawn(range_plane, "aux-range")
+
+    def stop_and_record(self) -> dict:
+        self._stop.set()
+        for th in self._threads:
+            th.join(timeout=10)
+        mig = {}
+        if self.migration is not None:
+            try:
+                mig = self.migration.status()
+                self.migration.stop()
+            except Exception:
+                log.exception("aux migration stop")
+        if self.prerenderer is not None:
+            self.prerenderer.stop()
+            self.counters["spectrograms_rendered"] = self.prerenderer.rendered
+            self.counters["spectrograms_dropped"] = self.prerenderer.dropped
+        self._tmp.cleanup()
+        return {**self.counters,
+                "migration": {k: mig.get(k) for k in
+                              ("state", "migrated_records",
+                               "total_records", "dual_write")}}
 
 
 class CalibratedStubBatcher(_loop.HostBatcher):
@@ -271,11 +487,6 @@ def run_soak(streams: int = 2500, seconds: float = 120.0,
     )
     from birdnet_go_tpu_torch.taxonomy.labels import synthetic_labels
 
-    if kitchen_sink:
-        raise NotImplementedError(
-            "--kitchen-sink needs the spectrogram, sound-level worker, HLS, "
-            "LUFS and migration modules, which the port does not have yet "
-            "(ROADMAP.md queue 1 item 3)")
     if device not in ("cuda", "cpu", "stub"):
         raise ValueError(f"unknown soak device: {device}")
     if device == "cuda" and not torch.cuda.is_available():
@@ -621,6 +832,11 @@ def run_soak(streams: int = 2500, seconds: float = 120.0,
                 gc_pauses.append(round(dt, 1))
 
     gc.callbacks.append(_gc_cb)
+    aux = None
+    if kitchen_sink:
+        aux = _AuxPlanes(store, torch.device(
+            "cuda" if device == "cuda" else "cpu"))
+        aux.start()
     flusher.start()
     melspec_fused.launches = 0        # the card's launches during the run
     loop.start()                      # collector first: the farm's initial
@@ -754,6 +970,7 @@ def run_soak(streams: int = 2500, seconds: float = 120.0,
             farm.stop()
         if rtsp_server is not None:
             rtsp_server.stop()
+        aux_rec = aux.stop_and_record() if aux is not None else None
         loop.stop()
         mel_launches = melspec_fused.launches
         flusher.stop()
@@ -889,6 +1106,7 @@ def run_soak(streams: int = 2500, seconds: float = 120.0,
         "burst": ({"at_seconds": burst_at, "seconds": burst_seconds,
                    "stride": burst_stride}
                   if burst_at is not None else None),
+        **({"aux_planes": aux_rec} if aux_rec is not None else {}),
         **({"durable": {
             "db_path": db_path,
             "persist_interval_s": persist_interval_s,
@@ -982,8 +1200,11 @@ def add_arguments(p) -> None:
     p.add_argument("--persist-interval", type=float, default=30.0,
                    help="durable mode: threshold snapshot interval (s)")
     p.add_argument("--kitchen-sink", action="store_true",
-                   help="run every aux plane concurrently (not ported: "
-                        "raises NotImplementedError)")
+                   help="run every aux plane concurrently (live HLS, "
+                        "sound-level, spectrogram pre-render, range "
+                        "rebuilds, dual-write migration) to prove they "
+                        "don't contaminate the hot path; their device "
+                        "work runs on --device's card or the CPU")
     p.add_argument("--out", default=None, help="append record to JSON file")
 
 

@@ -1,1 +1,2 @@
-"""Host utilities of the port: prediction tracing and the error taxonomy."""
+"""Host utilities of the port: prediction tracing, the error taxonomy, sun
+times and the legacy BirdNET-Go database readers."""

@@ -3,8 +3,9 @@
 v2.4 (EfficientNet-B0), and BirdNET v3.0 and Perch v2 (B1) through the fused
 MBConv kernels; then its offline analysis and CLI, imported .tflite and
 .onnx artifacts, custom-classifier training with the model gallery, int8
-quantization with mesh-sharded serving, and the whole realtime server in a
-2,000-stream soak.
+quantization with mesh-sharded serving, the whole realtime server in a
+2,000-stream soak, and the clip and aux planes (spectrograms, sound levels,
+clip export, live HLS) with the soak's kitchen-sink leg.
 
     python3 chip_smoke.py
 
@@ -120,7 +121,24 @@ Phases, in order; any failure propagates and exits non-zero:
    window dropped, no critical job dropped), hold latency p95 from each
    window's realtime end below 1,500 ms and steady windows/s at 0.95 of
    those offered, calibrate a threshold, persist every approval (the
-   db's rows), and launch the mel kernel once for every batch.
+   db's rows), and launch the mel kernel once for every batch;
+15. the clip and aux planes (``phase_aux``): whether Pillow imports;
+   spectrograms (bird: 3 s at 48 kHz, widths 400 and 800; bat: 1 s at
+   256 kHz) on the card and on the CPU, the colour index within 1 level at
+   no more than 1e-3 of the pixels, each PNG inflated with zlib equal to
+   the array, the device part's CUDA-event time and ``generate_png``'s
+   wall time; ``SoundLevelWorker.sample_once`` over 64 sources of 10 s at
+   48 kHz on the card and the CPU, the raw levels within 0.05 dB, ms a
+   pass; a 256 kHz capture exported by ``SaveAudioAction`` (downsampled to
+   48 kHz, normalised) as FLAC that decodes bit for bit to the PCM
+   encoded, and the file an ``.opus`` request writes; four 2 s FLAC HLS
+   segments that each decode to the captured PCM; then the soak again with
+   ``--kitchen-sink`` (every aux plane in the soak's process, its device
+   work on the card), with phase 14's gates and no aux error, at least 20
+   HLS segments, 40 sound-level and LUFS blocks and 20 renders (none
+   dropped), and a migration copying with dual-write installed; its
+   numbers printed beside phase 14's. The aux planes launch none of the
+   three kernels.
 
 Every kernel line carries its bound (``ops/roofline.py``: the larger of its
 bytes over the memory rate and its operations over the peak for their type)
@@ -138,6 +156,7 @@ import concurrent.futures
 import contextlib
 import copy
 import functools
+import importlib
 import io
 import json
 import os
@@ -148,7 +167,9 @@ import struct
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -158,8 +179,19 @@ from birdnet_go_tpu_torch.analysis.offline import (
     OfflineAnalyzer,
     OfflineConfig,
 )
+from birdnet_go_tpu_torch.analysis.actions import SaveAudioAction
 from birdnet_go_tpu_torch.analysis.raven import format_csv, format_raven_table
-from birdnet_go_tpu_torch.audio.buffers import AnalysisBuffer
+from birdnet_go_tpu_torch.analysis.soundlevel_worker import SoundLevelWorker
+from birdnet_go_tpu_torch.analysis.spectrogram import (
+    FrequencyProfile,
+    generate_png,
+    render_spectrogram,
+    spectrogram_index,
+)
+from birdnet_go_tpu_torch.audio import encode
+from birdnet_go_tpu_torch.audio.buffers import AnalysisBuffer, CaptureBuffer
+from birdnet_go_tpu_torch.audio.flac import decode_flac, streaminfo_block
+from birdnet_go_tpu_torch.audio.hlsmux import HlsSession
 from birdnet_go_tpu_torch.audio.wav import read_wav
 from birdnet_go_tpu_torch.cli import main as cli
 from birdnet_go_tpu_torch.diag import replicas
@@ -244,6 +276,7 @@ from birdnet_go_tpu_torch.train.trainer import (
 )
 from birdnet_go_tpu_torch.utils.tracing import GLOBAL_SPANS
 
+T_START = time.monotonic()
 REPO = Path(__file__).resolve().parent
 SEED = 0
 CLIP = 144000                # 3 s at 48 kHz
@@ -2330,7 +2363,7 @@ def _mem_available_gib() -> float:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
-def phase_soak(dev: torch.device, card: str) -> None:
+def phase_soak(dev: torch.device, card: str) -> dict:
     """Phase 14: the v2.4 step timed at the stub's two batch sizes (by
     CUDA events around one call, in turns, after three calls of each
     shape; the host's share and the device time by graph replay printed
@@ -2343,7 +2376,8 @@ def phase_soak(dev: torch.device, card: str) -> None:
     window dropped, no critical job dropped); latency p95 below half the
     clip; steady windows/s at least 0.95 of those offered; calibration set
     a threshold; every approval persisted, and the db file holds as many
-    rows; the mel kernel launched once a batch."""
+    rows; the mel kernel launched once a batch. Returns the soak's
+    record."""
     t0 = time.monotonic()
     v24 = BirdNETv24().init(torch.Generator().manual_seed(SEED))
     batcher = TorchModelBatcher(TorchClassifier(v24, dev), max_batch=256)
@@ -2382,22 +2416,34 @@ def phase_soak(dev: torch.device, card: str) -> None:
     del batcher, v24, xs
     torch.cuda.empty_cache()
 
+    rec = _soak_leg(card, "soak", SOAK_SECONDS)
+    print(f"phase 14 (soak) {time.monotonic() - t0:.1f} s [{card}]")
+    return rec
+
+
+def _soak_leg(card: str, name: str, seconds: float, *extra: str) -> dict:
+    """``python -m birdnet_go_tpu_torch soak --device cuda`` over
+    SOAK_STREAMS streams for `seconds`, with `extra` flags, in a process
+    of its own (record, db and log under ``build/<name>_smoke/``), with
+    phase 14's prints and gates; returns its record, with the db's rows
+    of the soak's detections under ``db_rows`` (and of the kitchen-sink
+    migration's copies under ``db_migrated_rows``)."""
     ring_gib = SOAK_STREAMS * SOAK_RING_SECONDS * 48000 * 2 / 2**30
     avail = _mem_available_gib()
-    print(f"soak host: {avail:.1f} GiB available, the rings take "
+    print(f"{name} host: {avail:.1f} GiB available, the rings take "
           f"{ring_gib:.1f} GiB ({SOAK_STREAMS} streams x "
           f"{SOAK_RING_SECONDS} s x 48 kHz x int16)")
     assert avail > 2 * ring_gib, "the host lacks memory for the soak's rings"
-    out = REPO / "build" / "soak_smoke"
+    out = REPO / "build" / f"{name}_smoke"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     db, rec_path = out / "soak.db", out / "soak.json"
     cmd = [sys.executable, "-m", "birdnet_go_tpu_torch", "soak", "--device",
            "cuda", "--streams", str(SOAK_STREAMS), "--seconds",
-           str(SOAK_SECONDS), "--db", str(db), "--out", str(rec_path)]
+           str(seconds), "--db", str(db), "--out", str(rec_path), *extra]
     t1 = time.monotonic()
     proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=SOAK_SECONDS + 300)
+                          timeout=seconds + 300)
     wall = time.monotonic() - t1
     (out / "soak.log").write_text(proc.stderr)
     if proc.returncode != 0:
@@ -2409,35 +2455,42 @@ def phase_soak(dev: torch.device, card: str) -> None:
     thr = cal["threshold_calibration"]
     acts, da = rec["actions"], rec["drop_accounting"]
     with contextlib.closing(sqlite3.connect(str(db))) as conn:
-        rows = conn.execute("SELECT COUNT(*) FROM detections").fetchone()[0]
+        # the kitchen-sink leg's migration copies legacy rows into the
+        # same table, under a source of its own
+        rows, migrated = conn.execute(
+            "SELECT SUM(source_id != 'import:birdnet-go'),"
+            " SUM(source_id = 'import:birdnet-go') FROM detections"
+        ).fetchone()
+    rows, migrated = rows or 0, migrated or 0
     tick = rec["timeline"][-1]
-    print(f"soak: {rec['streams']} v2.4 streams for {rec['seconds']} s in "
+    print(f"{name}: {rec['streams']} v2.4 streams for {rec['seconds']} s in "
           f"{wall:.1f} s of process (warmup {cal['warmup_s']} s): "
           f"{rec['windows_per_second']} windows/s, steady "
           f"{rec['steady_windows_per_second']} of "
           f"{rec['expected_windows_per_second']} offered, stream "
           f"equivalents sustained {rec['stream_equivalents_sustained']} "
           f"[{cal['card']}]")
-    print(f"soak latency from the window's realtime end (steady, ms): p50 "
+    print(f"{name} latency from the window's realtime end (steady, ms): p50 "
           f"{lat['p50']} p95 {lat['p95']} p99 {lat['p99']} max {lat['max']}"
           f" [{card}]")
-    print(f"soak calibration: threshold {thr['threshold']} at sensitivity "
+    print(f"{name} calibration: threshold {thr['threshold']} at sensitivity "
           f"{thr['sensitivity']} after {thr['passes']} passes of 1,024 "
           f"windows (target {thr['target_detection_rate']})")
-    print(f"soak detections: {acts['approved']} approved = "
+    print(f"{name} detections: {acts['approved']} approved = "
           f"{acts['approved'] / rec['seconds']:.2f}/s, persisted "
-          f"{acts['detections_persisted']}, rows in the db {rows}, clips "
+          f"{acts['detections_persisted']}, rows in the db {rows} (and "
+          f"{migrated} migrated), clips "
           f"{acts['clips_written']}, mqtt {acts['mqtt_published']}, alerts "
           f"{acts['alerts_evaluated']}")
-    print("soak job queue by category: " + ", ".join(
+    print(f"{name} job queue by category: " + ", ".join(
         f"{c} {v['enqueued']}/{v['completed']}/{v['dropped']}"
         for c, v in rec["jobqueue_by_category"].items() if v["enqueued"])
         + " (enqueued/completed/dropped)")
-    print(f"soak drops: {da}; mel kernel launches "
+    per_batch = rec["windows_processed"] / cal["batches_dispatched"]
+    print(f"{name} drops: {da}; mel kernel launches "
           f"{cal['mel_kernel_launches']} for {cal['batches_dispatched']} "
-          f"batches ({rec['windows_processed'] / cal['batches_dispatched']:.1f}"
-          f" windows a batch)")
-    print(f"soak host plane: scheduler_stall_ms_max "
+          f"batches ({per_batch:.1f} windows a batch)")
+    print(f"{name} host plane: scheduler_stall_ms_max "
           f"{rec['ring']['scheduler_stall_ms_max']}, tick_busy_ms "
           f"{tick['tick_busy_ms']} over {tick['ticks']} ticks, GC pauses "
           f"over 50 ms {rec['host']['gc_pauses_over_50ms']}, maxrss "
@@ -2454,7 +2507,259 @@ def phase_soak(dev: torch.device, card: str) -> None:
     assert acts["detections_persisted"] == acts["approved"] == rows, \
         (acts, rows)
     assert cal["mel_kernel_launches"] == cal["batches_dispatched"] > 0, cal
-    print(f"phase 14 (soak) {time.monotonic() - t0:.1f} s [{card}]")
+    rec["db_rows"], rec["db_migrated_rows"] = rows, migrated
+    return rec
+
+
+AUX_SOURCES = 64             # sound levels: 64 sources of 10 s at 48 kHz
+AUX_LEVEL_SECONDS = 10.0
+AUX_SPECTROGRAMS = (("bird", 48000, 3.0, 400), ("bird", 48000, 3.0, 800),
+                    ("bat", 256000, 1.0, 800))
+AUX_INDEX_SHARE = 1e-3       # pixels whose colour index may differ by 1
+AUX_LEVEL_GAP_DB = 0.05
+AUX_HLS_SEGMENTS = 4
+KS_HLS = 20                  # the kitchen-sink leg's floors (45 s)
+KS_LEVELS = 40
+KS_RENDERS = 20
+
+
+def tone_over_noise(rate: int, seconds: float, seed: int) -> np.ndarray:
+    """float32 PCM: a 2.5 kHz tone at -16 dBFS over -40 dBFS noise (and
+    a 40 kHz pulse train at a bat rate)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(rate * seconds)) / rate
+    x = 0.16 * np.sin(2 * np.pi * 2500 * t) + 0.01 * rng.standard_normal(
+        len(t))
+    if rate > 96000:
+        x += 0.1 * np.sin(2 * np.pi * 40000 * t) * (np.sin(40 * t) > 0.9)
+    return x.astype(np.float32)
+
+
+def png_pixels(path: Path) -> np.ndarray:
+    """An 8-bit RGB PNG of filter-0 rows (the port's writer) → [H, W, 3],
+    read with zlib alone."""
+    data = path.read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n", path
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            assert (depth, color) == (8, 2), (depth, color)
+            size = (h, w)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    h, w = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + 3 * w)
+    assert (rows[:, 0] == 0).all(), "a row with a filter other than 0"
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+class _LevelEngine:
+    """A stand-in engine: AUX_SOURCES sources, each a 48 kHz
+    ``CaptureBuffer`` holding AUX_LEVEL_SECONDS of a tone over noise that
+    ends at `now`."""
+
+    def __init__(self, now: float):
+        self._src, self._cb = [], {}
+        for i in range(AUX_SOURCES):
+            sid = f"src{i}"
+            cb = CaptureBuffer(48000, capacity_seconds=12.0)
+            x = tone_over_noise(48000, AUX_LEVEL_SECONDS, 100 + i)
+            cb.write((x * 32767).astype(np.int16),
+                     timestamp=now - AUX_LEVEL_SECONDS)
+            self._src.append(SimpleNamespace(source_id=sid))
+            self._cb[sid] = cb
+
+    def sources(self):
+        return self._src
+
+    def capture_buffer(self, sid):
+        return self._cb.get(sid)
+
+
+def _raw_levels(worker: SoundLevelWorker, now: float) -> list[np.ndarray]:
+    """One ``sample_once`` pass at `now`, recording each source's
+    unrounded levels (the record rounds them to 0.1 dB)."""
+    raw, levels = [], worker._levels
+
+    def record(pcm, rate):
+        raw.append(levels(pcm, rate))
+        return raw[-1]
+
+    worker._levels = record
+    try:
+        out = worker.sample_once(now)
+    finally:
+        del worker._levels
+    assert len(out) == AUX_SOURCES and len(raw) == AUX_SOURCES
+    return raw
+
+
+def _mdat(segment: bytes) -> bytes:
+    """The payload of a media segment's top-level ``mdat`` box."""
+    pos = 0
+    while pos + 8 <= len(segment):
+        size, kind = struct.unpack(">I4s", segment[pos:pos + 8])
+        if kind == b"mdat":
+            return segment[pos + 8:pos + size]
+        pos += size
+    raise AssertionError("no mdat box")
+
+
+def phase_aux(dev: torch.device, card: str, plain: dict) -> None:
+    """Phase 15, the clip and aux planes: whether Pillow imports here;
+    spectrograms (bird, 3 s at 48 kHz, widths 400 and 800; bat, 1 s at
+    256 kHz, width 800) on the card and on the CPU, their colour index
+    within 1 level at no more than 1e-3 of the pixels, the PNG read back
+    with zlib equal to the array; ``SoundLevelWorker.sample_once`` over 64
+    sources of 10 s on the card and the CPU, the raw levels within
+    0.05 dB; a 256 kHz capture exported by ``SaveAudioAction`` as a 48 kHz
+    normalised FLAC that decodes to the PCM encoded, and what an ``.opus``
+    request writes; four 2 s FLAC HLS segments that decode to the capture;
+    then the 2,000-stream soak with ``--kitchen-sink`` in its own process,
+    with phase 14's gates and the aux planes' (no aux error, the floors of
+    their counters, a live migration with dual-write), beside `plain`,
+    phase 14's record."""
+    t0 = time.monotonic()
+    try:
+        pil = importlib.import_module("PIL").__version__
+    except ImportError:
+        pil = "no"
+    print(f"aux: Pillow on this machine: {pil} (the port writes its PNGs "
+          f"without it)")
+    out = REPO / "build" / "aux_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+
+    for name, rate, seconds, width in AUX_SPECTROGRAMS:
+        prof = getattr(FrequencyProfile, name)()
+        x = tone_over_noise(rate, seconds, 7)
+        got = spectrogram_index(x, rate, width, profile=prof, device=dev)
+        ms = [event_ms(lambda: spectrogram_index(x, rate, width,
+                                                 profile=prof, device=dev))
+              for _ in range(REPS)]
+        t1 = time.perf_counter()
+        want = spectrogram_index(x, rate, width, profile=prof, device="cpu")
+        cpu_ms = (time.perf_counter() - t1) * 1e3
+        gap = np.abs(got.astype(int) - want)
+        share = float((gap > 0).mean())
+        path = out / f"{name}_{width}.png"
+        t1 = time.perf_counter()
+        generate_png(x, rate, path, width, prof, device=dev)
+        png_ms = (time.perf_counter() - t1) * 1e3
+        rgb = render_spectrogram(x, rate, width, profile=prof, device=dev)
+        assert rgb.shape == (got.shape[0], width, 3), rgb.shape
+        assert np.array_equal(png_pixels(path), rgb), path
+        print(f"aux spectrogram {name} {seconds:g} s at {rate} Hz, width "
+              f"{width}: index {got.shape}, card vs CPU max {gap.max()} "
+              f"level at {share:.3e} of the pixels; device part "
+              f"{np.median(ms):.4f} ms [{min(ms):.4f}, {max(ms):.4f}] by "
+              f"CUDA events (CPU {cpu_ms:.1f} ms), generate_png "
+              f"{png_ms:.1f} ms wall, {path.stat().st_size} bytes [{card}]")
+        assert gap.max() <= 1 and share <= AUX_INDEX_SHARE, (gap.max(),
+                                                             share)
+
+    now = time.time()
+    engine = _LevelEngine(now)
+    card_worker = SoundLevelWorker(engine, device=dev)
+    cpu_worker = SoundLevelWorker(engine, device="cpu")
+    card_worker.sample_once(now)                  # cuFFT plans, constants
+    times = []
+    for _ in range(REPS):
+        t1 = time.perf_counter()
+        card_levels = _raw_levels(card_worker, now)
+        times.append((time.perf_counter() - t1) * 1e3)
+    t1 = time.perf_counter()
+    cpu_levels = _raw_levels(cpu_worker, now)
+    cpu_ms = (time.perf_counter() - t1) * 1e3
+    gap = max(float(np.abs(a - b).max())
+              for a, b in zip(card_levels, cpu_levels))
+    print(f"aux sound levels: {AUX_SOURCES} sources x "
+          f"{AUX_LEVEL_SECONDS:g} s at 48 kHz, "
+          f"{len(card_levels[0])} bands, card vs CPU max |d| {gap:.3e} dB; "
+          f"a pass {np.median(times):.2f} ms [{min(times):.2f}, "
+          f"{max(times):.2f}] wall on the card, {cpu_ms:.1f} ms on the CPU "
+          f"[{card}]")
+    assert gap <= AUX_LEVEL_GAP_DB, gap
+
+    encoded = []
+    real_encode = encode.encode_clip
+
+    def spy(pcm, rate, path, fmt=None):
+        encoded.append((np.array(pcm), rate))
+        return real_encode(pcm, rate, path, fmt)
+
+    cb = CaptureBuffer(256000, capacity_seconds=4.0)
+    t_cap = time.time() - 3.0
+    cb.write((tone_over_noise(256000, 3.0, 9) * 32767).astype(np.int16),
+             timestamp=t_cap)
+    encode.encode_clip = spy
+    try:
+        for clip in ("clip.flac", "request.opus"):
+            SaveAudioAction(capture_buffer=cb, start_time=t_cap + 0.5,
+                            end_time=t_cap + 2.5, out_path=out / clip,
+                            sample_rate=256000, downsample_to=48000,
+                            normalization={"enabled": True}).execute()
+    finally:
+        encode.encode_clip = real_encode
+    pcm, rate = decode_flac((out / "clip.flac").read_bytes())
+    assert rate == encoded[0][1] == 48000, rate
+    assert np.array_equal(pcm, encoded[0][0]), "the FLAC clip is not lossless"
+    written = sorted(p.name for p in out.glob("request.*"))
+    print(f"aux clip export: 2 s of a 256 kHz capture -> {len(pcm)} "
+          f"samples at {rate} Hz, normalised (peak {np.abs(pcm).max()}), "
+          f"FLAC decodes bit for bit; an .opus request wrote {written} "
+          f"(ffmpeg {'found' if encode.ffmpeg_available() else 'absent'})")
+
+    cb = CaptureBuffer(48000, capacity_seconds=30.0)
+    t_hls = time.time() - 20.0
+    cb.write((tone_over_noise(48000, 10.0, 11) * 32767).astype(np.int16),
+             timestamp=t_hls)
+    session = HlsSession("aux", cb, segment_seconds=2.0)
+    for i in range(AUX_HLS_SEGMENTS):
+        assert session.tick(t_hls + 2.0 * (i + 1))
+        seg = session.segment(i + 1)
+        want = cb.read_segment(t_hls + 2.0 * i, t_hls + 2.0 * (i + 1))
+        info = streaminfo_block(48000, len(want))
+        got, _ = decode_flac(b"fLaC" + bytes([0x80, 0, 0, len(info)]) + info
+                             + _mdat(seg))
+        assert np.array_equal(got, want), i
+    print(f"aux HLS: {AUX_HLS_SEGMENTS} FLAC segments of 2 s "
+          f"({len(session.init)} byte init, {len(seg)} byte segments), "
+          f"each decodes to the captured PCM; codec {session.codec}")
+    print(f"aux phase 15 checks {time.monotonic() - t0:.1f} s [{card}]")
+
+    ks = _soak_leg(card, "kitchen_sink", SOAK_SECONDS, "--kitchen-sink")
+    aux = ks["aux_planes"]
+    mig = aux["migration"]
+    print(f"kitchen_sink aux planes: hls_segments {aux['hls_segments']}, "
+          f"soundlevel_blocks {aux['soundlevel_blocks']}, lufs_blocks "
+          f"{aux['lufs_blocks']}, spectrograms_rendered "
+          f"{aux['spectrograms_rendered']} (dropped "
+          f"{aux['spectrograms_dropped']}), range_rebuilds "
+          f"{aux['range_rebuilds']}, aux_errors {aux['aux_errors']}; "
+          f"migration {mig['state']} {mig['migrated_records']} of "
+          f"{mig['total_records']} ({ks['db_migrated_rows']} rows in the "
+          f"db), dual-write {mig['dual_write']}")
+    for leg, rec in (("plain", plain), ("kitchen-sink", ks)):
+        lat = rec["latency_ms"]
+        print(f"soak legs, {leg}: steady {rec['steady_windows_per_second']}"
+              f" windows/s of {rec['expected_windows_per_second']}, p50/p95/"
+              f"p99 {lat['p50']}/{lat['p95']}/{lat['p99']} ms, tick_busy_ms "
+              f"{rec['timeline'][-1]['tick_busy_ms']}, mel launches "
+              f"{rec['calibration']['mel_kernel_launches']} [{card}]")
+    assert aux["aux_errors"] == 0, aux
+    assert aux["hls_segments"] >= KS_HLS, aux
+    assert min(aux["soundlevel_blocks"], aux["lufs_blocks"]) >= KS_LEVELS, aux
+    assert aux["spectrograms_rendered"] >= KS_RENDERS, aux
+    assert aux["spectrograms_dropped"] == 0, aux
+    assert mig["state"] == "migrating" and mig["migrated_records"] > 0, mig
+    assert mig["dual_write"]["installed"], mig
+    print(f"phase 15 (aux planes) {time.monotonic() - t0:.1f} s [{card}]")
 
 
 def main() -> None:
@@ -2498,8 +2803,10 @@ def main() -> None:
     phase_imported(dev, card)
     phase_train(dev, card)
     phase_int8(dev, card)
-    phase_soak(dev, card)
-    print(f"total {time.monotonic() - t0:.1f} s")
+    plain = phase_soak(dev, card)
+    phase_aux(dev, card, plain)
+    print(f"total {time.monotonic() - t0:.1f} s of phases, "
+          f"{time.monotonic() - T_START:.1f} s since the imports")
     print(f"kernels line: melspec_fused at the v2.4 main path's [{BATCH}, "
           f"{CLIP}] bf16; expand_dw_pool and scale_project summed over the "
           f"{V3_FUSED} fused blocks of one v3.0 step [{BATCH}, {CLIP32}] "

@@ -8,7 +8,9 @@ float32 step on the card against the CPU, and no kernel launched by a
 train step; and int8 and meshes: ``int_mm`` exact at the shapes
 ``_int_mm`` refuses, the depthwise float route equal to int32 tap sums,
 the ``act_int8`` step against the CPU, and ``ShardedClassifier`` on meshes
-that list the card more than once.
+that list the card more than once; the soak on the card, and its aux
+planes (spectrogram index and sound levels against the CPU, a kitchen-sink
+leg).
 
 Every test needs a CUDA card and skips without one. The file imports no
 JAX, so it also runs where JAX is missing:
@@ -824,3 +826,48 @@ def test_soak_cli_refuses_without_a_card(monkeypatch, capsys, tmp_path):
     with pytest.raises(RuntimeError, match="needs a CUDA card"):
         soak.run_soak(streams=4, seconds=1.0, device="cuda",
                       db_path=str(tmp_path / "x.db"))
+
+
+def test_aux_planes_on_card_match_cpu(dev, tmp_path):
+    """The aux planes' device work on the card against the CPU: a bird
+    and a bat spectrogram's colour index within 1 level at no more than
+    1e-3 of the pixels, a sound-level pass within 0.05 dB; then a short
+    ``run_soak(device="cuda", kitchen_sink=True)`` whose aux planes run
+    on the card with no error."""
+    from birdnet_go_tpu_torch.analysis.spectrogram import (
+        FrequencyProfile,
+        spectrogram_index,
+    )
+    from birdnet_go_tpu_torch.ops.soundlevel import (
+        SoundLevelConfig,
+        band_levels_db,
+    )
+    from birdnet_go_tpu_torch.scheduler.soak import run_soak
+
+    rng = np.random.default_rng(0)
+    for rate, seconds, profile in ((48000, 3.0, FrequencyProfile.bird()),
+                                   (256000, 1.0, FrequencyProfile.bat())):
+        t = np.arange(int(rate * seconds)) / rate
+        x = (0.3 * np.sin(2 * np.pi * 2500 * t)
+             + 0.02 * rng.standard_normal(len(t))).astype(np.float32)
+        for width in (400, 800):
+            got = spectrogram_index(x, rate, width, profile=profile,
+                                    device=dev)
+            want = spectrogram_index(x, rate, width, profile=profile,
+                                     device="cpu")
+            gap = np.abs(got.astype(int) - want)
+            assert gap.max() <= 1 and (gap > 0).mean() <= 1e-3
+    x = torch.from_numpy(rng.standard_normal(480000).astype(np.float32)
+                         * 0.1)
+    cfg = SoundLevelConfig()
+    got = band_levels_db(x.to(dev), cfg)[0].cpu()
+    assert (got - band_levels_db(x, cfg)[0]).abs().max() <= 0.05
+
+    rec = run_soak(streams=64, seconds=6.0, device="cuda", kitchen_sink=True,
+                   db_path=str(tmp_path / "soak.db"), sample_seconds=2.0)
+    aux = rec["aux_planes"]
+    assert aux["aux_errors"] == 0 and aux["spectrograms_rendered"] > 0
+    assert aux["soundlevel_blocks"] > 0 and aux["hls_segments"] > 0
+    assert aux["migration"]["state"] == "migrating"
+    cal = rec["calibration"]
+    assert cal["mel_kernel_launches"] == cal["batches_dispatched"] > 0

@@ -6,8 +6,8 @@ The port keeps its own copies of ``AnalysisBuffer``, ``HostBatcher``,
 copies and the originals and compare what comes out: windows, the order of
 fanned-out results, the batchers' and loops' counters, span summaries. They
 also show that no module of the port, and not ``chip_smoke.py``, imports the
-JAX package, JAX, or the yaml, aiohttp, orbax and optax the card's machine
-lacks.
+JAX package, JAX, or the yaml, aiohttp, orbax, optax, httpx and Pillow
+the card's machine lacks.
 """
 
 import ast
@@ -367,9 +367,9 @@ def _port_modules() -> list[str]:
 
 
 # the JAX package and what the card's machine lacks: JAX, and the yaml,
-# aiohttp, orbax, optax and httpx the JAX host modules import
+# aiohttp, orbax, optax, httpx and Pillow the JAX host modules import
 _BLOCKED = ("jax", "jaxlib", "birdnet_go_tpu", "yaml", "aiohttp", "orbax",
-            "optax", "httpx")
+            "optax", "httpx", "PIL")
 
 _GUARDED_IMPORT = """
 import importlib, sys
@@ -420,7 +420,17 @@ def test_port_imports_with_jax_and_jax_package_blocked():
             "birdnet_go_tpu_torch.analysis.actions",
             "birdnet_go_tpu_torch.datastore",
             "birdnet_go_tpu_torch.datastore.sqlite",
-            "birdnet_go_tpu_torch.scheduler.soak"} <= set(mods)
+            "birdnet_go_tpu_torch.scheduler.soak",
+            "birdnet_go_tpu_torch.audio.resampler",
+            "birdnet_go_tpu_torch.audio.audionorm",
+            "birdnet_go_tpu_torch.audio.flac",
+            "birdnet_go_tpu_torch.audio.encode",
+            "birdnet_go_tpu_torch.audio.hlsmux",
+            "birdnet_go_tpu_torch.utils.imports",
+            "birdnet_go_tpu_torch.datastore.migration",
+            "birdnet_go_tpu_torch.analysis.spectrogram",
+            "birdnet_go_tpu_torch.analysis.soundlevel_worker",
+            "birdnet_go_tpu_torch.ops.streams"} <= set(mods)
     res = subprocess.run([sys.executable, "-c",
                           _GUARDED_IMPORT % (_BLOCKED, mods)],
                          cwd=REPO, capture_output=True, text=True,

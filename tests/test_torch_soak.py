@@ -10,9 +10,11 @@ recursively, and both meet the same invariants. A ``device="cpu"`` leg
 serves the tiny float32 v2.4 of ``train --tiny`` in place of the full-width
 classifier (``soak_classifier``): its windows reach the datastore and every
 batch's top-10 equals the classifier's called directly on the same PCM.
-The flags of both CLIs reach ``run_soak`` alike; ``--kitchen-sink``
-refuses. The soak legs run 6 s (the multi-model leg 8 s), sampled every
-2 s.
+A kitchen-sink leg runs every aux plane beside the stub soak in both
+packages: the same record keys, every aux counter but the 45 s range
+rebuild above 0, no aux error, and a live dual-write migration. The flags
+of both CLIs reach ``run_soak`` alike. The soak legs run 6 s (the
+multi-model leg 8 s), sampled every 2 s.
 """
 
 import argparse
@@ -137,6 +139,35 @@ def test_durable_stub_soak_matches_jax(tmp_path):
     _same_shape(recs["port"], recs["jax"])
 
 
+def test_kitchen_sink_stub_soak_matches_jax(tmp_path):
+    """``kitchen_sink=True``: HLS, sound levels and LUFS, spectrogram
+    pre-rendering, range rebuilds and the dual-write migration run beside
+    the stub soak (the port's device work on the CPU). Both records have
+    the same keys, ``aux_planes`` included; every aux counter but
+    ``range_rebuilds`` (its interval is 45 s) is above 0, no aux plane
+    erred, and the migration is copying with dual-write installed, while
+    the soak's own invariants hold."""
+    recs = {}
+    for name, mod in (("jax", jsoak), ("port", tsoak)):
+        recs[name] = mod.run_soak(
+            streams=40, seconds=SECONDS, device="stub", kitchen_sink=True,
+            clips_dir=str(tmp_path / name), hit_stride=4, sim_mqtt_ms=1.0,
+            sim_alert_ms=1.0, **STUB)
+    _same_shape(recs["port"], recs["jax"])
+    for rec in recs.values():
+        _invariants(rec)
+    aux = recs["port"]["aux_planes"]
+    assert aux["aux_errors"] == 0 and aux["spectrograms_dropped"] == 0
+    assert aux["range_rebuilds"] == 0
+    for key in ("hls_segments", "soundlevel_blocks", "lufs_blocks",
+                "spectrograms_rendered"):
+        assert aux[key] > 0, (key, aux)
+    mig = aux["migration"]
+    assert mig["state"] == "migrating" and mig["migrated_records"] > 0
+    assert mig["total_records"] == 150_000
+    assert mig["dual_write"]["enabled"] and mig["dual_write"]["installed"]
+
+
 def _tiny_classifier(device):
     """The tiny float32 v2.4 of ``train --tiny`` at the full 6,522-class
     head, one class's bias raised so that every window's top-1 clears the
@@ -220,7 +251,8 @@ FLAGS = ["--streams", "40", "--seconds", "3", "--max-batch", "64",
          "4", "--burst-at", "1", "--burst-seconds", "2", "--burst-stride",
          "8", "--sim-mqtt-ms", "2", "--sim-alert-ms", "1", "--min-tick-ms",
          "0", "--durable", "--persist-interval", "5", "--calibrate-rate",
-         "0.02", "--stall-at", "1", "--stall-seconds", "1"]
+         "0.02", "--stall-at", "1", "--stall-seconds", "1",
+         "--kitchen-sink"]
 
 
 @pytest.mark.parametrize("device", ["stub", "cpu"])
@@ -240,6 +272,7 @@ def test_soak_cli_flags_reach_run_soak_as_in_jax(device, monkeypatch,
     want = dict(jcalls[0], device=device)
     assert tcalls[0] == tcalls[1] == want
     assert want["tick_ms"] == 100 and want["calibrate_rate"] == 0.02
+    assert want["kitchen_sink"] is True
     assert len(json.loads(open(out).read())["runs"]) == 2
     assert tcli.main(["soak", "--device", device]) == 0
     assert tcalls[2]["calibrate_rate"] == (0.015 if device == "cpu"
@@ -252,11 +285,6 @@ def test_soak_cli_flags_reach_run_soak_as_in_jax(device, monkeypatch,
 
 
 def test_soak_refuses_what_is_not_ported_or_stub_only():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
-        tsoak.run_soak(streams=4, seconds=1.0, device="stub",
-                       kitchen_sink=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcli.main(["soak", "--device", "stub", "--kitchen-sink"])
     with pytest.raises(ValueError, match="rtsp"):
         tsoak.run_soak(streams=4, seconds=1.0, device="cpu", ingest="rtsp")
     with pytest.raises(ValueError, match="single-model"):

@@ -10,7 +10,8 @@ scheduled separately.
 A copy of ``birdnet_go_tpu/analysis/actions.py`` for the port, which
 imports nothing of the JAX package; ``tests/test_torch_detection.py``
 (``SaveAudioAction``: ``tests/test_torch_aux.py``) holds it to the
-original.
+original. ``SaveAudioAction.encoder`` is the port's: the app encodes its
+clips in worker processes (``app.ClipEncoder``).
 """
 
 from __future__ import annotations
@@ -98,6 +99,9 @@ class SaveAudioAction:
     # (target LUFS capped by true peak) REPLACES the static gain_db.
     gain_db: float = 0.0
     normalization: dict | None = None
+    # the port's: what encodes the clip, encode_clip's signature (default
+    # encode_clip on this thread); the app passes its process pool's
+    encoder: Callable[..., Any] | None = None
 
     def _resolve_gain_lin(self, pcm, rate: int) -> float:
         """Linear gain factor for the exported clip — the static gain_db
@@ -156,7 +160,7 @@ class SaveAudioAction:
         out.parent.mkdir(parents=True, exist_ok=True)
         # format by suffix: native wav/flac, ffmpeg-gated aac/opus/mp3
         # (falls back to FLAC when ffmpeg is absent); atomic temp+rename
-        encode_clip(pcm, rate, out)
+        (self.encoder or encode_clip)(pcm, rate, out)
 
 
 _PARAM_NAME_OK = None   # compiled lazily

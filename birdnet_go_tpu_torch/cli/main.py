@@ -1,5 +1,5 @@
 """Command line of the PyTorch port: analyze / benchmark / rangefilter /
-train / model / verify-artifact / soak (ports of those commands of
+train / model / verify-artifact / soak / serve (ports of those commands of
 ``birdnet_go_tpu/cli/main.py``).
 
     python -m birdnet_go_tpu_torch analyze recording.wav
@@ -9,6 +9,7 @@ train / model / verify-artifact / soak (ports of those commands of
     python -m birdnet_go_tpu_torch model list
     python -m birdnet_go_tpu_torch verify-artifact model.tflite
     python -m birdnet_go_tpu_torch soak --streams 2000 --seconds 45
+    python -m birdnet_go_tpu_torch serve --config app.json
 
 Global flags mirror the reference's persistent flags (cmd/root.go:86-106):
 threshold, sensitivity, overlap, locale, latitude/longitude. Output lines
@@ -17,7 +18,12 @@ CUDA card unless ``--device`` names another device; without a card it
 stops with an error rather than run on the CPU. ``model`` only moves files.
 ``soak`` runs the whole realtime server (``scheduler/soak.py``) on the card,
 on the CPU with ``--device cpu``, or against a latency model of the card's
-step with ``--device stub``.
+step with ``--device stub``. ``serve`` runs the realtime app (``app.py``)
+headless: the API is not ported yet, so it turns off the webserver and the
+image provider, whose only consumer the API is, and says so. It probes the
+card in a bounded child process first (``utils/backendprobe.py``), which
+raises rather than fall back to the CPU; its ``--config`` is YAML, or JSON
+where yaml is missing.
 """
 
 from __future__ import annotations
@@ -183,13 +189,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "(ingest→scheduler→processor→datastore)")
     soak.add_arguments(sk)
 
+    s = sub.add_parser("serve", help="realtime analysis server (headless: "
+                       "the API is not ported yet)")
+    s.add_argument("--config", default=None,
+                   help="YAML config file (JSON where yaml is missing)")
+    s.add_argument("--host", default=None)
+    s.add_argument("--port", type=int, default=None)
+    s.add_argument("--no-warmup", action="store_true",
+                   help="skip the warm-up step (the first dispatch then "
+                        "builds the kernels)")
+    s.add_argument("--no-backend-probe", action="store_true",
+                   help="skip the bounded CUDA probe (probe default: run "
+                        "one launch on the card in a child process before "
+                        "boot, and stop if it does not answer within "
+                        "--backend-probe-timeout; never falls back to the "
+                        "CPU)")
+    s.add_argument("--backend-probe-timeout", type=float, default=120.0)
+    common_model_flags(s)
+
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO,
-                        format=_LOG_FORMAT)
+    if args.command != "serve":              # serve configures its own
+        logging.basicConfig(level=logging.DEBUG if args.debug
+                            else logging.INFO, format=_LOG_FORMAT)
     # `model` computes nothing; `soak --device stub` models the card
     device = str(getattr(args, "device", None))
     if device.startswith("cuda") and not torch.cuda.is_available():
@@ -201,7 +226,68 @@ def main(argv: list[str] | None = None) -> int:
             "rangefilter": _cmd_rangefilter, "train": _cmd_train,
             "model": _cmd_model,
             "verify-artifact": _cmd_verify_artifact,
-            "soak": soak.run}[args.command](args)
+            "soak": soak.run, "serve": _cmd_serve}[args.command](args)
+
+
+def _cmd_serve(args) -> int:
+    import signal
+    import threading
+
+    from birdnet_go_tpu_torch.app import Application
+    from birdnet_go_tpu_torch.config.settings import (
+        ModelSettings,
+        load_settings,
+    )
+    from birdnet_go_tpu_torch.utils.backendprobe import probe_backend
+    from birdnet_go_tpu_torch.utils.logsetup import configure_logging
+
+    settings = load_settings(args.config)
+    if args.config is None:
+        settings.models = [ModelSettings(
+            model_id=args.model, checkpoint=args.checkpoint,
+            sensitivity=args.sensitivity, threshold=args.threshold,
+            overlap=args.overlap, locale=args.locale)]
+    if args.latitude is not None:
+        settings.location.latitude = args.latitude
+        settings.location.longitude = args.longitude
+    if args.data_dir:
+        settings.data_dir = args.data_dir
+    # explicit flags win; otherwise --config's webserver section holds
+    if args.host is not None:
+        settings.webserver.host = args.host
+    if args.port is not None:
+        settings.webserver.port = args.port
+    configure_logging(settings, debug=args.debug)
+    # headless: the API is the only consumer of the webserver and the
+    # image provider, and it is not ported yet (the app refuses both)
+    off = [name for name in ("webserver", "imageprovider")
+           if getattr(settings, name).enabled]
+    for name in off:
+        getattr(settings, name).enabled = False
+    if off:
+        print(f"headless: turned off {' and '.join(off)}; the API, their "
+              f"only consumer, is not ported yet (ROADMAP.md queue 1 item "
+              f"6)", flush=True)
+    # bounded probe of the card before anything touches it here: a wedged
+    # driver otherwise blocks boot; it raises rather than fall back
+    if not args.no_backend_probe and args.device.type == "cuda":
+        print(f"backend probe: "
+              f"{probe_backend(timeout_s=args.backend_probe_timeout)}",
+              flush=True)
+    app = Application(settings, device=args.device)
+    app.setup()
+    app.start(warmup=not args.no_warmup)
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *a: stop.set())
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
+    print(f"serving headless on {args.device}: {len(app.classifiers)} "
+          f"model(s), {len(app._sources)} source(s) — Ctrl-C to stop",
+          flush=True)
+    try:
+        stop.wait()
+    finally:
+        app.stop()
+    return 0
 
 
 def _load_classifier(args) -> TorchClassifier:

@@ -1,6 +1,7 @@
 """Typed settings tree (a copy of ``birdnet_go_tpu/config/settings.py``):
-dataclass defaults, YAML loading, env overrides and validation. The
-hot-reload control signals and the API schema are not ported yet."""
+dataclass defaults, YAML loading (JSON where yaml is missing), env
+overrides and validation; the hot-reload control signals
+(``control.py``). The API schema is not ported yet."""
 
 from birdnet_go_tpu_torch.config.settings import (
     Settings,

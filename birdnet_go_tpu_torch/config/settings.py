@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import json
 import os
 from pathlib import Path
 from typing import Any
@@ -649,15 +650,32 @@ def load_settings(path: str | Path | None = None,
     """YAML file → Settings, then env overrides, then validation.
 
     yaml is loaded here, where a file is read, so that the module imports
-    where yaml is missing (a card's machine may lack it); only reading a
-    file then raises ``ImportError``."""
+    where yaml is missing (a card's machine may lack it). There a file
+    that parses as JSON is read with ``json``: ``yaml.safe_load`` reads a
+    JSON document as the same mapping. Any other file then raises
+    ``ImportError`` naming yaml."""
     s = Settings()
     if path:
-        yaml = importlib.import_module("yaml")
-        raw = yaml.safe_load(Path(path).read_text()) or {}
-        s = _from_dict(Settings, raw)
+        s = _from_dict(Settings, _read_config(Path(path).read_text()) or {})
     _apply_env_overrides(s, env if env is not None else dict(os.environ))
     return s
+
+
+def _read_config(text: str) -> Any:
+    """A config file's document: yaml's reading, else, where yaml is
+    missing, JSON's."""
+    try:
+        yaml = importlib.import_module("yaml")
+    except ImportError as e:
+        if not text.strip():
+            return None                      # an empty document, as yaml's
+        try:
+            return json.loads(text)
+        except ValueError:
+            raise ImportError(
+                f"reading a YAML config needs the yaml package ({e}); "
+                f"without it the config must be JSON") from e
+    return yaml.safe_load(text)
 
 
 def _apply_env_overrides(s: Settings, env: dict[str, str]) -> None:

@@ -9,10 +9,12 @@ header it adds). The first ``_load`` in a process runs make, which
 rebuilds only when a source is newer than the library, under a file lock
 that keeps concurrent processes from writing the library at once. The port
 has its own build directory and never shares ``build/libbirdnet_host.so``
-with the JAX loader. Three things differ from the original: a failed build
+with the JAX loader. Four things differ from the original: a failed build
 or load raises, so nothing quietly drops to the Python buffers; the codec
-bindings are gone with ``codecs.cpp``; and ``StreamFarm.collect`` checks
-its buffers before it passes their pointers. ``fill_provider`` adapts a
+bindings are gone with ``codecs.cpp``; ``StreamFarm.collect`` checks its
+buffers before it passes their pointers; and ``NativeAnalysisBuffer.read``
+allocates a window only when one is ready (the app's loop polls every
+ring every tick). ``fill_provider`` adapts a
 farm to ``DeviceLoop.add_fill_provider``. ``tests/test_torch_native.py``
 holds the ring and the farm to the JAX package's and to the port's
 ``AnalysisBuffer``.
@@ -238,6 +240,10 @@ class NativeAnalysisBuffer:
         self._lib.bn_ring_write(self._h, _i16_ptr(samples), len(samples))
 
     def read(self) -> np.ndarray | None:
+        # a window needs read_size unread samples (bn_ring_read): ask first,
+        # so that a poll with none ready allocates no window
+        if self.available() < self.read_size:
+            return None
         out = np.empty(self.window_size, np.int16)
         n = self._lib.bn_ring_read(self._h, _i16_ptr(out))
         return out if n else None

@@ -7,7 +7,9 @@ so that the port imports nothing of it; ``tests/test_torch_hostplane.py``
 holds them to the originals. A batch's span goes to the port's
 ``utils.tracing.GLOBAL_SPANS``, and a persistent tick failure is tagged
 through the port's ``utils.errors``. ``TorchModelBatcher`` supplies only
-the device interaction.
+the device interaction. ``DeviceLoop.remove_batcher`` (and the lock that
+makes each tick atomic against it) is the port's own: it serves the
+windows an unloaded model still holds, which JAX's app drops.
 
 Per model: a fixed batch shape [B, clip_samples] int16 (int16 halves the
 host→device transfer vs float32; conversion happens on the device inside the
@@ -443,12 +445,39 @@ class DeviceLoop:
         # device-failure breaker: consecutive run_tick exceptions (an
         # unreachable accelerator fails every tick)
         self.consecutive_tick_failures = 0
+        # held for a whole tick, so that remove_batcher never takes a
+        # batcher out from under one
+        self._tick_lock = threading.Lock()
 
     def add_batcher(self, batcher: HostBatcher) -> None:
         self.batchers[batcher.spec.model_id] = batcher
 
     def add_provider(self, provider: Callable[[], list]) -> None:
         self._providers.append(provider)
+
+    def remove_batcher(self, model_id: str) -> HostBatcher | None:
+        """Take a model's batcher out of the loop with the windows it
+        holds, and serve them on the caller's thread: the loop's backlog
+        for the model, the staged batch and the batches in flight, whose
+        results fan out as in a tick. Waits for a tick in progress to end.
+        Stop the model's window sources first, or later windows for it
+        are counted in ``windows_dropped``. (The port's: JAX's app pops
+        the batcher from ``batchers``, and what it held is lost.)"""
+        with self._tick_lock:
+            b = self.batchers.pop(model_id, None)
+            backlog = self._backlog.pop(model_id, [])
+        if b is None:
+            self.windows_dropped += len(backlog)
+            return None
+        for item in backlog:
+            _, pcm, source_id, start_time = item[:4]
+            rate = item[4] if len(item) > 4 else 0
+            if not b.offer(pcm, source_id, start_time, rate):
+                b.dispatch()
+                b.offer(pcm, source_id, start_time, rate)
+        b.dispatch()
+        b.harvest_all()
+        return b
 
     def add_block_provider(self, model_id: str,
                            provider: Callable[[], tuple]) -> None:
@@ -474,6 +503,10 @@ class DeviceLoop:
         immediately (pipelined on device) and filling continues, up to
         max_dispatches_per_tick batches per model; only beyond that does
         overflow land in the bounded retry backlog."""
+        with self._tick_lock:
+            return self._tick()
+
+    def _tick(self) -> int:
         t_tick = time.monotonic()
         if self._last_tick_start is not None:
             stall = (t_tick - self._last_tick_start

@@ -4,8 +4,9 @@ v2.4 (EfficientNet-B0), and BirdNET v3.0 and Perch v2 (B1) through the fused
 MBConv kernels; then its offline analysis and CLI, imported .tflite and
 .onnx artifacts, custom-classifier training with the model gallery, int8
 quantization with mesh-sharded serving, the whole realtime server in a
-2,000-stream soak, and the clip and aux planes (spectrograms, sound levels,
-clip export, live HLS) with the soak's kitchen-sink leg.
+2,000-stream soak, the clip and aux planes (spectrograms, sound levels,
+clip export, live HLS) with the soak's kitchen-sink leg, and the realtime
+app and ``serve``, headless.
 
     python3 chip_smoke.py
 
@@ -114,7 +115,7 @@ Phases, in order; any failure propagates and exits non-zero:
 14. the full-pipeline soak (``phase_soak``): the v2.4 unfused int16 step
    timed at B = 64 and 256 (the stub's latency model, ``base_ms`` and
    ``per_window_us``), then ``python -m birdnet_go_tpu_torch soak
-   --device cuda --streams 2000 --seconds 45`` in its own process: the
+   --device cuda --streams 2000 --seconds 30`` in its own process: the
    native stream farm, ``DeviceLoop``, the device step, the ``Processor``,
    ``FlushLoop``, the job queue with the realistic action mix and a SQLite
    file under ``build/soak_smoke/``. It must exit 0 (no sample lost, no
@@ -138,7 +139,24 @@ Phases, in order; any failure propagates and exits non-zero:
    HLS segments, 40 sound-level and LUFS blocks and 20 renders (none
    dropped), and a migration copying with dual-write installed; its
    numbers printed beside phase 14's. The aux planes launch none of the
-   three kernels.
+   three kernels;
+16. the realtime app and ``serve`` (``phase_app``): ``probe_backend`` names
+   the card and raises with the card hidden from its child; then, in a
+   process of its own (``app_leg``), ``Application`` on the card at full
+   width, headless: 48 tone and 16 file sources, BirdNET v2.4 (batch 256)
+   alone for 20 s, with v3.0 loaded at runtime for 15 s, then 5 s after
+   v3.0's unload; the range filter at a fixed place, Deep Detection level
+   2, dynamic thresholds, FLAC clips and PNGs, a SQLite file under
+   ``build/app_smoke/``, thresholds calibrated as the soak's. Every window
+   the engine made is served (none dropped, no overrun), v2.4's latency
+   p95 stays below 1,500 ms across the load, v3.0 is served after its
+   load and not after its unload, the mel kernel launches once a batch
+   (and once a warm-up), approvals = rows, every clip decodes and has its
+   PNG, every health check is ok, the range filter's card set is the
+   CPU's, no critical job is dropped, ``stop()`` returns within 15 s and
+   nothing is logged at ERROR; then ``python -m birdnet_go_tpu_torch
+   serve --config app.json`` over 8 tone sources, stopped by SIGTERM,
+   exits 0 with its headless, probe and serving lines and rows in its db.
 
 Every kernel line carries its bound (``ops/roofline.py``: the larger of its
 bytes over the memory rate and its operations over the peak for their type)
@@ -155,6 +173,8 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import dataclasses
+import datetime
 import functools
 import importlib
 import io
@@ -162,6 +182,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import sqlite3
 import struct
 import subprocess
@@ -2348,7 +2369,8 @@ def phase_mesh(v24, pcm: torch.Tensor, dev: torch.device, card: str) -> None:
 
 
 SOAK_STREAMS = 2000          # the survey's north star: >= 2,000 streams
-SOAK_SECONDS = 45
+SOAK_SECONDS = 30             # phase 14's plain soak
+KS_SECONDS = 45              # phase 15's kitchen-sink leg
 SOAK_RING_SECONDS = 27       # run_soak's rings (27 s at 48 kHz, int16)
 SOAK_P95_MS = 1500.0         # half the 3 s clip
 SOAK_RATE = 0.95             # steady windows/s against those offered
@@ -2733,7 +2755,7 @@ def phase_aux(dev: torch.device, card: str, plain: dict) -> None:
           f"each decodes to the captured PCM; codec {session.codec}")
     print(f"aux phase 15 checks {time.monotonic() - t0:.1f} s [{card}]")
 
-    ks = _soak_leg(card, "kitchen_sink", SOAK_SECONDS, "--kitchen-sink")
+    ks = _soak_leg(card, "kitchen_sink", KS_SECONDS, "--kitchen-sink")
     aux = ks["aux_planes"]
     mig = aux["migration"]
     print(f"kitchen_sink aux planes: hls_segments {aux['hls_segments']}, "
@@ -2762,9 +2784,633 @@ def phase_aux(dev: torch.device, card: str, plain: dict) -> None:
     print(f"phase 15 (aux planes) {time.monotonic() - t0:.1f} s [{card}]")
 
 
+APP_TONES = 48               # phase 16: the app's tone sources
+APP_FILES = 16               # ... and its sources, each looping a 48 kHz WAV
+APP_ALONE_S = 20.0           # v2.4 served alone
+APP_BOTH_S = 15.0            # v2.4 and v3.0, after v3.0's runtime load
+APP_AFTER_S = 5.0            # v2.4 alone again, after v3.0's unload
+APP_RATE = 0.03              # the share of windows a threshold approves
+APP_P95_MS = 1500.0          # v2.4's latency p95 over the whole run
+APP_V3_WITHIN_S = 15.0       # v3.0's first window served after its load
+APP_STOP_S = 15.0            # stop() returns within
+APP_RANGE_MARGIN = 1e-5      # card vs CPU: species this near the threshold
+APP_LATLON = (60.17, 24.94)  # Helsinki
+APP_WARNINGS = ("drain deadline", "job queue full", "exceeds realtime budget")
+SERVE_TONES = 8
+SERVE_SECONDS = 25.0
+
+
+def _tone_pcm(freq: float, pulse: float, rate: int, n: int,
+              offset: int) -> np.ndarray:
+    """int16 PCM as ``ToneSource`` makes it (amplitude 0.3, on/off keyed
+    at `pulse` Hz), from sample `offset`."""
+    t = (np.arange(n) + offset) / rate
+    wave = 0.3 * 32767 * np.sin(2 * np.pi * freq * t)
+    if pulse > 0:
+        wave = wave * (np.sin(2 * np.pi * pulse * t) > 0)
+    return wave.astype(np.int16)
+
+
+def _app_tones() -> list[tuple[float, float]]:
+    """(frequency, pulse rate) of each tone source: 48 frequencies from
+    600 Hz to 11 kHz, pulse rates 0 to 7 Hz."""
+    return [(float(f), float(k % 8))
+            for k, f in enumerate(np.geomspace(600.0, 11000.0, APP_TONES))]
+
+
+def _calibrate(batcher, labels, included, windows: np.ndarray,
+               trigger: float) -> dict:
+    """The soak's ``--calibrate-rate`` rule on `windows` (int16 [n, T],
+    the sources' signals), for the processor, which approves every
+    included species of a window's top-10 at or above the threshold: the
+    threshold passes APP_RATE · n such pairs. While it lies above the
+    dynamic thresholds' `trigger` the sigmoid sensitivity is cut tenfold
+    (random weights saturate the sigmoid, and a threshold above the
+    trigger would make every approval lower its species' threshold, as
+    the soak cuts it above 0.998). Returns the threshold, the sensitivity
+    and the share of windows whose best included confidence reaches the
+    trigger."""
+    ok = np.array([included is None or labels[i].scientific in included
+                   for i in range(len(labels))])
+    x = torch.from_numpy(windows).to(batcher.device)
+    sens = batcher.sensitivity
+    for _ in range(6):
+        vals, idx, _ = batcher._step(x, sens, batcher.top_k, None)
+        conf = np.where(ok[idx.cpu().numpy()], vals.cpu().numpy(), 0.0)
+        pairs = np.sort(conf.ravel())[::-1]
+        thr = float(pairs[int(APP_RATE * len(conf))])
+        if thr < trigger:
+            break
+        sens *= 0.1
+    return {"threshold": float(np.clip(thr, 0.05, 0.999)),
+            "sensitivity": float(sens),
+            "windows": len(conf),
+            "above_trigger": float((conf.max(axis=1) >= trigger).mean())}
+
+
+def _app_wavs(out: Path) -> list[np.ndarray]:
+    """The file sources' 10 s 48 kHz WAVs under `out`, one a source, each
+    a tone of its own (1.5 to 9 kHz) at -26 dBFS over -40 dBFS noise (one
+    WAV for all would make the same detections at the same instants, and
+    their clips one file); returns their PCM."""
+    rng = np.random.default_rng(SEED + 160)
+    t = np.arange(10 * 48000) / 48000
+    pcm = []
+    for k, f in enumerate(np.linspace(1500.0, 9000.0, APP_FILES)):
+        x = 0.05 * np.sin(2 * np.pi * f * t) + 0.01 * rng.standard_normal(
+            len(t))
+        pcm.append(np.clip(x * 32767, -32768, 32767).astype(np.int16))
+        write_pcm16(out / f"loop{k}.wav", pcm[-1][:, None], 48000)
+    return pcm
+
+
+def _cal_windows(rate: int, clip: int, wavs: list[np.ndarray]
+                 ) -> np.ndarray:
+    """Four windows of each of the 64 sources' signals at `rate`, 1.5 s
+    apart (the WAVs resampled by index where `rate` is not 48 kHz)."""
+    rows = []
+    for k in range(4):
+        off = int(1.5 * rate * k)
+        rows += [_tone_pcm(f, p, rate, clip, off) for f, p in _app_tones()]
+        pos = (np.arange(clip) + off) * 48000 // rate
+        rows += [w[pos % len(w)] for w in wavs]
+    return np.stack(rows)
+
+
+class _StackSampler:
+    """Where a thread spends its time: every `period` s, the thread's
+    innermost frame and its innermost frame inside the repository, each
+    counted by ``file:function``."""
+
+    def __init__(self, thread_id: int, period: float = 0.01):
+        import threading
+
+        self.tid, self.period = thread_id, period
+        self.inner: dict[str, int] = {}
+        self.repo: dict[str, int] = {}
+        self.samples = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="stack-sampler")
+        self._thread.start()
+
+    def _run(self) -> None:
+        root = str(REPO)
+        while not self._stop.wait(self.period):
+            frame = sys._current_frames().get(self.tid)
+            if frame is None:
+                continue
+            self.samples += 1
+            key = f"{Path(frame.f_code.co_filename).name}:" \
+                f"{frame.f_code.co_name}"
+            self.inner[key] = self.inner.get(key, 0) + 1
+            while frame is not None and not frame.f_code.co_filename \
+                    .startswith(root):
+                frame = frame.f_back
+            if frame is not None:
+                key = f"{Path(frame.f_code.co_filename).name}:" \
+                    f"{frame.f_code.co_name}:{frame.f_lineno}"
+                self.repo[key] = self.repo.get(key, 0) + 1
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join()
+
+        def top(d):
+            return sorted(d.items(), key=lambda kv: -kv[1])[:12]
+
+        return {"samples": self.samples, "innermost": top(self.inner),
+                "in_repo": top(self.repo)}
+
+
+def _thread_cpu_s() -> dict[str, float]:
+    """CPU seconds of this process's threads so far, by thread name with
+    its digits dropped (``src-tone12`` counts as ``src-tone``), from
+    /proc/self/task."""
+    import threading
+
+    names = {th.native_id: th.name for th in threading.enumerate()}
+    tick = os.sysconf("SC_CLK_TCK")
+    out: dict[str, float] = {}
+    for task in Path("/proc/self/task").iterdir():
+        try:
+            fields = (task / "stat").read_text().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        name = re.sub(r"\d+", "", names.get(int(task.name), "(native)"))
+        out[name] = out.get(name, 0.0) + (int(fields[11]) + int(fields[12])
+                                          ) / tick
+    return {k: round(v, 2) for k, v in sorted(out.items(),
+                                              key=lambda kv: -kv[1])}
+
+
+def _pct(ms: list[float]) -> dict:
+    a = np.asarray(ms)
+    return {q: round(float(np.percentile(a, p)), 1) for q, p in
+            (("p50", 50), ("p95", 95), ("p99", 99))} | {
+        "max": round(float(a.max()), 1)}
+
+
+def app_leg(record_path: Path) -> None:
+    """Phase 16's app, in a process of its own (``python3 chip_smoke.py
+    --app-leg <record.json>``): the ``Application`` on the card at full
+    width (v2.4 and, loaded and unloaded at runtime, v3.0, seeded
+    weights), 48 tone and 16 file sources (``_app_wavs``), the range
+    filter at a fixed place, Deep Detection level 2, dynamic thresholds,
+    FLAC export, a SQLite file. The thresholds are calibrated first, as
+    the soak's ``--calibrate-rate`` does. Counting wrappers are put on
+    from the outside: ``_on_window_result`` (each window's end to its
+    hand-off), the engine's window provider, the processor's approvals,
+    the batchers' warm-ups, launches and harvests (timed), a stack
+    sampler on the tick thread, and a logging handler for every ERROR
+    record and each warning that means a loss. Writes its record to
+    `record_path`; ``phase_app`` gates it."""
+    import logging
+    import threading
+
+    from birdnet_go_tpu_torch.app import Application
+    from birdnet_go_tpu_torch.config.settings import ModelSettings, Settings
+    from birdnet_go_tpu_torch.inference.loader import load_geomodel
+    from birdnet_go_tpu_torch.models.geomodel import birdnet_week
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: "
+                               "%(message)s")
+    losses: list[str] = []
+
+    class _Losses(logging.Handler):
+        def emit(self, r: logging.LogRecord) -> None:
+            msg = r.getMessage()
+            if r.levelno >= logging.ERROR or any(w in msg
+                                                 for w in APP_WARNINGS):
+                losses.append(f"{r.levelname} {r.name}: {msg[:300]}")
+
+    logging.getLogger().addHandler(_Losses())
+    out = record_path.parent
+    wavs = _app_wavs(out)
+
+    s = Settings()
+    s.models = [ModelSettings(model_id="BirdNET_V2.4"),
+                ModelSettings(model_id="BirdNET_V3.0", enabled=False)]
+    s.database.path = str(out / "app.db")
+    s.export.path = str(out / "clips")
+    s.export.format = "flac"
+    # a clip ends 1.5 s after its window, so the final flush's clips are
+    # written within stop()'s drain
+    s.export.clip_length_seconds = 6.0
+    s.export.pre_capture_seconds = 1.5
+    # every approval is saved: the per-species action gate would drop a
+    # species' repeats within 15 s, and approved = rows counts saves
+    s.realtime.interval_seconds = 0.0
+    s.realtime.max_batch = 256
+    s.location.latitude, s.location.longitude = APP_LATLON
+    s.range_filter.enabled = True
+    s.deep_detection.level = 2
+    s.dynamic_threshold.enabled = True
+    s.webserver.enabled = False
+    s.imageprovider.enabled = False
+    s.realtime.sources = [
+        {"type": "tone", "id": f"tone{k}", "freq": f, "pulse": p}
+        for k, (f, p) in enumerate(_app_tones())] + [
+        {"type": "file", "id": f"file{k}", "path": str(out / f"loop{k}.wav")}
+        for k in range(APP_FILES)]
+
+    warmups = []
+    real_warmup = TorchModelBatcher.warmup
+
+    def warmup(self):
+        warmups.append(self.spec.model_id)
+        return real_warmup(self)
+
+    TorchModelBatcher.warmup = warmup
+    step_ms: dict[str, list[tuple[float, float]]] = {}
+    for name in ("_launch", "_collect"):
+        real = getattr(TorchModelBatcher, name)
+
+        def timed(self, *a, real=real, name=name):
+            t_ = time.perf_counter()
+            out = real(self, *a)
+            step_ms.setdefault(f"{self.spec.model_id} {name}", []).append(
+                (time.time(), (time.perf_counter() - t_) * 1e3))
+            return out
+
+        setattr(TorchModelBatcher, name, timed)
+    t0 = time.monotonic()
+    app = Application(s)
+    served: dict[str, list[tuple[float, float]]] = {}
+    handoff = app._on_window_result
+
+    def on_window(model_id, w, vals, idx):
+        served.setdefault(model_id, []).append((w.end_time, time.time()))
+        handoff(model_id, w, vals, idx)
+
+    app._on_window_result = on_window
+    app.setup()
+    setup_s = time.monotonic() - t0
+    produced: dict[str, int] = {}
+    collect = app.device_loop._providers[0]
+
+    def counted():
+        items = collect()
+        for it in items:
+            produced[it[0]] = produced.get(it[0], 0) + 1
+        return items
+
+    app.device_loop._providers[0] = counted
+    approved, approved_at = [], []
+    on_approved = app.processor.on_approved
+    app.processor.on_approved = lambda d, item: (
+        approved.append(d.model_id), approved_at.append(time.time()),
+        on_approved(d, item))[2]
+
+    # thresholds, as the soak's --calibrate-rate sets them
+    inc = app.processor.included_species
+    labels = app.labels["BirdNET_V2.4"]
+    b24 = app.device_loop.batchers["BirdNET_V2.4"]
+    trigger = s.dynamic_threshold.trigger
+    cal = {"BirdNET_V2.4": _calibrate(b24, labels, inc,
+                                      _cal_windows(48000, CLIP, wavs),
+                                      trigger)}
+    v3 = BirdNETv3().init(torch.Generator().manual_seed(0))   # load_model's
+    b3 = TorchModelBatcher(TorchClassifier(v3, "cuda"), max_batch=256)
+    cal["BirdNET_V3.0"] = _calibrate(b3, labels, inc,
+                                     _cal_windows(32000, CLIP32, wavs),
+                                     trigger)
+    del b3, v3
+    torch.cuda.empty_cache()
+    for ms in s.models:
+        ms.threshold = cal[ms.model_id]["threshold"]
+        ms.sensitivity = cal[ms.model_id]["sensitivity"]
+    app._reload_model_settings()
+
+    # the range filter on the card against the CPU, same Geomodel
+    week = birdnet_week(datetime.date.today())
+    card_sc = app._range_filter.predict(*APP_LATLON, week)
+    cpu_sc = TorchRangeFilter(load_geomodel(num_species=len(labels)),
+                              "cpu").predict(*APP_LATLON, week)
+    thr = s.range_filter.threshold
+    differ = np.nonzero((card_sc >= thr) != (cpu_sc >= thr))[0]
+    near = int(np.sum(np.abs(cpu_sc - thr) <= APP_RANGE_MARGIN))
+    range_rec = {
+        "included_card": int(np.sum(card_sc >= thr)),
+        "included_cpu": int(np.sum(cpu_sc >= thr)),
+        "differ": int(len(differ)),
+        "differ_beyond_margin": int(np.sum(
+            np.abs(cpu_sc[differ] - thr) > APP_RANGE_MARGIN)),
+        "within_margin": near,
+        "max_abs_gap": float(np.abs(card_sc - cpu_sc).max()),
+        "included_set_consistent":
+            app.processor.included_species
+            == app._compute_included_species()}
+
+    for k in KERNELS:
+        k.launches = 0
+    warmups.clear()
+    t1 = time.monotonic()
+    app.start(warmup=True)
+    start_s = time.monotonic() - t1
+    sampler = _StackSampler(app.device_loop._thread.ident)
+    t_start = time.time()
+    time.sleep(APP_ALONE_S)
+    app.device_loop.stall_ms_max = 0.0
+    busy_before = app.device_loop.tick_busy_ms_max
+    app.device_loop.tick_busy_ms_max = 0.0
+    t_load = time.time()
+    assert app.load_model_runtime("BirdNET_V3.0")
+    t_loaded = time.time()
+    load = {"wall_s": round(t_loaded - t_load, 3),
+            "tick_stall_ms_max": round(app.device_loop.stall_ms_max, 1),
+            "tick_busy_ms_max": round(app.device_loop.tick_busy_ms_max, 1),
+            "v24_latency_ms_max": round(max(
+                [(h - e) * 1e3 for e, h in served["BirdNET_V2.4"]
+                 if t_load <= h <= t_loaded + 0.5] or [0.0]), 1)}
+    app.device_loop.tick_busy_ms_max = max(busy_before,
+                                           app.device_loop.tick_busy_ms_max)
+    time.sleep(APP_BOTH_S)
+    batchers = dict(app.device_loop.batchers)
+    assert app.unload_model_runtime("BirdNET_V3.0")
+    t_unloaded = time.time()
+    time.sleep(APP_AFTER_S)
+    health = [(r.name, r.healthy, r.detail) for r in app.health.run_all()]
+    loop = app.device_loop
+    host = {"tick_busy_ms": round(loop.tick_busy_ms, 2),
+            "tick_busy_ms_max": round(loop.tick_busy_ms_max, 1),
+            "ticks": loop.ticks}
+    tick_thread = sampler.stop()
+    calls = {k: {"n": len(v), "total_ms": round(sum(x[1] for x in v), 1),
+                 "max_ms": round(max(x[1] for x in v), 1),
+                 "max_at_s": round(max(v, key=lambda x: x[1])[0] - t_start,
+                                   1)}
+             for k, v in step_ms.items()}
+    cpu = _thread_cpu_s()
+    t_end = time.time()
+    timeline = []
+    for a in np.arange(t_start, t_end, 5.0):
+        lat = [(h - e) * 1e3 for e, h in served["BirdNET_V2.4"]
+               if a <= h < a + 5.0]
+        timeline.append({"t": round(float(a - t_start), 1),
+                         "windows": len(lat),
+                         **(_pct(lat) if lat else {}),
+                         "approved": int(sum(a <= x < a + 5.0
+                                             for x in approved_at))})
+    t2 = time.monotonic()
+    app.stop()
+    stop_s = time.monotonic() - t2
+    launches = {k.__name__: k.launches for k in KERNELS}
+    left = [th.name for th in threading.enumerate()
+            if th is not threading.main_thread() and th.is_alive()
+            and not th.daemon]
+    jq = app.jobqueue.stats
+    from birdnet_go_tpu_torch.analysis.jobqueue import (
+        CATEGORY_PRIORITY,
+        PRIORITY_CRITICAL,
+    )
+
+    critical_dropped = sum(c["dropped"] for cat, c in jq.by_category.items()
+                           if CATEGORY_PRIORITY.get(cat) == PRIORITY_CRITICAL)
+    with contextlib.closing(sqlite3.connect(s.database.path)) as conn:
+        rows = conn.execute("SELECT model_id, clip_name FROM detections"
+                            ).fetchall()
+    clips_dir = Path(s.export.path)
+    clips = sorted({c for _, c in rows if c})
+    decoded, missing, pngs = 0, [], 0
+    for c in clips:
+        f = clips_dir / c
+        if not f.is_file():
+            missing.append(c)
+            continue
+        pcm, rate = decode_flac(f.read_bytes())
+        assert rate == 48000 and len(pcm) > 0, (c, rate, len(pcm))
+        decoded += 1
+        pngs += f.with_suffix(".png").is_file()
+    rec = {
+        "card": _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"]).splitlines()[0],
+        "setup_s": round(setup_s, 2), "start_s": round(start_s, 2),
+        "stop_s": round(stop_s, 2),
+        "calibration": cal,
+        "range_filter": range_rec,
+        "produced": produced,
+        "served": {m: len(v) for m, v in served.items()},
+        "latency_ms": {m: _pct([(h - e) * 1e3 for e, h in v])
+                       for m, v in served.items()},
+        "v3_first_after_load_s": round(min(
+            h for _, h in served.get("BirdNET_V3.0", [(0, 1e18)]))
+            - t_loaded, 3),
+        "v3_after_unload": sum(h > t_unloaded for _, h in
+                               served.get("BirdNET_V3.0", [])),
+        "batchers": {m: dataclasses.asdict(b.stats)
+                     for m, b in batchers.items()},
+        "windows_dropped": loop.windows_dropped,
+        "launches": launches, "warmups": list(warmups),
+        "load": load, "host": host, "tick_thread": tick_thread,
+        "thread_cpu_s": cpu, "timeline": timeline, "calls": calls,
+        "approved": len(approved),
+        "approved_by_model": {m: approved.count(m) for m in set(approved)},
+        "rows": len(rows), "clips": len(clips), "clips_decoded": decoded,
+        "clips_missing": missing[:10], "pngs": pngs,
+        "prerender": {"rendered": app.prerenderer.rendered,
+                      "dropped": app.prerenderer.dropped},
+        "jobqueue": {"enqueued": jq.enqueued, "completed": jq.completed,
+                     "failed": jq.failed, "retried": jq.retried,
+                     "dropped": jq.dropped,
+                     "dropped_critical": critical_dropped},
+        "health": health, "threads_left": left,
+        "losses": len(losses), "loss_lines": losses[:10],
+    }
+    record_path.write_text(json.dumps(rec, indent=1))
+
+
+def _probe_pair() -> tuple[str, str]:
+    """``probe_backend`` as it is, and with the card hidden from its child
+    (``CUDA_VISIBLE_DEVICES=""``), at once: (the card's name, the second
+    probe's error)."""
+    from birdnet_go_tpu_torch.utils.backendprobe import (
+        BackendUnavailable,
+        probe_backend,
+    )
+
+    def hidden() -> str:
+        try:
+            name = probe_backend(timeout_s=120.0, env={
+                **os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        except BackendUnavailable as e:
+            return str(e)
+        raise AssertionError(f"the probe without a card returned {name!r}")
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        seen = pool.submit(probe_backend, 120.0)
+        refused = pool.submit(hidden)
+        return seen.result(), refused.result()
+
+
+def _serve_leg(card: str, out: Path) -> None:
+    """``python -m birdnet_go_tpu_torch serve --config app.json`` as users
+    start it (the default device and threshold, the probe on): 8 tone
+    sources, a db and an export path in a JSON config; SIGTERM after
+    SERVE_SECONDS of serving. Gates: exit 0, the probe's, headless and
+    serving lines, rows in the db or windows in the pipeline-stats log,
+    no traceback."""
+    cfg = {"database": {"path": str(out / "serve.db")},
+           "export": {"path": str(out / "serve_clips"),
+                      "clip_length_seconds": 6.0,
+                      "pre_capture_seconds": 1.5},
+           "realtime": {"sources": [
+               {"type": "tone", "id": f"tone{k}", "freq": f, "pulse": p}
+               for k, (f, p) in enumerate(_app_tones()[::6])]}}
+    assert len(cfg["realtime"]["sources"]) == SERVE_TONES
+    cfg_path = out / "app.json"
+    cfg_path.write_text(json.dumps(cfg))
+    stdout, stderr = out / "serve.out", out / "serve.log"
+    t0 = time.monotonic()
+    with open(stdout, "w") as so, open(stderr, "w") as se:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "birdnet_go_tpu_torch", "serve",
+             "--config", str(cfg_path)], stdout=so, stderr=se, cwd=REPO)
+        try:
+            deadline = time.monotonic() + 300
+            while "serving headless" not in stdout.read_text():
+                assert proc.poll() is None, \
+                    f"serve exited {proc.returncode}:\n" \
+                    f"{stderr.read_text()[-4000:]}"
+                assert time.monotonic() < deadline, "serve did not start"
+                time.sleep(0.2)
+            up_s = time.monotonic() - t0
+            time.sleep(SERVE_SECONDS)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text, log = stdout.read_text(), stderr.read_text()
+    with contextlib.closing(sqlite3.connect(cfg["database"]["path"])) as c:
+        rows = c.execute("SELECT COUNT(*) FROM detections").fetchone()[0]
+    stats = [ln for ln in log.splitlines() if "pipeline: " in ln]
+    print(f"app serve: `serve --config app.json` ({SERVE_TONES} tone "
+          f"sources) up in {up_s:.1f} s, SIGTERM after {SERVE_SECONDS:.0f} "
+          f"s of serving, exit {rc}; {rows} rows in the db"
+          + (f", pipeline stats: {stats[-1].split('pipeline: ')[1]}"
+             if stats else "") + f" [{card}]")
+    for line in text.splitlines():
+        print(f"app serve stdout: {line}")
+    if rc != 0 or "Traceback" in text + log:
+        print(log[-6000:])
+    assert rc == 0, f"serve exited {rc}"
+    assert "headless: turned off webserver and imageprovider" in text, text
+    assert "backend probe: " in text and "serving headless on cuda" in text
+    assert rows > 0 or stats, "serve served no window that shows"
+    assert "Traceback" not in text + log
+
+
+def phase_app(card: str) -> None:
+    """Phase 16, the realtime app and ``serve``: the bounded probe (it
+    names the card, and raises with the card hidden from its child); then
+    ``app_leg`` in a process of its own (record and log under
+    ``build/app_smoke/``), gated here: every window the engine made was
+    served (none dropped, no overrun), v2.4's latency p95 below
+    APP_P95_MS across v3.0's runtime load, v3.0 served within
+    APP_V3_WITHIN_S of its load and not after its unload, the mel kernel
+    once a batch over both batchers (and once per warm-up; the MBConv
+    kernels never, serving is unfused), approvals = rows, every clip a
+    FLAC that decodes with its PNG, every health check ok, the range
+    filter's card set the CPU's but for species within APP_RANGE_MARGIN
+    of the threshold, no critical job dropped, stop() within APP_STOP_S
+    with no thread of the app left, and no error logged; then ``serve``
+    as users start it (``_serve_leg``)."""
+    t0 = time.monotonic()
+    name, refused = _probe_pair()
+    print(f"app probe: probe_backend() -> {name!r}; with "
+          f"CUDA_VISIBLE_DEVICES='' it raised: {refused} [{card}]")
+    assert name == torch.cuda.get_device_name(0)
+    assert "--device cpu" in refused
+    out = REPO / "build" / "app_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    rec_path = out / "app.json"
+    t1 = time.monotonic()
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                           "--app-leg", str(rec_path)], capture_output=True,
+                          text=True, timeout=600, cwd=REPO)
+    wall = time.monotonic() - t1
+    (out / "app.log").write_text(proc.stderr)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-6000:])
+    assert proc.returncode == 0, f"the app leg exited {proc.returncode}"
+    rec = json.loads(rec_path.read_text())
+    lat, b, load = rec["latency_ms"], rec["batchers"], rec["load"]
+    batches = sum(v["batches_dispatched"] for v in b.values())
+    print(f"app: {APP_TONES} tone + {APP_FILES} file sources, v2.4 "
+          f"{APP_ALONE_S:.0f} s alone, + v3.0 {APP_BOTH_S:.0f} s, "
+          f"{APP_AFTER_S:.0f} s after its unload; process {wall:.1f} s "
+          f"(setup {rec['setup_s']} s, start with warm-up {rec['start_s']} "
+          f"s, stop {rec['stop_s']} s) [{rec['card']}]")
+    print(f"app calibration (the soak's rule at {APP_RATE}): "
+          f"{rec['calibration']}")
+    for m, v in b.items():
+        print(f"app {m}: produced {rec['produced'].get(m, 0)}, served "
+              f"{rec['served'].get(m, 0)} windows in "
+              f"{v['batches_dispatched']} batches, overruns {v['overruns']},"
+              f" latency from the window's end (ms) {lat.get(m)} [{card}]")
+    print(f"app runtime load of v3.0: {load['wall_s']} s on the caller's "
+          f"thread; v2.4 tick stall max {load['tick_stall_ms_max']} ms, tick "
+          f"busy max {load['tick_busy_ms_max']} ms, v2.4 latency max "
+          f"{load['v24_latency_ms_max']} ms meanwhile; v3.0's first window "
+          f"{rec['v3_first_after_load_s']} s after the load returned, "
+          f"{rec['v3_after_unload']} after the unload [{card}]")
+    print(f"app kernels: launches {rec['launches']} for {batches} batches "
+          f"and warm-ups {rec['warmups']}")
+    print(f"app detections: approved {rec['approved']} "
+          f"({rec['approved_by_model']}; "
+          f"{rec['approved'] / max(1, sum(rec['served'].values())):.4f} of "
+          f"the windows served), rows {rec['rows']}, clips "
+          f"{rec['clips']} (decoded {rec['clips_decoded']}), PNGs "
+          f"{rec['pngs']}, prerender {rec['prerender']}, job queue "
+          f"{rec['jobqueue']}")
+    print(f"app range filter card vs CPU: {rec['range_filter']}")
+    print(f"app tick thread, stack samples every 10 ms: "
+          f"{rec['tick_thread']}")
+    print(f"app CPU seconds by thread: {rec['thread_cpu_s']}")
+    print(f"app batcher calls: {rec['calls']}")
+    for s in rec["timeline"]:
+        print(f"app timeline: {s}")
+    print(f"app host plane: {rec['host']}; health "
+          f"{[(n, ok) for n, ok, _ in rec['health']]}; threads left "
+          f"{rec['threads_left']}; errors logged {rec['losses']} "
+          f"{rec['loss_lines']}")
+    for m, v in b.items():
+        assert rec["produced"].get(m, 0) == rec["served"].get(m, 0) > 0, m
+        assert v["overruns"] == 0, (m, v)
+    assert rec["windows_dropped"] == 0
+    assert lat["BirdNET_V2.4"]["p95"] < APP_P95_MS, lat
+    assert 0 <= rec["v3_first_after_load_s"] <= APP_V3_WITHIN_S, rec
+    assert rec["v3_after_unload"] == 0
+    assert rec["launches"]["melspec_fused"] == batches + len(rec["warmups"])
+    assert sorted(rec["warmups"]) == ["BirdNET_V2.4", "BirdNET_V3.0"]
+    assert rec["launches"]["expand_dw_pool"] == 0
+    assert rec["launches"]["scale_project"] == 0
+    assert rec["approved"] == rec["rows"] > 0, rec
+    assert rec["clips"] == rec["clips_decoded"] == rec["pngs"] > 0, rec
+    assert not rec["clips_missing"], rec["clips_missing"]
+    assert all(ok for _, ok, _ in rec["health"]), rec["health"]
+    rf = rec["range_filter"]
+    assert rf["differ_beyond_margin"] == 0 and rf["included_set_consistent"]
+    assert rec["jobqueue"]["dropped_critical"] == 0, rec["jobqueue"]
+    assert rec["jobqueue"]["failed"] == 0, rec["jobqueue"]
+    assert rec["prerender"]["dropped"] == 0
+    assert rec["stop_s"] <= APP_STOP_S and not rec["threads_left"], rec
+    assert rec["losses"] == 0, rec["loss_lines"]
+    _serve_leg(card, out)
+    print(f"phase 16 (app) {time.monotonic() - t0:.1f} s [{card}]")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    if sys.argv[1:2] == ["--app-leg"]:       # phase 16's own process
+        app_leg(Path(sys.argv[2]))
+        return
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2805,6 +3451,7 @@ def main() -> None:
     phase_int8(dev, card)
     plain = phase_soak(dev, card)
     phase_aux(dev, card, plain)
+    phase_app(card)
     print(f"total {time.monotonic() - t0:.1f} s of phases, "
           f"{time.monotonic() - T_START:.1f} s since the imports")
     print(f"kernels line: melspec_fused at the v2.4 main path's [{BATCH}, "

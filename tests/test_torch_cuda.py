@@ -10,7 +10,7 @@ train step; and int8 and meshes: ``int_mm`` exact at the shapes
 the ``act_int8`` step against the CPU, and ``ShardedClassifier`` on meshes
 that list the card more than once; the soak on the card, and its aux
 planes (spectrogram index and sound levels against the CPU, a kitchen-sink
-leg).
+leg); and the realtime app serving on the card.
 
 Every test needs a CUDA card and skips without one. The file imports no
 JAX, so it also runs where JAX is missing:
@@ -871,3 +871,36 @@ def test_aux_planes_on_card_match_cpu(dev, tmp_path):
     assert aux["migration"]["state"] == "migrating"
     cal = rec["calibration"]
     assert cal["mel_kernel_launches"] == cal["batches_dispatched"] > 0
+
+
+def test_app_serves_on_card(dev, tmp_path):
+    """The realtime app on the card: the full-width v2.4 (seeded weights)
+    at batch 64 over four tone sources for 6 s. Every window the loop
+    offered is served, none dropped and no overrun, the mel kernel launched
+    once for each batch and the warm-up, and ``stop()`` returns within
+    15 s."""
+    import time
+
+    from birdnet_go_tpu_torch.app import Application
+    from birdnet_go_tpu_torch.config.settings import ModelSettings, Settings
+
+    s = Settings()
+    s.models = [ModelSettings(model_id="BirdNET_V2.4")]
+    s.database.path = str(tmp_path / "app.db")
+    s.export.path = str(tmp_path / "clips")
+    s.webserver.enabled = s.imageprovider.enabled = False
+    s.realtime.max_batch = 64
+    s.realtime.sources = [{"type": "tone", "id": f"t{k}",
+                           "freq": 1000.0 + 700.0 * k} for k in range(4)]
+    app = Application(s)
+    app.setup()
+    melspec_fused.launches = 0
+    app.start()
+    time.sleep(6.0)
+    t0 = time.monotonic()
+    app.stop()
+    assert time.monotonic() - t0 < 15.0
+    st = app.device_loop.batchers["BirdNET_V2.4"].stats
+    assert st.windows_processed > 0 and st.overruns == 0
+    assert app.device_loop.windows_dropped == 0
+    assert melspec_fused.launches == st.batches_dispatched + 1

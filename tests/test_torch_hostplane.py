@@ -430,7 +430,31 @@ def test_port_imports_with_jax_and_jax_package_blocked():
             "birdnet_go_tpu_torch.datastore.migration",
             "birdnet_go_tpu_torch.analysis.spectrogram",
             "birdnet_go_tpu_torch.analysis.soundlevel_worker",
-            "birdnet_go_tpu_torch.ops.streams"} <= set(mods)
+            "birdnet_go_tpu_torch.ops.streams",
+            "birdnet_go_tpu_torch.app",
+            "birdnet_go_tpu_torch.utils.health",
+            "birdnet_go_tpu_torch.utils.logsetup",
+            "birdnet_go_tpu_torch.config.control",
+            "birdnet_go_tpu_torch.audio.source",
+            "birdnet_go_tpu_torch.audio.equalizer",
+            "birdnet_go_tpu_torch.audio.sources_file",
+            "birdnet_go_tpu_torch.audio.engine",
+            "birdnet_go_tpu_torch.audio.liveness",
+            "birdnet_go_tpu_torch.audio.quiet_hours",
+            "birdnet_go_tpu_torch.analysis.eventtracker",
+            "birdnet_go_tpu_torch.analysis.species_tracker",
+            "birdnet_go_tpu_torch.analysis.pipeline_stats",
+            "birdnet_go_tpu_torch.analysis.alerting",
+            "birdnet_go_tpu_torch.utils.events",
+            "birdnet_go_tpu_torch.utils.telemetry",
+            "birdnet_go_tpu_torch.utils.circuit",
+            "birdnet_go_tpu_torch.utils.httpclient",
+            "birdnet_go_tpu_torch.utils.monitor",
+            "birdnet_go_tpu_torch.utils.sysmonitor",
+            "birdnet_go_tpu_torch.utils.backendprobe",
+            "birdnet_go_tpu_torch.integrations",
+            "birdnet_go_tpu_torch.integrations.notification",
+            "birdnet_go_tpu_torch.integrations.push_urls"} <= set(mods)
     res = subprocess.run([sys.executable, "-c",
                           _GUARDED_IMPORT % (_BLOCKED, mods)],
                          cwd=REPO, capture_output=True, text=True,

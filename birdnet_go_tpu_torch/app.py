@@ -21,7 +21,7 @@ and raises without one. Where they differ from JAX:
   naming their ``ROADMAP.md`` item when a setting enables them, from
   ``setup`` and from the ``_reconfigure_*`` handlers (``_refuse``): the
   API, the image providers, MQTT, BirdWeather, weather, backup, MySQL,
-  retention, and the rtsp, http and audio_card sources;
+  and the rtsp, http and audio_card sources;
 - the malloc arena cap goes through the port's native library, which
   raises where it cannot be built (JAX passes silently), and ``setup``
   also caps numpy's OpenBLAS pool at one thread (``utils/blas.py``).
@@ -32,7 +32,11 @@ and raises without one. Where they differ from JAX:
 - ``unload_model_runtime`` serves the windows the model already holds
   (``DeviceLoop.remove_batcher``) where JAX drops them with the batcher;
 - FLAC clips are encoded in worker processes (``ClipEncoder``), so that
-  encoding does not hold the GIL the served step's eager ops take.
+  encoding does not hold the GIL the served step's eager ops take;
+- the device loop and the batchers hold the engine's ``SourceGate``
+  closed while they tick, launch or warm up, so that the source threads
+  do not take the GIL at each eager op and ring poll of theirs
+  (``audio/engine.py``).
 """
 
 from __future__ import annotations
@@ -81,7 +85,6 @@ from birdnet_go_tpu_torch.utils.blas import set_blas_threads
 log = logging.getLogger("birdnet_tpu.app")
 
 # where ROADMAP.md's queue 1 keeps what the port does not have yet
-_CRASH_LEG = "ROADMAP.md queue 1 item 5 (the crash leg, with retention)"
 _API = "ROADMAP.md queue 1 item 6 (the API)"
 _SOURCES = "ROADMAP.md queue 1 item 7 (the rtsp, http and audio_card sources)"
 _INTEGRATIONS = "ROADMAP.md queue 1 item 8 (the integrations)"
@@ -346,7 +349,7 @@ class Application:
             tick_seconds=s.realtime.tick_ms / 1000,
             max_dispatches_per_tick=s.realtime.max_dispatches_per_tick,
             min_tick_seconds=(getattr(s.realtime, "min_tick_ms", 0) or 0)
-            / 1000 or None)
+            / 1000 or None, gate=self.engine.gate)
         for ms in enabled:
             clf = self.classifiers[ms.model_id]
             self.device_loop.add_batcher(TorchModelBatcher(
@@ -354,7 +357,8 @@ class Application:
                 sensitivity=ms.sensitivity,
                 pipeline_depth=s.realtime.pipeline_depth,
                 on_result=functools.partial(self._on_window_result,
-                                            ms.model_id)))
+                                            ms.model_id),
+                gate=self.engine.gate))
         self.device_loop.add_provider(self.engine.collect_ready)
 
         # 5. API: refused by _check_ported (headless)
@@ -392,8 +396,19 @@ class Application:
                 self.notification_inbox.add(Notification(
                     title="Configuration warning", message=w,
                     priority="high"))
-        # retention (the disk manager): refused by _check_ported
         self.diskmanager = None
+        if s.retention.mode != "none":
+            from birdnet_go_tpu_torch.utils.diskmanager import (
+                DiskManager,
+                RetentionPolicy,
+            )
+
+            self.diskmanager = DiskManager(
+                s.export.path,
+                RetentionPolicy(mode=s.retention.mode,
+                                max_age_days=s.retention.max_age_days,
+                                max_usage_percent=s.retention.max_usage_percent),
+                datastore=self.datastore)
 
         # telemetry (opt-in, scrubbed; no-op without a DSN)
         from birdnet_go_tpu_torch.utils import telemetry as _telemetry
@@ -837,8 +852,6 @@ class Application:
              _INTEGRATIONS),
             ("database", s.database.type == "mysql",
              "MySQL (database.type: mysql)", _INTEGRATIONS),
-            ("retention", s.retention.mode != "none",
-             f"retention (retention.mode: {s.retention.mode})", _CRASH_LEG),
         )
         for name, enabled, what, item in checks:
             if enabled:
@@ -891,7 +904,8 @@ class Application:
             clf, max_batch=self.settings.realtime.max_batch,
             sensitivity=ms.sensitivity,
             pipeline_depth=self.settings.realtime.pipeline_depth,
-            on_result=functools.partial(self._on_window_result, model_id))
+            on_result=functools.partial(self._on_window_result, model_id),
+            gate=self.engine.gate)
         # Warm up BEFORE the batcher joins the device loop, so the first
         # real dispatch never stalls the tick thread (a first call builds
         # the kernels and tunes cuDNN) and starves the other models
@@ -1022,9 +1036,12 @@ class Application:
                 except Exception:
                     log.exception("warmup failed for %s", b.spec.model_id)
         self.device_loop.start()
-        # MQTT, weather, retention and the API: refused by _check_ported
+        # MQTT, weather and the API: refused by _check_ported
         if self.sysmonitor is not None:
             self.sysmonitor.start()
+        if self.diskmanager is not None:
+            self.diskmanager.start(
+                self.settings.retention.check_interval_hours * 3600)
         for src in self._sources:
             try:
                 src.start()
@@ -1105,6 +1122,8 @@ class Application:
             self.events.stop()
         if self.sysmonitor is not None:
             self.sysmonitor.stop()
+        if self.diskmanager is not None:
+            self.diskmanager.stop()
         self.control.stop()
         if self.datastore is not None:
             self.datastore.close()

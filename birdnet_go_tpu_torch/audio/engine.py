@@ -12,12 +12,15 @@ ready window each tick.
 
 A copy of ``birdnet_go_tpu/audio/engine.py`` for the port, which imports
 nothing of the JAX package; ``tests/test_torch_app.py`` holds it to the
-original. One divergence: the analysis rings are always the native
-library's (``_make_analysis_buffer``).
+original. Two divergences: the analysis rings are always the native
+library's (``_make_analysis_buffer``), and ``ingest`` passes through the
+engine's ``SourceGate``, which the app's device loop closes for each tick
+and its batchers for each eager step they launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -42,6 +45,63 @@ def _make_analysis_buffer(overlap_samples: int, read_samples: int,
     raises when it cannot (``native/lib.py``), so nothing falls back."""
     return native.NativeAnalysisBuffer(overlap_samples, read_samples,
                                        capacity_samples)
+
+
+class SourceGate:
+    """Keeps the source threads off the GIL while the device loop works.
+
+    The served step's eager ops (about a thousand a batch for v2.4) each
+    release the GIL and take it back. Every source thread that waits for
+    the GIL then takes a turn at each op, and on a host whose cores are
+    busy each turn waits for the scheduler as well. In the app on an H100
+    host a v2.4 launch took 49.5 ms among 64 source threads against
+    10.6 ms alone, and with the host's cores loaded it grew to seconds.
+    JAX's jitted step takes the GIL once a batch and needs no gate.
+
+    The device loop's tick has the same trouble at each native ring it
+    polls (ctypes releases the GIL too), so the app's ``DeviceLoop``
+    holds the gate closed for a whole tick and its batchers for a launch
+    or a warm-up. The sources, not the tick, then take what a busy host
+    withholds: a ``ToneSource`` or ``FileLoopSource`` that falls behind
+    resumes its pace from now.
+
+    ``turn()`` is a source's pass through ``AudioEngine.ingest``; any
+    number run at once. ``closed()`` is a tick or a launch: it stops new
+    turns, waits for the running ones and holds them off until it ends,
+    so the source threads wait on a lock instead of the GIL. Closings do
+    not exclude each other and may nest. Turns may not: a turn inside a
+    turn can deadlock against a closing that waits between them."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._closings = 0
+        self._turns = 0
+
+    @contextlib.contextmanager
+    def turn(self):
+        with self._cond:
+            self._cond.wait_for(lambda: not self._closings)
+            self._turns += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._turns -= 1
+                if not self._turns:
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def closed(self):
+        with self._cond:
+            self._closings += 1
+            self._cond.wait_for(lambda: not self._turns)
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._closings -= 1
+                if not self._closings:
+                    self._cond.notify_all()
 
 
 @dataclasses.dataclass
@@ -123,6 +183,7 @@ class AudioEngine:
         self._streams: dict[str, _StreamState] = {}
         self._lock = threading.Lock()
         self.on_ingest = on_ingest          # liveness watchdog feed
+        self.gate = SourceGate()
 
     # -- sources -------------------------------------------------------------------
 
@@ -187,7 +248,13 @@ class AudioEngine:
     def ingest(self, source_id: str, pcm_i16: np.ndarray,
                timestamp: float | None = None) -> None:
         """Push int16 PCM at the source rate; fans out to capture buffer
-        and every model's analysis buffer (BufferConsumer.Write analogue)."""
+        and every model's analysis buffer (BufferConsumer.Write analogue).
+        Waits while a tick or a launch holds ``gate`` closed."""
+        with self.gate.turn():
+            self._ingest(source_id, pcm_i16, timestamp)
+
+    def _ingest(self, source_id: str, pcm_i16: np.ndarray,
+                timestamp: float | None) -> None:
         with self._lock:
             st = self._streams.get(source_id)
         if st is None:

@@ -1,5 +1,6 @@
 """Command line of the PyTorch port: analyze / benchmark / rangefilter /
-train / model / verify-artifact / soak / serve (ports of those commands of
+train / model / verify-artifact / soak / serve / recover / migrate /
+support / db / notify / gen-schema (ports of those commands of
 ``birdnet_go_tpu/cli/main.py``).
 
     python -m birdnet_go_tpu_torch analyze recording.wav
@@ -10,6 +11,8 @@ train / model / verify-artifact / soak / serve (ports of those commands of
     python -m birdnet_go_tpu_torch verify-artifact model.tflite
     python -m birdnet_go_tpu_torch soak --streams 2000 --seconds 45
     python -m birdnet_go_tpu_torch serve --config app.json
+    python -m birdnet_go_tpu_torch recover --db birds.db --clips-dir clips
+    python -m birdnet_go_tpu_torch db doctor --db birds.db [--fix]
 
 Global flags mirror the reference's persistent flags (cmd/root.go:86-106):
 threshold, sensitivity, overlap, locale, latitude/longitude. Output lines
@@ -23,7 +26,10 @@ headless: the API is not ported yet, so it turns off the webserver and the
 image provider, whose only consumer the API is, and says so. It probes the
 card in a bounded child process first (``utils/backendprobe.py``), which
 raises rather than fall back to the CPU; its ``--config`` is YAML, or JSON
-where yaml is missing.
+where yaml is missing. The host commands ``recover``, ``migrate``,
+``support``, ``db``, ``notify`` and ``gen-schema`` use no device (``db``
+refuses ``database.type: mysql``, which is not ported yet); ``support``'s
+``system.json`` lists the CUDA cards torch sees, and none without one.
 """
 
 from __future__ import annotations
@@ -189,6 +195,52 @@ def build_parser() -> argparse.ArgumentParser:
                         "(ingest→scheduler→processor→datastore)")
     soak.add_arguments(sk)
 
+    mig = sub.add_parser(
+        "migrate", help="migrate a BirdNET-Go legacy database (resumable; "
+                        "state persists across interrupts)")
+    mig.add_argument("legacy", help="path to the legacy BirdNET-Go sqlite DB")
+    mig.add_argument("--database", default="data/birdnet.db")
+    mig.add_argument("--batch-size", type=int, default=500)
+    mig.add_argument("--rollback", action="store_true",
+                     help="undo a previous unfinished migration instead")
+    mig.add_argument("--force", action="store_true",
+                     help="start over a completed migration (e.g. to absorb"
+                          " a second legacy database; dedup prevents"
+                          " duplicates)")
+
+    sup = sub.add_parser("support", help="write a scrubbed support bundle")
+    sup.add_argument("--output", default=".")
+
+    doc = sub.add_parser("db", help="database doctor: diagnose/repair")
+    doc.add_argument("action", choices=["doctor"])
+    doc.add_argument("--db", default=None, help="sqlite database path")
+    doc.add_argument("--config", default=None,
+                     help="YAML config file (JSON where yaml is missing)")
+    doc.add_argument("--fix", action="store_true",
+                     help="apply repairs (delete orphans, rebuild indices,"
+                          " checkpoint + vacuum)")
+
+    n = sub.add_parser("notify", help="send a test notification")
+    n.add_argument("--config", default=None,
+                   help="YAML config file (JSON where yaml is missing)")
+    n.add_argument("--title", default="Test notification")
+    n.add_argument("--message", default="CLI test notification")
+    n.add_argument("--priority", default="normal")
+
+    sub.add_parser("gen-schema", help="print the configuration JSON schema")
+
+    rc = sub.add_parser(
+        "recover",
+        help="startup crash recovery: reopen the database (WAL replay), "
+             "verify integrity, restore dynamic thresholds, reconcile "
+             "clip↔DB orphans both ways, resync the species tracker, "
+             "audit for double-counted detections — prints the ledger")
+    rc.add_argument("--db", required=True, help="sqlite database path")
+    rc.add_argument("--clips-dir", default=None, help="clip directory")
+    rc.add_argument("--ignore-recency", action="store_true",
+                    help="bypass the clip recency guards (testing only: "
+                         "sweeps/clears orphans regardless of age)")
+
     s = sub.add_parser("serve", help="realtime analysis server (headless: "
                        "the API is not ported yet)")
     s.add_argument("--config", default=None,
@@ -226,7 +278,11 @@ def main(argv: list[str] | None = None) -> int:
             "rangefilter": _cmd_rangefilter, "train": _cmd_train,
             "model": _cmd_model,
             "verify-artifact": _cmd_verify_artifact,
-            "soak": soak.run, "serve": _cmd_serve}[args.command](args)
+            "soak": soak.run, "serve": _cmd_serve,
+            "migrate": _cmd_migrate, "support": _cmd_support,
+            "db": _cmd_db, "notify": _cmd_notify,
+            "gen-schema": _cmd_gen_schema,
+            "recover": _cmd_recover}[args.command](args)
 
 
 def _cmd_serve(args) -> int:
@@ -536,6 +592,138 @@ def _cmd_verify_artifact(args) -> int:
         print(f"  · {d}")
     print("PASS" if rep.ok else "FAIL")
     return 0 if rep.ok else 1
+
+
+def _cmd_recover(args) -> int:
+    from birdnet_go_tpu_torch.analysis.recovery import recover_startup
+
+    now = time.time() + (3600.0 if args.ignore_recency else 0.0)
+    ledger = recover_startup(args.db, clips_dir=args.clips_dir, now=now)
+    print(json.dumps(ledger, indent=1))
+    ok = (ledger["integrity"] == "ok"
+          and ledger["duplicate_detections"] == 0)
+    return 0 if ok else 1
+
+
+def _cmd_migrate(args) -> int:
+    """Foreground legacy→native migration (same worker the server drives
+    via /api/v2/migration; dual-write disabled since nothing is live)."""
+    from birdnet_go_tpu_torch.datastore.migration import MigrationWorker
+    from birdnet_go_tpu_torch.datastore.sqlite import Datastore
+
+    ds = Datastore(args.database)
+    w = MigrationWorker(ds, args.legacy, batch_size=args.batch_size,
+                        sleep_between=0.0, dual_write=False)
+    if args.rollback:
+        try:
+            w.rollback()
+        except RuntimeError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        print("rolled back: migration state reset, migrated rows removed")
+        return 0
+    try:
+        w.start(force=args.force)
+    except RuntimeError as e:
+        if "paused" in str(e):      # auto-resume an interrupted/paused run
+            print("resuming paused migration")
+            w.resume()
+        else:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    last_pct = -1.0
+    while True:
+        st = w.status()
+        if st["progress_pct"] != last_pct:
+            last_pct = st["progress_pct"]
+            eta = (f", ETA {st['eta_seconds']:.0f}s"
+                   if st["eta_seconds"] else "")
+            print(f"\r{st['state']}: {st['migrated_records']}/"
+                  f"{st['total_records']} ({st['progress_pct']}%)"
+                  f" {st['records_per_second']}/s{eta}   ",
+                  end="", flush=True)
+        if st["state"] in ("completed", "failed", "cancelled"):
+            print()
+            if st["error"]:
+                print(f"error: {st['error']}", file=sys.stderr)
+            w.stop()
+            return 0 if st["state"] == "completed" else 1
+        if st["state"] == "paused":      # auto-pause after repeated errors
+            print(f"\npaused: {st['error']}", file=sys.stderr)
+            w.stop()
+            return 1
+        time.sleep(0.2)
+
+
+def _cmd_db(args) -> int:
+    """Database doctor (reference: tools/db-doctor/db-doctor.py — a
+    standalone diagnose/repair pass over the configured database). MySQL
+    is not ported yet: it raises ``NotImplementedError``, as the app's
+    refusals do."""
+    from birdnet_go_tpu_torch.config.settings import Settings, load_settings
+    from birdnet_go_tpu_torch.datastore.sqlite import Datastore
+
+    settings = load_settings(args.config) if args.config else Settings()
+    if not args.db and settings.database.type == "mysql":
+        raise NotImplementedError(
+            "MySQL (database.type: mysql) is not ported to the PyTorch port "
+            "yet: see ROADMAP.md queue 1 item 8 (the integrations)")
+    path = args.db or settings.database.path
+    # a doctor must never "diagnose" a database it just created — a
+    # typo'd path would report an empty healthy db and strand a file
+    if not Path(path).is_file():
+        print(json.dumps({"error": f"database not found: {path}"}))
+        return 2
+    ds = Datastore(path)
+    try:
+        report = ds.doctor(fix=args.fix)
+    finally:
+        ds.close()
+    print(json.dumps(report, indent=2, default=str))
+    # with --fix the datastore re-diagnoses after repairs, so healthy
+    # reflects the POST-repair state either way
+    return 0 if report["healthy"] else 1
+
+
+def _cmd_support(args) -> int:
+    from birdnet_go_tpu_torch.utils.support import collect_support_bundle
+
+    bundle = collect_support_bundle()
+    out = Path(args.output) / bundle.name
+    out.write_bytes(bundle.data)
+    print(f"support bundle written to {out}")
+    return 0
+
+
+def _cmd_notify(args) -> int:
+    """Send a test notification through the configured targets
+    (reference: cmd/notify)."""
+    from birdnet_go_tpu_torch.config.settings import load_settings
+    from birdnet_go_tpu_torch.integrations.notification import (
+        Notification,
+        NotificationService,
+        NotificationTarget,
+    )
+
+    settings = load_settings(args.config)
+    svc = NotificationService(
+        [NotificationTarget(**t) for t in settings.notification.targets])
+    n = Notification(title=args.title, message=args.message,
+                     priority=args.priority)
+    delivered = svc.notify(n)
+    print(f"delivered to {delivered}/{len(svc.targets)} target(s)")
+    return 0 if delivered or not svc.targets else 1
+
+
+def _cmd_gen_schema(args) -> int:
+    """Print the config JSON schema (reference: cmd/gen-schema)."""
+    from birdnet_go_tpu_torch.config.schema import generate_schema
+
+    print(json.dumps(generate_schema(), indent=2))
+    return 0
 
 
 if __name__ == "__main__":

@@ -22,10 +22,15 @@ returns without waiting for it. A tick drains its whole ready set,
 up to `max_dispatches_per_tick` device batches per model; overflow lands in
 a bounded retry backlog with drop accounting. A window is overdue if its
 dispatch→result latency exceeds ClipLength/2; overruns are counted.
+Given an ``AudioEngine``'s ``SourceGate``, the ``DeviceLoop`` holds it
+closed for the whole of each tick and a ``TorchModelBatcher`` while it
+launches a step or warms up, so that the source threads wait on a lock
+and not on the GIL meanwhile.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -281,8 +286,11 @@ class TorchModelBatcher(HostBatcher):
     def __init__(self, classifier: TorchClassifier, max_batch: int = 256,
                  sensitivity: float = 1.0, top_k: int = 10,
                  on_result: Callable[..., None] | None = None,
-                 pipeline_depth: int = 2):
+                 pipeline_depth: int = 2, gate=None):
         self.classifier = classifier
+        # an AudioEngine's SourceGate, closed while a step launches (the
+        # app passes its engine's; None: nothing to hold off)
+        self.gate = gate
         self.model = classifier.model
         self.device = classifier.device
         self.sensitivity = sensitivity
@@ -355,11 +363,16 @@ class TorchModelBatcher(HostBatcher):
         x.record_stream(compute)
         return x
 
+    def _closed(self):
+        return (self.gate.closed() if self.gate is not None
+                else contextlib.nullcontext())
+
     def warmup(self) -> float:
         """Run one step ahead of live traffic; returns its seconds."""
         t0 = time.monotonic()
-        self._step(self._to_device(self._staged), self.sensitivity,
-                   self.top_k, self.classifier._range_mask)
+        with self._closed():
+            self._step(self._to_device(self._staged), self.sensitivity,
+                       self.top_k, self.classifier._range_mask)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.monotonic() - t0
@@ -370,8 +383,10 @@ class TorchModelBatcher(HostBatcher):
     # -- device interaction (HostBatcher contract) ---------------------------
 
     def _launch(self, staged: np.ndarray, n: int):
-        vals, idx, cv = self._step(self._to_device(staged), self.sensitivity,
-                                   self.top_k, self.classifier._range_mask)
+        with self._closed():
+            vals, idx, cv = self._step(self._to_device(staged),
+                                       self.sensitivity, self.top_k,
+                                       self.classifier._range_mask)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -398,8 +413,11 @@ class DeviceLoop:
 
     def __init__(self, tick_seconds: float = 0.1,
                  max_dispatches_per_tick: int = 8,
-                 min_tick_seconds: float | None = None):
+                 min_tick_seconds: float | None = None, gate=None):
         self.tick_seconds = tick_seconds
+        # an AudioEngine's SourceGate, closed for the whole of each tick
+        # (the port's own; None: nothing to hold off)
+        self.gate = gate
         # Adaptive cadence floor: when the host plane is idle the loop
         # ticks this fast (collect-wait and harvest-wait both quantize to
         # the tick period, so a 100 ms tick alone puts ~150 ms on every
@@ -502,8 +520,10 @@ class DeviceLoop:
         whole ready set: a batcher that fills mid-tick is dispatched
         immediately (pipelined on device) and filling continues, up to
         max_dispatches_per_tick batches per model; only beyond that does
-        overflow land in the bounded retry backlog."""
-        with self._tick_lock:
+        overflow land in the bounded retry backlog. Holds ``gate``
+        closed throughout, where there is one."""
+        with self._tick_lock, (self.gate.closed() if self.gate is not None
+                               else contextlib.nullcontext()):
             return self._tick()
 
     def _tick(self) -> int:

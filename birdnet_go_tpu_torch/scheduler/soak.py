@@ -20,6 +20,20 @@ Device modes:
     measured v2.4 step (``CalibratedStubBatcher``), so the host's
     capacity can be measured without a card.
 
+``durable=True`` (the crash leg's victim and restart leg,
+``scheduler/crashleg.py``) learns, persists and restores dynamic
+thresholds; the record's ``durable`` gives the count restored at start and
+their levels. JAX ran durable mode only on the stub, whose hits sit at
+0.93. On "cuda" and "cpu" the calibration also raises the dynamic
+thresholds' floor to the calibrated threshold, so levels are learned,
+persisted and restored and lower no threshold. Random weights give the
+windows of one synthetic waveform near-equal scores: the calibrated
+threshold lands above the trigger (0.90; 0.9519 on the card), every
+approval then lowers its species' threshold, and with the default floor
+0.20 a lowered threshold approves most of a species' windows (a 20 s
+restart leg of 2,000 streams on the card approved 2,388 windows and
+dropped 1,788 critical jobs). The floor alone stops that.
+
 Per-window serving latency is measured against the window's realtime
 deadline (the moment its last sample was produced), so queueing, packing,
 dispatch, device time, and result fan-out are all inside the number.
@@ -628,6 +642,7 @@ def run_soak(streams: int = 2500, seconds: float = 120.0,
     persist_stop = None
     if durable:
         processor.dynamic.restore(store.load_dynamic_thresholds())
+        restored = processor.dynamic.snapshot()
         persist_stop = threading.Event()
 
         def _persist_loop():
@@ -699,6 +714,10 @@ def run_soak(streams: int = 2500, seconds: float = 120.0,
                     # on the next submit
                     for ms in settings.models:
                         ms.threshold = thr
+                    if durable:
+                        # durable device mode: levels learn, persist and
+                        # restore, and lower no threshold (module doc)
+                        processor.dynamic.floor = thr
                     log.info("calibrated threshold %.4f from %d windows"
                              " (target %.2f%% detection-bearing)",
                              thr, seen, 100 * cal["target"])
@@ -1027,6 +1046,9 @@ def run_soak(streams: int = 2500, seconds: float = 120.0,
             "target_detection_rate": cal["target"],
             "windows_sampled": int(sum(len(c) for c in cal["chunks"])),
             "passes": cal["passes"],
+            **({"trigger": processor.dynamic.trigger,
+                "dynamic_floor": processor.dynamic.floor}
+               if durable else {}),
         }
     if device != "stub":
         # every batch launches the mel kernel on the card; the CPU's plain
@@ -1111,6 +1133,9 @@ def run_soak(streams: int = 2500, seconds: float = 120.0,
             "db_path": db_path,
             "persist_interval_s": persist_interval_s,
             "thresholds_persisted": len(processor.dynamic.snapshot()),
+            "thresholds_restored": len(restored),
+            "restored_levels": sorted(
+                [m, sci, st.level] for (m, sci), st in restored.items()),
         }} if durable else {}),
         "ring": {
             "initial_seconds": ring_seconds,

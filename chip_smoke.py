@@ -5,8 +5,9 @@ MBConv kernels; then its offline analysis and CLI, imported .tflite and
 .onnx artifacts, custom-classifier training with the model gallery, int8
 quantization with mesh-sharded serving, the whole realtime server in a
 2,000-stream soak, the clip and aux planes (spectrograms, sound levels,
-clip export, live HLS) with the soak's kitchen-sink leg, and the realtime
-app and ``serve``, headless.
+clip export, live HLS) with the soak's kitchen-sink leg, the realtime
+app and ``serve``, headless, and crash recovery: a durable soak SIGKILLed
+on the card, recovered and restarted.
 
     python3 chip_smoke.py
 
@@ -156,7 +157,21 @@ Phases, in order; any failure propagates and exits non-zero:
    CPU's, no critical job is dropped, ``stop()`` returns within 15 s and
    nothing is logged at ERROR; then ``python -m birdnet_go_tpu_torch
    serve --config app.json`` over 8 tone sources, stopped by SIGTERM,
-   exits 0 with its headless, probe and serving lines and rows in its db.
+   exits 0 with its headless, probe and serving lines and rows in its db;
+17. crash recovery (``phase_crash``): ``python -m
+   birdnet_go_tpu_torch.scheduler.crashleg --device cuda --streams 2000
+   --kill-min-rows 200 --restart-seconds 20`` in a process of its own
+   (record, tree and logs under ``build/crash_smoke/``): a durable soak
+   of v2.4 at full width on the card SIGKILLed once 200 rows and a
+   learned threshold have landed, ``recover_startup`` twice, then a 20 s
+   restart leg on the card in the recovered database. Gated on the
+   record's ``pass``, the kill, no process of the victim's left, the
+   ledger (integrity, no duplicate, a threshold restored, a species
+   resynced), idempotency, ``after == before + persisted``, no sample or
+   critical job lost, p95 below 1,500 ms, the mel kernel once a batch;
+   then ``recover --ignore-recency`` (nothing left to heal), ``db
+   doctor`` (healthy) and ``support`` (its ``system.json`` names the
+   card) on the tree the leg left.
 
 Every kernel line carries its bound (``ops/roofline.py``: the larger of its
 bytes over the memory rate and its operations over the peak for their type)
@@ -187,6 +202,7 @@ import sqlite3
 import struct
 import subprocess
 import sys
+import tarfile
 import time
 import zlib
 from pathlib import Path
@@ -3405,6 +3421,145 @@ def phase_app(card: str) -> None:
     print(f"phase 16 (app) {time.monotonic() - t0:.1f} s [{card}]")
 
 
+CRASH_STREAMS = 2000         # phase 17: the soak's north-star size
+CRASH_KILL_ROWS = 200        # rows committed before the SIGKILL
+CRASH_RESTART_S = 20.0       # the restart leg, in the recovered database
+CRASH_P95_MS = 1500.0        # the restart leg's latency p95, half the clip
+
+
+def _cli_run(argv: list[str], timeout: float = 120.0
+             ) -> subprocess.CompletedProcess:
+    """``python -m birdnet_go_tpu_torch <argv>`` in a process of its own."""
+    return subprocess.run([sys.executable, "-m", "birdnet_go_tpu_torch",
+                           *argv], capture_output=True, text=True,
+                          timeout=timeout, cwd=REPO)
+
+
+def phase_crash(card: str) -> None:
+    """Phase 17, crash recovery: ``python -m
+    birdnet_go_tpu_torch.scheduler.crashleg --device cuda`` in a process of
+    its own over CRASH_STREAMS streams (record, tree and logs under
+    ``build/crash_smoke/``): a durable soak on the card SIGKILLed once
+    CRASH_KILL_ROWS rows and a threshold have landed, ``recover_startup``
+    twice, then a CRASH_RESTART_S restart leg on the card in the recovered
+    database. Gates: the record's ``pass``; the kill by SIGKILL after the
+    rows and a threshold, and no process of the victim's left; the
+    ledger's integrity ``ok``, no duplicate detection, a threshold
+    restored and a species resynced; recovery idempotent; the restart
+    leg restoring at its start at least the thresholds persisted before
+    the kill, with the database's levels; the restart
+    leg's ``after == before + persisted`` with rows persisted, no sample
+    lost, no critical job dropped, latency p95 below CRASH_P95_MS and the
+    mel kernel launched once a batch. Then the operator's commands on the tree the leg left:
+    ``recover --ignore-recency`` exits 0 with nothing left to heal, ``db
+    doctor`` reports it healthy, and ``support``'s ``system.json`` names
+    the card."""
+    t0 = time.monotonic()
+    out = REPO / "build" / "crash_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    tree, rec_path = out / "tree", out / "crash.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "birdnet_go_tpu_torch.scheduler.crashleg",
+         "--device", "cuda", "--streams", str(CRASH_STREAMS),
+         "--kill-min-rows", str(CRASH_KILL_ROWS), "--restart-seconds",
+         str(CRASH_RESTART_S), "--workdir", str(tree), "--out",
+         str(rec_path)], capture_output=True, text=True, timeout=600,
+        cwd=REPO)
+    leg_s = time.monotonic() - t0
+    (out / "crash.log").write_text(proc.stderr)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:])
+        victim = tree / "victim.log"
+        if victim.exists():
+            print(victim.read_text(errors="replace")[-4000:])
+    assert rec_path.exists(), f"the crash leg exited {proc.returncode}"
+    rec = json.loads(rec_path.read_text())["runs"][-1]
+    v, led, r = rec["victim"], rec["recovery_ledger"], rec["restart"]
+    cal = r["threshold_calibration"] or {}
+    print(f"crash victim: `soak --device {rec['device']} --durable` of "
+          f"{rec['streams']} "
+          f"streams SIGKILLed at {v['killed_at_s']} s (rc {v['returncode']})"
+          f" after {v['rows_committed_before_kill']} rows and "
+          f"{v['thresholds_before_kill']} thresholds; {v['clips_on_disk_at_kill']}"
+          f" clips on disk, WAL {v['wal_left_behind_bytes']} bytes left; "
+          f"calibrated threshold {v['calibrated_threshold']} against the "
+          f"dynamic trigger {rec['trigger']}; victim's group alive after the "
+          f"kill: {v['group_alive_after_kill']} [{rec['card']}]")
+    for line in (tree / "victim.log").read_text(
+            errors="replace").splitlines():
+        if "calibrat" in line:
+            print(f"crash victim log: {line.split(' ', 2)[-1]}")
+    print(f"crash recovery ({rec['recovery_seconds']} s, twice): {led}; "
+          f"idempotent {rec['recovery_idempotent']}")
+    print(f"crash restart: card memory before it (torch.cuda.mem_get_info) "
+          f"{r['card_memory_free_gib']} GiB free of "
+          f"{r['card_memory_total_gib']} GiB; {r['seconds']} s: rows "
+          f"{r['detections_before']} + {r['detections_persisted']} persisted "
+          f"= {r['detections_after']} ({r['exact_count_equation_holds']}), "
+          f"{r['approved']} approved, duplicates "
+          f"{r['duplicate_detections']}, integrity {r['integrity']}, "
+          f"thresholds restored at its start {r['thresholds_restored']} "
+          f"(>= {v['thresholds_before_kill']} before the kill: "
+          f"{r['thresholds_restored_ge_before_kill']}; levels equal to the "
+          f"database's rows: {r['restored_levels_match_db']})")
+    print(f"crash restart calibration: threshold {cal.get('threshold')} at "
+          f"sensitivity {cal.get('sensitivity')}, trigger "
+          f"{cal.get('trigger')}, dynamic floor {cal.get('dynamic_floor')}")
+    print(f"crash restart latency from the window's realtime end (ms): "
+          f"{r['latency_ms']}; drops {r['drop_accounting']}; mel kernel "
+          f"launches {r['mel_kernel_launches']} for "
+          f"{r['batches_dispatched']} batches [{card}]")
+    assert rec["pass"], rec
+    assert v["signal"] == "SIGKILL" and v["returncode"] == -signal.SIGKILL
+    assert v["rows_committed_before_kill"] >= CRASH_KILL_ROWS, v
+    assert v["thresholds_before_kill"] >= 1, v
+    assert not v["group_alive_after_kill"], v
+    assert led["integrity"] == "ok" and led["duplicate_detections"] == 0
+    assert led["thresholds_restored"] >= 1 and led["species_resynced"] >= 1
+    assert rec["recovery_idempotent"]
+    assert r["thresholds_restored"] >= v["thresholds_before_kill"], r
+    assert r["restored_levels_match_db"], r
+    assert r["exact_count_equation_holds"] and r["detections_persisted"] > 0
+    assert r["drop_accounting"]["farm_samples_lost"] == 0, r
+    assert r["drop_accounting"]["jobqueue_dropped_critical"] == 0, r
+    assert r["latency_ms"]["p95"] < CRASH_P95_MS, r["latency_ms"]
+    assert r["mel_kernel_launches"] == r["batches_dispatched"] > 0, r
+
+    # the operator's path on the tree the leg left
+    db, clips = str(tree / "birds.db"), str(tree / "clips")
+    t1 = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        support = pool.submit(_cli_run, ["support", "--output", str(out)])
+        recov = _cli_run(["recover", "--db", db, "--clips-dir", clips,
+                          "--ignore-recency"])
+        doctor = _cli_run(["db", "doctor", "--db", db])
+        support = support.result()
+    ops_s = time.monotonic() - t1
+    for name, p in (("recover", recov), ("db doctor", doctor),
+                    ("support", support)):
+        if p.returncode != 0:
+            print(f"{name} exited {p.returncode}:\n{p.stderr[-3000:]}")
+    assert recov.returncode == doctor.returncode == support.returncode == 0
+    ledger, report = json.loads(recov.stdout), json.loads(doctor.stdout)
+    (bundle,) = out.glob("support-bundle-*.tar.gz")
+    with tarfile.open(bundle) as tar:
+        sysinfo = json.loads(tar.extractfile("system.json").read())
+    print(f"crash operator: recover --ignore-recency {ledger['clips']}, "
+          f"{ledger['detections']} rows; db doctor healthy "
+          f"{report['healthy']} ({report['detections']} rows, issues "
+          f"{report['issues']}); support system.json devices "
+          f"{sysinfo['devices']} (torch {sysinfo['torch']}, CUDA "
+          f"{sysinfo['cuda']}); {ops_s:.1f} s")
+    assert ledger["integrity"] == "ok"
+    assert ledger["clips"]["orphan_files_swept"] == 0
+    assert ledger["clips"]["dangling_refs_cleared"] == 0
+    assert report["healthy"], report
+    assert card.split(",")[0].strip() in sysinfo["devices"], sysinfo
+    print(f"phase 17 (crash) {time.monotonic() - t0:.1f} s (the leg's "
+          f"process {leg_s:.1f} s) [{card}]")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -3452,6 +3607,7 @@ def main() -> None:
     plain = phase_soak(dev, card)
     phase_aux(dev, card, plain)
     phase_app(card)
+    phase_crash(card)
     print(f"total {time.monotonic() - t0:.1f} s of phases, "
           f"{time.monotonic() - T_START:.1f} s since the imports")
     print(f"kernels line: melspec_fused at the v2.4 main path's [{BATCH}, "

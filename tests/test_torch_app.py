@@ -839,6 +839,114 @@ def test_engine_windows_and_capture(rate, eq):
     _both(case)
 
 
+def test_source_gate_holds_ingest_off_during_a_launch():
+    """The port's divergence: ``AudioEngine.ingest`` takes a turn of the
+    engine's ``SourceGate``, and a launch (``closed``) waits for the
+    turns already running, then holds new ones off until it ends. Four
+    threads ingest in a loop around three launches of 30 ms."""
+    v24 = T.registry.BIRDNET_V24
+    eng = T.engine.AudioEngine([v24], capture_seconds=2.0)
+    ids = [f"s{k}" for k in range(4)]
+    for sid in ids:
+        eng.add_source(T.source.AudioSource(
+            source_id=sid, source_type=T.source.SourceType.FILE,
+            display_name=sid, sample_rate=48000))
+    events, stop = [], threading.Event()
+    real = eng._ingest
+
+    def ingest(source_id, pcm, timestamp):
+        events.append(("in", source_id))
+        time.sleep(0.002)
+        real(source_id, pcm, timestamp)
+        events.append(("out", source_id))
+
+    eng._ingest = ingest
+    chunk = np.zeros(4800, np.int16)
+
+    def source(sid):
+        while not stop.is_set():
+            eng.ingest(sid, chunk, timestamp=T0)
+
+    threads = [threading.Thread(target=source, args=(sid,)) for sid in ids]
+    for th in threads:
+        th.start()
+    try:
+        for _ in range(3):
+            _wait(lambda: len(events) > 40)
+            with eng.gate.closed():
+                events.append(("launch", None))
+                assert eng.gate._turns == 0
+                time.sleep(0.03)
+                events.append(("end", None))
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(5)
+    inside, running = False, set()
+    for kind, sid in events:
+        if kind == "launch":
+            assert not running, running      # every turn ended first
+            inside = True
+        elif kind == "end":
+            inside = False
+        else:
+            assert not inside, events        # no turn began in a launch
+            (running.add if kind == "in" else running.discard)(sid)
+    assert [k for k, _ in events].count("launch") == 3
+    assert sum(k == "in" for k, _ in events) > 20
+
+
+def test_app_closes_the_engine_gate_for_ticks_and_launches(
+        tmp_path, monkeypatch, tiny_v24):
+    """The app's device loop holds its engine's gate closed for each tick,
+    and every batcher, the one loaded at runtime too, while it warms up
+    and while it launches a step (the port only: JAX's jitted step takes
+    the GIL once a batch)."""
+    v3 = _tiny_v3(tiny_v24)
+    monkeypatch.setattr(T.app, "load_model",
+                        lambda model_id, checkpoint=None, **kw:
+                        copy.deepcopy(tiny_v24[1]) if model_id ==
+                        "BirdNET_V2.4" else copy.deepcopy(v3))
+    monkeypatch.setattr(T.app, "load_geomodel",
+                        lambda num_species=6, **kw: _TorchGeomodel())
+    steps = []
+    real_step = T.app.TorchModelBatcher._step
+
+    def step(self, *a):
+        steps.append((self.spec.model_id, self.gate._closings))
+        return real_step(self, *a)
+
+    monkeypatch.setattr(T.app.TorchModelBatcher, "_step", step)
+    app = T.app.Application(_app_settings(T, tmp_path), device="cpu")
+    app.setup()
+    gate = app.engine.gate
+    assert app.device_loop.gate is gate
+    for src in app._sources:
+        app.engine.add_source(src.source)
+    assert app.load_model_runtime("BirdNET_V3.0") is True
+    batchers = app.device_loop.batchers
+    assert set(batchers) == {"BirdNET_V2.4", "BirdNET_V3.0"}
+    assert all(b.gate is gate for b in batchers.values())
+    # the runtime load's warm-up, then one warm-up of each: closed once
+    for b in batchers.values():
+        b.warmup()
+    assert [n for _, n in steps] == [1, 1, 1], steps
+    polls = []
+    collect = app.device_loop._providers[0]
+    app.device_loop._providers[0] = lambda: (polls.append(gate._closings),
+                                             collect())[1]
+    del steps[:]
+    _ingest(app, _app_pcm(12.0), T0, 12.0)
+    _run_ticks(app)
+    # a tick's polls inside its closing; its launches nested in it
+    assert polls and set(polls) == {1}, polls
+    assert {m for m, _ in steps} == {"BirdNET_V2.4", "BirdNET_V3.0"}
+    assert {n for _, n in steps} == {2}, steps
+    assert gate._closings == 0 and gate._turns == 0
+    app.datastore.close()
+
+
 # -- the app, deterministic ------------------------------------------------------------
 
 T0 = 1_750_000_000.0        # the PCM's fixed past wall clock (June 2025)
@@ -1172,8 +1280,6 @@ REFUSALS = {
     "backup": (lambda s: setattr(s.backup, "enabled", True), "item 8", None),
     "mysql": (lambda s: setattr(s.database, "type", "mysql"), "item 8",
               None),
-    "retention": (lambda s: setattr(s.retention, "mode", "age"), "item 5",
-                  None),
     "rtsp": (lambda s: s.realtime.sources.append(
         {"type": "rtsp", "id": "cam", "url": "rtsp://cam/live"}), "item 7",
              "_reconfigure_sources"),

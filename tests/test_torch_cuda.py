@@ -10,7 +10,9 @@ train step; and int8 and meshes: ``int_mm`` exact at the shapes
 the ``act_int8`` step against the CPU, and ``ShardedClassifier`` on meshes
 that list the card more than once; the soak on the card, and its aux
 planes (spectrogram index and sound levels against the CPU, a kitchen-sink
-leg); and the realtime app serving on the card.
+leg); the realtime app serving on the card; and a crash leg on the card
+(its victim SIGKILLed, recovered, restarted), with the crash leg and
+``support`` refusing or naming no device with the card hidden.
 
 Every test needs a CUDA card and skips without one. The file imports no
 JAX, so it also runs where JAX is missing:
@@ -904,3 +906,51 @@ def test_app_serves_on_card(dev, tmp_path):
     assert st.windows_processed > 0 and st.overruns == 0
     assert app.device_loop.windows_dropped == 0
     assert melspec_fused.launches == st.batches_dispatched + 1
+
+
+def test_crash_leg_on_card(dev, tmp_path):
+    """A short crash leg on the card: a durable ``soak --device cuda`` of
+    2,000 streams SIGKILLed after 20 rows and 1 threshold, recovered
+    twice, then a 15 s restart leg on the card in the recovered database.
+    The record passes, no process of the victim's is left, and the
+    restart leg launched the mel kernel once a batch. (The restart leg
+    calibrates anew, three passes of 1,024 windows, before it approves
+    anything: 6 s of 500 streams offer too few windows.)"""
+    from birdnet_go_tpu_torch.scheduler.crashleg import run_crash_leg
+
+    rec = run_crash_leg(streams=2000, kill_min_rows=20, restart_seconds=15.0,
+                        workdir=str(tmp_path), device="cuda")
+    r = rec["restart"]
+    assert rec["pass"], rec
+    assert not rec["victim"]["group_alive_after_kill"]
+    assert r["exact_count_equation_holds"] and r["detections_persisted"] > 0
+    assert r["mel_kernel_launches"] == r["batches_dispatched"] > 0
+    assert "H100" in rec["card"]
+
+
+def test_crash_leg_and_support_without_a_card(monkeypatch, tmp_path,
+                                              capsys):
+    """With the card hidden ``crashleg --device cuda`` (the default)
+    raises before it starts a victim, and ``support`` writes a bundle
+    whose ``system.json`` names no device and says why. Runs on the CPU
+    too: the card is hidden."""
+    import io
+    import json
+    import tarfile
+
+    from birdnet_go_tpu_torch.cli import main as tcli
+    from birdnet_go_tpu_torch.scheduler import crashleg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    work = tmp_path / "work"
+    for argv in ([], ["--device", "cuda", "--workdir", str(work)]):
+        with pytest.raises(RuntimeError, match="needs a CUDA card"):
+            crashleg.main(argv)
+    assert not work.exists()                 # no victim was started
+    assert tcli.main(["support", "--output", str(tmp_path)]) == 0
+    assert "support bundle written" in capsys.readouterr().out
+    (bundle,) = tmp_path.glob("support-bundle-*.tar.gz")
+    with tarfile.open(fileobj=io.BytesIO(bundle.read_bytes())) as tar:
+        sysinfo = json.loads(tar.extractfile("system.json").read())
+    assert sysinfo["devices"] == []
+    assert "no CUDA card" in sysinfo["devices_error"]

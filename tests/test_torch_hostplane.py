@@ -454,7 +454,12 @@ def test_port_imports_with_jax_and_jax_package_blocked():
             "birdnet_go_tpu_torch.utils.backendprobe",
             "birdnet_go_tpu_torch.integrations",
             "birdnet_go_tpu_torch.integrations.notification",
-            "birdnet_go_tpu_torch.integrations.push_urls"} <= set(mods)
+            "birdnet_go_tpu_torch.integrations.push_urls",
+            "birdnet_go_tpu_torch.utils.diskmanager",
+            "birdnet_go_tpu_torch.analysis.recovery",
+            "birdnet_go_tpu_torch.scheduler.crashleg",
+            "birdnet_go_tpu_torch.utils.support",
+            "birdnet_go_tpu_torch.config.schema"} <= set(mods)
     res = subprocess.run([sys.executable, "-c",
                           _GUARDED_IMPORT % (_BLOCKED, mods)],
                          cwd=REPO, capture_output=True, text=True,

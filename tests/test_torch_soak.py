@@ -14,13 +14,17 @@ A kitchen-sink leg runs every aux plane beside the stub soak in both
 packages: the same record keys, every aux counter but the 45 s range
 rebuild above 0, no aux error, and a live dual-write migration. The flags
 of both CLIs reach ``run_soak`` alike. The soak legs run 6 s (the
-multi-model leg 8 s), sampled every 2 s.
+multi-model leg 8 s), sampled every 2 s. A durable ``device="cpu"`` leg
+shows the port's durable calibration (the dynamic floor raised to the
+calibrated threshold) and the restored thresholds it records, which JAX,
+running durable mode on the stub only, does not have.
 """
 
 import argparse
 import dataclasses
 import json
 import sqlite3
+import time
 
 import numpy as np
 import pytest
@@ -136,6 +140,11 @@ def test_durable_stub_soak_matches_jax(tmp_path):
         conn.close()
         assert names and all(n.endswith(".wav") for n in names)
         assert all((tmp_path / name / n).is_file() for n in names)
+    # the port also records the thresholds it restored at start (none in
+    # a new database) and their levels, which the crash leg checks
+    port = recs["port"]["durable"]
+    assert (port.pop("thresholds_restored"), port.pop("restored_levels")) \
+        == (0, [])
     _same_shape(recs["port"], recs["jax"])
 
 
@@ -228,6 +237,53 @@ def test_cpu_soak_serves_the_classifier(tmp_path, monkeypatch):
         np.testing.assert_allclose(vals[:n], want_v, rtol=1e-6, atol=1e-6)
         np.testing.assert_array_equal(idx[:n], want_i)
         assert (idx[:n, 0] == 17).all()
+
+
+def test_durable_cpu_soak_floors_at_the_calibrated_threshold(
+        tmp_path, monkeypatch):
+    """``device="cpu"``, durable, calibrated: the port's durable device
+    mode (JAX ran durable mode on the stub only). The calibration raises
+    the dynamic floor to the calibrated threshold; a threshold already in
+    the database is restored at start with its level and persisted again;
+    every approval is persisted."""
+    from birdnet_go_tpu_torch.analysis.dynamic_threshold import \
+        ThresholdState
+
+    monkeypatch.setattr(tsoak, "soak_classifier", _tiny_classifier)
+    db = tmp_path / "soak.db"
+    store = Datastore(str(db))
+    try:
+        store.save_dynamic_thresholds({("BirdNET_V2.4", "Turdus merula"):
+                                       ThresholdState(
+            level=2, high_conf_count=2, expires_at=time.time() + 3600,
+            last_learned_at=time.time())})
+    finally:
+        store.close()
+    # at 8x real time 200 streams offer the calibration's 1,024 windows a
+    # pass within a second
+    rec = tsoak.run_soak(streams=200, timescale=8.0, seconds=SECONDS,
+                         device="cpu", db_path=str(db), durable=True,
+                         persist_interval_s=1.0, calibrate_rate=0.015,
+                         sample_seconds=2.0)
+    thr = rec["calibration"]["threshold_calibration"]
+    assert thr["trigger"] == 0.9
+    assert thr["threshold"] is not None
+    assert thr["dynamic_floor"] == thr["threshold"]
+    assert rec["durable"]["persist_interval_s"] == 1.0
+    assert rec["durable"]["thresholds_restored"] == 1
+    assert rec["durable"]["restored_levels"] == [
+        ["BirdNET_V2.4", "Turdus merula", 2]]
+    assert rec["drop_accounting"]["jobqueue_dropped_critical"] == 0
+    acts = rec["actions"]
+    store = Datastore(str(db))
+    try:
+        assert store.count_detections() == acts["detections_persisted"] \
+            == acts["approved"]
+        saved = store.load_dynamic_thresholds()
+    finally:
+        store.close()
+    assert len(saved) == rec["durable"]["thresholds_persisted"] >= 1
+    assert saved[("BirdNET_V2.4", "Turdus merula")].level == 2
 
 
 def _captured(monkeypatch, mod):

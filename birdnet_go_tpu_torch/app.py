@@ -19,9 +19,12 @@ and raises without one. Where they differ from JAX:
   ``PreRenderer`` on `device`;
 - subsystems the port does not have yet raise ``NotImplementedError``
   naming their ``ROADMAP.md`` item when a setting enables them, from
-  ``setup`` and from the ``_reconfigure_*`` handlers (``_refuse``): the
-  API, the image providers, MQTT, BirdWeather, weather, backup, MySQL,
-  and the rtsp, http and audio_card sources;
+  ``setup`` and from the ``_reconfigure_*`` handlers (``refuse``):
+  the API's HTTPS and its OIDC, GitHub and Cloudflare logins, MQTT,
+  BirdWeather, weather, backup, MySQL, and the rtsp, http and
+  audio_card sources. The API (``api/server.py``, on the standard
+  library's ``asyncio``: ``api/web.py``) and the image providers are
+  built as in JAX;
 - the malloc arena cap goes through the port's native library, which
   raises where it cannot be built (JAX passes silently), and ``setup``
   also caps numpy's OpenBLAS pool at one thread (``utils/blas.py``).
@@ -31,8 +34,9 @@ and raises without one. Where they differ from JAX:
   (JAX's re-reads the attribute, which ``stop()`` sets to None);
 - ``unload_model_runtime`` serves the windows the model already holds
   (``DeviceLoop.remove_batcher``) where JAX drops them with the batcher;
-- FLAC clips are encoded in worker processes (``ClipEncoder``), so that
-  encoding does not hold the GIL the served step's eager ops take;
+- FLAC clips are encoded, and decoded for the API, in worker processes
+  (``ClipEncoder``), so that the codec does not hold the GIL the served
+  step's eager ops take;
 - the device loop and the batchers hold the engine's ``SourceGate``
   closed while they tick, launch or warm up, so that the source threads
   do not take the GIL at each eager op and ring poll of theirs
@@ -81,18 +85,19 @@ from birdnet_go_tpu_torch.scheduler.loop import DeviceLoop, TorchModelBatcher
 from birdnet_go_tpu_torch.taxonomy.labels import load_labels
 from birdnet_go_tpu_torch.utils import errors as errors_mod
 from birdnet_go_tpu_torch.utils.blas import set_blas_threads
+from birdnet_go_tpu_torch.utils.unported import (
+    INTEGRATIONS,
+    LOGINS,
+    SOURCES,
+    refuse,
+)
 
 log = logging.getLogger("birdnet_tpu.app")
-
-# where ROADMAP.md's queue 1 keeps what the port does not have yet
-_API = "ROADMAP.md queue 1 item 6 (the API)"
-_SOURCES = "ROADMAP.md queue 1 item 7 (the rtsp, http and audio_card sources)"
-_INTEGRATIONS = "ROADMAP.md queue 1 item 8 (the integrations)"
 
 
 class ClipEncoder:
     """Encodes FLAC clips in worker processes, other formats on the
-    calling thread.
+    calling thread; and decodes them there for the API (``decode``).
 
     The FLAC encoder is Python that holds the GIL for most of the time a
     clip takes to encode, while the served step's eager ops (about a
@@ -105,19 +110,15 @@ class ClipEncoder:
     with any spawned pool, they import the main module again, so a script
     that runs the app keeps its entry under ``if __name__ ==
     "__main__":``. Encoding is ``encode_clip``'s, so the bytes are the
-    same."""
+    same; decoding is ``load_clip_audio``'s (the FLAC decoder is Python
+    too: a 6 s clip held the GIL about a second on the card's host)."""
 
     def __init__(self, workers: int = 2):
         self.workers = workers
         self._pool = None
         self._lock = threading.Lock()
 
-    def encode(self, pcm_i16: np.ndarray, sample_rate: int,
-               out_path: str | Path) -> Path:
-        from birdnet_go_tpu_torch.audio.encode import encode_clip
-
-        if Path(out_path).suffix.lower() != ".flac":
-            return encode_clip(pcm_i16, sample_rate, out_path)
+    def _workers(self):
         with self._lock:
             if self._pool is None:
                 import concurrent.futures
@@ -126,9 +127,25 @@ class ClipEncoder:
                 self._pool = concurrent.futures.ProcessPoolExecutor(
                     self.workers,
                     mp_context=multiprocessing.get_context("spawn"))
-            pool = self._pool
-        return pool.submit(encode_clip, pcm_i16, sample_rate,
-                           out_path).result()
+            return self._pool
+
+    def encode(self, pcm_i16: np.ndarray, sample_rate: int,
+               out_path: str | Path) -> Path:
+        from birdnet_go_tpu_torch.audio.encode import encode_clip
+
+        if Path(out_path).suffix.lower() != ".flac":
+            return encode_clip(pcm_i16, sample_rate, out_path)
+        return self._workers().submit(encode_clip, pcm_i16, sample_rate,
+                                      out_path).result()
+
+    def decode(self, path: str | Path) -> tuple[np.ndarray, int]:
+        """A clip's float32 samples and rate, as ``load_clip_audio``
+        returns them."""
+        from birdnet_go_tpu_torch.audio.encode import load_clip_audio
+
+        if Path(path).suffix.lower() != ".flac":
+            return load_clip_audio(path)
+        return self._workers().submit(load_clip_audio, path).result()
 
     def shutdown(self) -> None:
         with self._lock:
@@ -137,10 +154,6 @@ class ClipEncoder:
             pool.shutdown(wait=True)
 
 
-def _refuse(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch port yet: see {item}; turn "
-        f"it off in the settings to serve without it")
 
 
 class Application:
@@ -273,9 +286,27 @@ class Application:
 
         self.species_tracker = SpeciesTracker(self.datastore)
 
-        # species images: refused by _check_ported (the API is their
-        # only consumer)
+        # species images (dashboard cards + thumbnail endpoint)
         self.images = None
+        if s.imageprovider.enabled:
+            from birdnet_go_tpu_torch.integrations.imageprovider import (
+                AvicommonsProvider,
+                ImageProviderService,
+                WikipediaProvider,
+            )
+
+            providers = []
+            for name in s.imageprovider.providers:
+                try:
+                    if name == "avicommons":
+                        providers.append(AvicommonsProvider(
+                            dataset_path=s.imageprovider.avicommons_dataset))
+                    elif name == "wikimedia":
+                        providers.append(WikipediaProvider())
+                except Exception:
+                    log.exception("image provider %s unavailable", name)
+            self.images = ImageProviderService(providers,
+                                               datastore=self.datastore)
 
         # 3. detection engine
         from birdnet_go_tpu_torch.analysis.eventtracker import EventTracker
@@ -361,7 +392,12 @@ class Application:
                 gate=self.engine.gate))
         self.device_loop.add_provider(self.engine.collect_ready)
 
-        # 5. API: refused by _check_ported (headless)
+        # 5. API
+        if s.webserver.enabled:
+            from birdnet_go_tpu_torch.api.server import ApiServer
+
+            self.api = ApiServer(self, host=s.webserver.host,
+                                 port=s.webserver.port)
 
         # 6. integrations — constructed by the same _reconfigure_*
         # handlers the control bus uses, so setup and live reconfigure
@@ -629,7 +665,8 @@ class Application:
             self.soundlevel = SoundLevelWorker(
                 self.engine, sse=self.api.sse if self.api else None,
                 mqtt=self.mqtt, mqtt_topic=s.mqtt.topic,
-                interval_seconds=s.soundlevel.interval_seconds)
+                interval_seconds=s.soundlevel.interval_seconds,
+                device=self.device)
             self.soundlevel.start()
         log.info("sound level publication reconfigured (enabled=%s)",
                  s.soundlevel.enabled)
@@ -835,33 +872,40 @@ class Application:
         s = self.settings
         out = {}
         checks = (
-            ("webserver", s.webserver.enabled, "the API (webserver.enabled)",
-             _API),
-            ("imageprovider", s.imageprovider.enabled,
-             "the image providers (imageprovider.enabled)", _INTEGRATIONS),
-            ("mqtt", s.mqtt.enabled, "MQTT (mqtt.enabled)", _INTEGRATIONS),
+            ("tls", s.webserver.enabled and s.webserver.tls_enabled,
+             "HTTPS (webserver.tls_enabled)", LOGINS),
+            ("oidc", s.webserver.enabled and bool(s.webserver.oidc_issuer),
+             "OIDC login (webserver.oidc_issuer)", LOGINS),
+            ("github", s.webserver.enabled
+             and bool(s.webserver.github_client_id),
+             "GitHub login (webserver.github_client_id)", LOGINS),
+            ("cloudflare", s.webserver.enabled
+             and s.webserver.cloudflare_bypass_enabled,
+             "the Cloudflare Access bypass "
+             "(webserver.cloudflare_bypass_enabled)", LOGINS),
+            ("mqtt", s.mqtt.enabled, "MQTT (mqtt.enabled)", INTEGRATIONS),
             ("birdweather", s.birdweather.enabled
              and bool(s.birdweather.station_token),
              "BirdWeather (birdweather.enabled with a station token)",
-             _INTEGRATIONS),
+             INTEGRATIONS),
             ("weather", s.weather.provider != "none"
              and s.location.latitude is not None,
              f"the weather provider {s.weather.provider!r} "
-             f"(weather.provider)", _INTEGRATIONS),
+             f"(weather.provider)", INTEGRATIONS),
             ("backup", s.backup.enabled, "backup (backup.enabled)",
-             _INTEGRATIONS),
+             INTEGRATIONS),
             ("database", s.database.type == "mysql",
-             "MySQL (database.type: mysql)", _INTEGRATIONS),
+             "MySQL (database.type: mysql)", INTEGRATIONS),
         )
         for name, enabled, what, item in checks:
             if enabled:
-                out[name] = str(_refuse(what, item))
+                out[name] = str(refuse(what, item))
         for i, cfg in enumerate(s.realtime.sources):
             stype = cfg.get("type", "file")
             if stype in ("rtsp", "http", "audio_card"):
                 sid = cfg.get("id") or f"{stype}{i}"
-                out[f"source {sid}"] = str(_refuse(
-                    f"the {stype} source {sid!r}", _SOURCES))
+                out[f"source {sid}"] = str(refuse(
+                    f"the {stype} source {sid!r}", SOURCES))
         return out
 
     def _check_ported(self, *names: str) -> None:
@@ -963,8 +1007,8 @@ class Application:
     def _add_source_from_config(self, cfg: dict) -> None:
         stype = cfg.get("type", "file")
         if stype in ("rtsp", "http", "audio_card"):
-            raise _refuse(f"the {stype} source {cfg.get('id', '?')!r}",
-                          _SOURCES)
+            raise refuse(f"the {stype} source {cfg.get('id', '?')!r}",
+                         SOURCES)
         # a malformed entry must not abort startup or leave a live
         # reconfigure half-applied — skip it with a log instead
         if stype == "file" and not cfg.get("path"):
@@ -1036,12 +1080,14 @@ class Application:
                 except Exception:
                     log.exception("warmup failed for %s", b.spec.model_id)
         self.device_loop.start()
-        # MQTT, weather and the API: refused by _check_ported
+        # MQTT and weather: refused by _check_ported
         if self.sysmonitor is not None:
             self.sysmonitor.start()
         if self.diskmanager is not None:
             self.diskmanager.start(
                 self.settings.retention.check_interval_hours * 3600)
+        if self.api is not None:
+            self.api.start()
         for src in self._sources:
             try:
                 src.start()
@@ -1124,6 +1170,8 @@ class Application:
             self.sysmonitor.stop()
         if self.diskmanager is not None:
             self.diskmanager.stop()
+        if self.api is not None:
+            self.api.stop()
         self.control.stop()
         if self.datastore is not None:
             self.datastore.close()

@@ -1,6 +1,6 @@
 """Command line of the PyTorch port: analyze / benchmark / rangefilter /
 train / model / verify-artifact / soak / serve / recover / migrate /
-support / db / notify / gen-schema (ports of those commands of
+support / db / auth / notify / gen-schema (ports of those commands of
 ``birdnet_go_tpu/cli/main.py``).
 
     python -m birdnet_go_tpu_torch analyze recording.wav
@@ -22,14 +22,16 @@ stops with an error rather than run on the CPU. ``model`` only moves files.
 ``soak`` runs the whole realtime server (``scheduler/soak.py``) on the card,
 on the CPU with ``--device cpu``, or against a latency model of the card's
 step with ``--device stub``. ``serve`` runs the realtime app (``app.py``)
-headless: the API is not ported yet, so it turns off the webserver and the
-image provider, whose only consumer the API is, and says so. It probes the
-card in a bounded child process first (``utils/backendprobe.py``), which
-raises rather than fall back to the CPU; its ``--config`` is YAML, or JSON
-where yaml is missing. The host commands ``recover``, ``migrate``,
-``support``, ``db``, ``notify`` and ``gen-schema`` use no device (``db``
-refuses ``database.type: mysql``, which is not ported yet); ``support``'s
-``system.json`` lists the CUDA cards torch sees, and none without one.
+with its API (``api/``) where ``webserver.enabled`` is on, as by default;
+``--host`` and ``--port`` apply as in JAX. It probes the card in a bounded
+child process first (``utils/backendprobe.py``), which raises rather than
+fall back to the CPU; its ``--config`` is YAML, or JSON where yaml is
+missing. The host commands ``recover``, ``migrate``, ``support``, ``db``,
+``auth``, ``notify`` and ``gen-schema`` use no device (``db`` refuses
+``database.type: mysql``, which is not ported yet); ``support``'s
+``system.json`` lists the CUDA cards torch sees, and none without one;
+``auth reset`` rewrites a config as JAX's does, in YAML, or in JSON
+where yaml is missing.
 """
 
 from __future__ import annotations
@@ -220,6 +222,11 @@ def build_parser() -> argparse.ArgumentParser:
                      help="apply repairs (delete orphans, rebuild indices,"
                           " checkpoint + vacuum)")
 
+    ar = sub.add_parser("auth", help="authentication maintenance")
+    ar.add_argument("action", choices=["reset"])
+    ar.add_argument("--config", required=True,
+                    help="YAML config file (JSON where yaml is missing)")
+
     n = sub.add_parser("notify", help="send a test notification")
     n.add_argument("--config", default=None,
                    help="YAML config file (JSON where yaml is missing)")
@@ -241,8 +248,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="bypass the clip recency guards (testing only: "
                          "sweeps/clears orphans regardless of age)")
 
-    s = sub.add_parser("serve", help="realtime analysis server (headless: "
-                       "the API is not ported yet)")
+    s = sub.add_parser("serve", help="realtime analysis server")
     s.add_argument("--config", default=None,
                    help="YAML config file (JSON where yaml is missing)")
     s.add_argument("--host", default=None)
@@ -280,7 +286,7 @@ def main(argv: list[str] | None = None) -> int:
             "verify-artifact": _cmd_verify_artifact,
             "soak": soak.run, "serve": _cmd_serve,
             "migrate": _cmd_migrate, "support": _cmd_support,
-            "db": _cmd_db, "notify": _cmd_notify,
+            "db": _cmd_db, "auth": _cmd_auth, "notify": _cmd_notify,
             "gen-schema": _cmd_gen_schema,
             "recover": _cmd_recover}[args.command](args)
 
@@ -314,16 +320,6 @@ def _cmd_serve(args) -> int:
     if args.port is not None:
         settings.webserver.port = args.port
     configure_logging(settings, debug=args.debug)
-    # headless: the API is the only consumer of the webserver and the
-    # image provider, and it is not ported yet (the app refuses both)
-    off = [name for name in ("webserver", "imageprovider")
-           if getattr(settings, name).enabled]
-    for name in off:
-        getattr(settings, name).enabled = False
-    if off:
-        print(f"headless: turned off {' and '.join(off)}; the API, their "
-              f"only consumer, is not ported yet (ROADMAP.md queue 1 item "
-              f"6)", flush=True)
     # bounded probe of the card before anything touches it here: a wedged
     # driver otherwise blocks boot; it raises rather than fall back
     if not args.no_backend_probe and args.device.type == "cuda":
@@ -336,7 +332,9 @@ def _cmd_serve(args) -> int:
     stop = threading.Event()
     signal.signal(signal.SIGINT, lambda *a: stop.set())
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
-    print(f"serving headless on {args.device}: {len(app.classifiers)} "
+    where = (f"http://{settings.webserver.host}:{app.api.port}"
+             if app.api is not None else "no API (webserver.enabled is off)")
+    print(f"serving on {where} on {args.device}: {len(app.classifiers)} "
           f"model(s), {len(app._sources)} source(s) — Ctrl-C to stop",
           flush=True)
     try:
@@ -716,6 +714,43 @@ def _cmd_notify(args) -> int:
     delivered = svc.notify(n)
     print(f"delivered to {delivered}/{len(svc.targets)} target(s)")
     return 0 if delivered or not svc.targets else 1
+
+
+def _cmd_auth(args) -> int:
+    """Authentication recovery (reference: reset_auth.sh — turn auth off
+    with a timestamped config backup so a locked-out operator can get
+    back in; doc/wiki/security.md "Authentication Recovery"). The config
+    is read as ``load_settings`` reads it and written back in YAML as JAX
+    writes it, or in JSON where yaml is missing."""
+    import importlib
+    import shutil
+
+    from birdnet_go_tpu_torch.config.settings import _read_config
+
+    cfg = Path(args.config)
+    if not cfg.is_file():
+        print(f"config not found: {cfg}")
+        return 2
+    stamp = datetime.datetime.now().strftime("%Y%m%dT%H%M%S")
+    backup = cfg.with_name(f"{cfg.name}.bak-{stamp}")
+    shutil.copy2(cfg, backup)
+    data = _read_config(cfg.read_text()) or {}
+    ws = data.setdefault("webserver", {}) or {}
+    cleared = [k for k in ("password", "auth_token", "oauth_client_secret",
+                           "oidc_client_secret", "github_client_secret")
+               if ws.get(k)]
+    for k in cleared:
+        ws[k] = ""
+    data["webserver"] = ws
+    try:
+        yaml = importlib.import_module("yaml")
+    except ImportError:
+        cfg.write_text(json.dumps(data, indent=2) + "\n")
+    else:
+        cfg.write_text(yaml.safe_dump(data, sort_keys=False))
+    print(f"authentication disabled ({', '.join(cleared) or 'nothing set'});"
+          f" backup at {backup.name}")
+    return 0
 
 
 def _cmd_gen_schema(args) -> int:

@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from birdnet_go_tpu_torch.models.geomodel import Geomodel
+from birdnet_go_tpu_torch.ops.streams import on_stream, side_stream
 from birdnet_go_tpu_torch.ops.postprocess import (
     sigmoid_confidence,
     top_k_results,
@@ -60,18 +61,36 @@ class TorchClassifier:
 
 class TorchRangeFilter:
     """Geomodel-backed range filter (reference: onnx/rangefilter.go) on
-    `device`, the card unless the caller passes another."""
+    `device`, the card unless the caller passes another.
+
+    On a card its work runs on a CUDA stream of its own (``stream``;
+    ``ops/streams.py``), as the aux planes' does, and its scores come
+    back into pinned memory (PyTorch's host cache keeps it for the next
+    call). The API's range heatmap copies a [16,200, S] float32 array
+    back (423 MB for v2.4's 6,522 species): on the served step's stream it
+    queued between the step's batches, and a pageable copy, which CUDA
+    stages through host buffers on the calling thread, held the step's
+    launches back even from a stream of its own (``PERF.md`` §6)."""
 
     def __init__(self, geomodel: Geomodel,
                  device: torch.device | str = "cuda"):
         self.device = torch.device(device)
         self.geomodel = geomodel.to(self.device).eval()
+        self.stream = side_stream(self.device)
+        if self.stream is not None:          # the weights' copy first
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
 
     def _scores(self, coords) -> np.ndarray:
-        with torch.inference_mode():
+        with torch.inference_mode(), on_stream(self.stream):
             x = torch.as_tensor(np.asarray(coords, np.float32),
                                 device=self.device)
-            return self.geomodel(x).cpu().numpy()
+            out = self.geomodel(x)
+            if self.stream is None:                  # the CPU
+                return out.numpy()
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            self.stream.synchronize()
+            return host.numpy()
 
     def predict(self, lat: float, lon: float, week: int) -> np.ndarray:
         """One location and week → scores [S]."""

@@ -6,8 +6,9 @@ MBConv kernels; then its offline analysis and CLI, imported .tflite and
 quantization with mesh-sharded serving, the whole realtime server in a
 2,000-stream soak, the clip and aux planes (spectrograms, sound levels,
 clip export, live HLS) with the soak's kitchen-sink leg, the realtime
-app and ``serve``, headless, and crash recovery: a durable soak SIGKILLed
-on the card, recovered and restarted.
+app and ``serve``, crash recovery: a durable soak SIGKILLed on the card,
+recovered and restarted, and the REST/SSE API with its device handlers
+driven over HTTP.
 
     python3 chip_smoke.py
 
@@ -144,7 +145,7 @@ Phases, in order; any failure propagates and exits non-zero:
 16. the realtime app and ``serve`` (``phase_app``): ``probe_backend`` names
    the card and raises with the card hidden from its child; then, in a
    process of its own (``app_leg``), ``Application`` on the card at full
-   width, headless: 48 tone and 16 file sources, BirdNET v2.4 (batch 256)
+   width, its API off: 48 tone and 16 file sources, BirdNET v2.4 (batch 256)
    alone for 20 s, with v3.0 loaded at runtime for 15 s, then 5 s after
    v3.0's unload; the range filter at a fixed place, Deep Detection level
    2, dynamic thresholds, FLAC clips and PNGs, a SQLite file under
@@ -156,8 +157,10 @@ Phases, in order; any failure propagates and exits non-zero:
    PNG, every health check is ok, the range filter's card set is the
    CPU's, no critical job is dropped, ``stop()`` returns within 15 s and
    nothing is logged at ERROR; then ``python -m birdnet_go_tpu_torch
-   serve --config app.json`` over 8 tone sources, stopped by SIGTERM,
-   exits 0 with its headless, probe and serving lines and rows in its db;
+   serve --config app.json`` over 8 tone sources with its API on
+   127.0.0.1, which answers ``/api/v2/health`` and names the card in
+   ``/api/v2/system/info``, stopped by SIGTERM, exits 0 with its probe and
+   serving lines and rows in its db;
 17. crash recovery (``phase_crash``): ``python -m
    birdnet_go_tpu_torch.scheduler.crashleg --device cuda --streams 2000
    --kill-min-rows 200 --restart-seconds 20`` in a process of its own
@@ -171,7 +174,27 @@ Phases, in order; any failure propagates and exits non-zero:
    critical job lost, p95 below 1,500 ms, the mel kernel once a batch;
    then ``recover --ignore-recency`` (nothing left to heal), ``db
    doctor`` (healthy) and ``support`` (its ``system.json`` names the
-   card) on the tree the leg left.
+   card) on the tree the leg left;
+18. the API (``phase_api``): in a process of its own (``api_leg``,
+   ``build/api_smoke/``), ``Application`` on the card at full width with
+   its API on 127.0.0.1 behind a password: 16 tone and 4 file sources,
+   v2.4 at batch 256 for 30 s, with clients held on the detection and
+   sound-level SSE streams while a logged-in client walks
+   ``diag/api_walk.py`` twice (v3.0 loaded and, 10 s later, unloaded over
+   HTTP; a range heatmap of 90 x 180 points; a spectrogram rendered on
+   a cache miss; a clip's Range; HLS; a settings PATCH; the metrics and
+   the SPA), then blocks of 6 heatmaps in turns, on the range filter's
+   stream into pinned memory and on the served step's stream with a
+   pageable copy; the v2.4 latency during each request and block is
+   printed. Every status as the walk holds it, ``system/info`` naming
+   the card, the heatmap within 1e-5 a score of the CPU's Geomodel, the
+   PNG the card's render and its index the CPU's to phase 15's
+   tolerance, the HLS segment the PCM it encodes bit for bit, SSE
+   detection
+   events = approvals = rows, no window dropped, v2.4's p95 below
+   1,500 ms, the mel kernel once a batch and a warm-up, ``stop()``
+   within 15 s with both SSE clients connected, nothing logged at ERROR;
+   each route's p50/p95 printed.
 
 Every kernel line carries its bound (``ops/roofline.py``: the larger of its
 bytes over the memory rate and its operations over the peak for their type)
@@ -225,7 +248,7 @@ from birdnet_go_tpu_torch.analysis.spectrogram import (
     render_spectrogram,
     spectrogram_index,
 )
-from birdnet_go_tpu_torch.audio import encode
+from birdnet_go_tpu_torch.audio import encode, hlsmux
 from birdnet_go_tpu_torch.audio.buffers import AnalysisBuffer, CaptureBuffer
 from birdnet_go_tpu_torch.audio.flac import decode_flac, streaminfo_block
 from birdnet_go_tpu_torch.audio.hlsmux import HlsSession
@@ -2880,14 +2903,17 @@ def _app_wavs(out: Path) -> list[np.ndarray]:
     return pcm
 
 
-def _cal_windows(rate: int, clip: int, wavs: list[np.ndarray]
+def _cal_windows(rate: int, clip: int, wavs: list[np.ndarray],
+                 tones: list[tuple[float, float]] | None = None
                  ) -> np.ndarray:
-    """Four windows of each of the 64 sources' signals at `rate`, 1.5 s
-    apart (the WAVs resampled by index where `rate` is not 48 kHz)."""
+    """Four windows of each source's signal at `rate`, 1.5 s apart: the
+    tones (phase 16's 48 by default) and the WAVs (resampled by index
+    where `rate` is not 48 kHz)."""
     rows = []
     for k in range(4):
         off = int(1.5 * rate * k)
-        rows += [_tone_pcm(f, p, rate, clip, off) for f, p in _app_tones()]
+        rows += [_tone_pcm(f, p, rate, clip, off)
+                 for f, p in (tones or _app_tones())]
         pos = (np.arange(clip) + off) * 48000 // rate
         rows += [w[pos % len(w)] for w in wavs]
     return np.stack(rows)
@@ -3262,12 +3288,18 @@ def _probe_pair() -> tuple[str, str]:
 
 def _serve_leg(card: str, out: Path) -> None:
     """``python -m birdnet_go_tpu_torch serve --config app.json`` as users
-    start it (the default device and threshold, the probe on): 8 tone
-    sources, a db and an export path in a JSON config; SIGTERM after
-    SERVE_SECONDS of serving. Gates: exit 0, the probe's, headless and
-    serving lines, rows in the db or windows in the pipeline-stats log,
-    no traceback."""
+    start it (the default device and threshold, the probe on, the API on):
+    8 tone sources, a db and an export path in a JSON config, the API on
+    127.0.0.1 at a port the OS picks; ``/api/v2/health`` and
+    ``/api/v2/system/info`` fetched while it serves, then SIGTERM after
+    SERVE_SECONDS of serving. Gates: exit 0, the probe's and serving
+    lines, health 200, ``system/info`` naming the card, rows in the db or
+    windows in the pipeline-stats log, no traceback."""
+    import urllib.request
+
     cfg = {"database": {"path": str(out / "serve.db")},
+           "webserver": {"host": "127.0.0.1", "port": 0},
+           "imageprovider": {"providers": ["avicommons"]},
            "export": {"path": str(out / "serve_clips"),
                       "clip_length_seconds": 6.0,
                       "pre_capture_seconds": 1.5},
@@ -3285,13 +3317,20 @@ def _serve_leg(card: str, out: Path) -> None:
              "--config", str(cfg_path)], stdout=so, stderr=se, cwd=REPO)
         try:
             deadline = time.monotonic() + 300
-            while "serving headless" not in stdout.read_text():
+            while "serving on http" not in stdout.read_text():
                 assert proc.poll() is None, \
                     f"serve exited {proc.returncode}:\n" \
                     f"{stderr.read_text()[-4000:]}"
                 assert time.monotonic() < deadline, "serve did not start"
                 time.sleep(0.2)
             up_s = time.monotonic() - t0
+            url = re.search(r"http://[\d.]+:\d+",
+                            stdout.read_text()).group(0)
+            api = {}
+            for route in ("health", "system/info"):
+                with urllib.request.urlopen(f"{url}/api/v2/{route}",
+                                            timeout=60) as r:
+                    api[route] = (r.status, json.loads(r.read()))
             time.sleep(SERVE_SECONDS)
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=120)
@@ -3308,13 +3347,18 @@ def _serve_leg(card: str, out: Path) -> None:
           f"s of serving, exit {rc}; {rows} rows in the db"
           + (f", pipeline stats: {stats[-1].split('pipeline: ')[1]}"
              if stats else "") + f" [{card}]")
+    print(f"app serve API at {url}: health {api['health'][0]} "
+          f"{api['health'][1]['status']}, system/info devices "
+          f"{api['system/info'][1]['devices']} [{card}]")
     for line in text.splitlines():
         print(f"app serve stdout: {line}")
     if rc != 0 or "Traceback" in text + log:
         print(log[-6000:])
     assert rc == 0, f"serve exited {rc}"
-    assert "headless: turned off webserver and imageprovider" in text, text
-    assert "backend probe: " in text and "serving headless on cuda" in text
+    assert "backend probe: " in text and f"serving on {url} on cuda" in text
+    assert api["health"][0] == api["system/info"][0] == 200, api
+    assert any(torch.cuda.get_device_name(0) in d
+               for d in api["system/info"][1]["devices"]), api
     assert rows > 0 or stats, "serve served no window that shows"
     assert "Traceback" not in text + log
 
@@ -3560,11 +3604,481 @@ def phase_crash(card: str) -> None:
           f"process {leg_s:.1f} s) [{card}]")
 
 
+API_TONES = 16               # phase 18: the API leg's tone sources
+API_FILES = 4                # ... and its file sources (phase 16's WAVs)
+API_SECONDS = 30.0           # the leg's serving, its walks included
+API_WALKS = 2                # walks of diag/api_walk.py
+API_UNLOAD_AFTER_S = 10.0    # a walk unloads v3.0 this long after its load
+API_P95_MS = 1500.0          # v2.4's latency p95 with the API serving
+API_STOP_S = 15.0            # stop() returns within, SSE clients connected
+API_PASSWORD = "chip-smoke"
+API_HEAT_RES = 90            # the heatmap's resolution: 90 x 180 points
+API_HEAT_WEEK = 20
+API_HEAT_BLOCK = 6           # heatmaps back to back, a block a mode:
+API_HEAT_MODES = ("step", "own", "own", "step")
+API_HEAT_TOL = 1e-5          # card vs CPU per species score (phase 9's
+                             # gate), summed over the species of a point
+
+
+def _segment_samples(segment: bytes) -> int:
+    """The samples of an fMP4 media segment: the sum of its ``trun``
+    sample durations (flags 0x301: data offset, then a duration and a
+    size a sample)."""
+    p = segment.index(b"trun")
+    n = struct.unpack(">I", segment[p + 8:p + 12])[0]
+    return sum(struct.unpack(">I", segment[p + 16 + 8 * i:p + 20 + 8 * i])[0]
+               for i in range(n))
+
+
+def _split_by_spans(served: list[tuple[float, float]], spans: list
+                    ) -> tuple[list[float], list[float]]:
+    """v2.4's latencies (ms) of the windows harvested inside any of
+    `spans` (wall-clock intervals), and of the others."""
+    inside, outside = [], []
+    for end, at in served:
+        hit = any(a <= at <= b for a, b in spans)
+        (inside if hit else outside).append((at - end) * 1e3)
+    return inside, outside
+
+
+def _zero_tail(pcm: np.ndarray) -> int:
+    """How many samples an HLS segment ends with that its session read as
+    zeros: ``read_segment`` fills what the source has not delivered yet,
+    and a tone or file source that was held up (the engine's gate during a
+    warm-up, the GIL) resumes its pace and stays behind the wall clock."""
+    return len(pcm) - len(np.trim_zeros(pcm, "b"))
+
+
+def api_leg(record_path: Path) -> None:
+    """Phase 18's API leg, in a process of its own (``python3
+    chip_smoke.py --api-leg <record.json>``): the ``Application`` on the
+    card at full width (v2.4 at batch 256, unfused, seeded weights; v3.0
+    loaded and unloaded at runtime over HTTP), API_TONES tone and
+    API_FILES file sources, FLAC clips, the range filter, sound levels, a
+    SQLite file; its API on ``127.0.0.1`` at a port the OS picks, with a
+    password and no local bypass, so that the login, the session cookie,
+    CSRF and the security middleware are on every request. Thresholds are
+    calibrated as phase 16's. While it serves API_SECONDS, a client holds
+    ``detections/stream`` and another ``soundlevels/stream``, and a
+    logged-in client walks ``diag/api_walk.py`` API_WALKS times (the first
+    walk decodes its spectrogram's clip on the handler's thread, as JAX
+    does, the second in the app's codec workers, the app's own way), then
+    requests blocks of API_HEAT_BLOCK heatmaps back to back, in the turns
+    of API_HEAT_MODES: the range filter's way (its own stream, the scores
+    copied into pinned memory) and JAX's (the served step's stream, a
+    pageable copy). The v2.4 windows harvested during each request and each block
+    give the served step's latency beside it. Then, the app stopped, the
+    leg checks the HLS segments, renders the heatmap's grid on the CPU and
+    the spectrogram's clip on the card and the CPU. Writes its record to `record_path`;
+    ``phase_api`` gates it."""
+    import logging
+    import threading
+
+    from birdnet_go_tpu_torch.app import Application
+    from birdnet_go_tpu_torch.audio.encode import load_clip_audio
+    from birdnet_go_tpu_torch.config.settings import ModelSettings, Settings
+    from birdnet_go_tpu_torch.diag.api_walk import (
+        Client,
+        SseReader,
+        route_times,
+        walk,
+    )
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: "
+                               "%(message)s")
+    losses: list[str] = []
+
+    class _Losses(logging.Handler):
+        def emit(self, r: logging.LogRecord) -> None:
+            msg = r.getMessage()
+            if r.levelno >= logging.ERROR or any(w in msg
+                                                 for w in APP_WARNINGS):
+                losses.append(f"{r.levelname} {r.name}: {msg[:300]}")
+
+    logging.getLogger().addHandler(_Losses())
+    out = record_path.parent
+    wavs = _app_wavs(out)[:API_FILES]
+    tones = _app_tones()[::APP_TONES // API_TONES]
+    assert len(tones) == API_TONES
+
+    s = Settings()
+    s.models = [ModelSettings(model_id="BirdNET_V2.4"),
+                ModelSettings(model_id="BirdNET_V3.0", enabled=False)]
+    s.data_dir = str(out)
+    s.database.path = str(out / "api.db")
+    s.export.path = str(out / "clips")
+    s.export.format = "flac"
+    s.export.clip_length_seconds = 6.0
+    s.export.pre_capture_seconds = 1.5
+    s.realtime.interval_seconds = 0.0     # every approval saved and sent
+    s.realtime.max_batch = 256
+    s.location.latitude, s.location.longitude = APP_LATLON
+    s.range_filter.enabled = True
+    ws = s.webserver
+    ws.enabled, ws.host, ws.port = True, "127.0.0.1", 0
+    ws.password, ws.allow_local_bypass = API_PASSWORD, False
+    ws.token_file = str(out / "tokens.json")
+    s.imageprovider.providers = ["avicommons"]   # nothing leaves the host
+    s.realtime.sources = [
+        {"type": "tone", "id": f"tone{k}", "freq": f, "pulse": p}
+        for k, (f, p) in enumerate(tones)] + [
+        {"type": "file", "id": f"file{k}", "path": str(out / f"loop{k}.wav")}
+        for k in range(API_FILES)]
+
+    warmups, added = [], []
+    real_warmup = TorchModelBatcher.warmup
+
+    def warmup(self):
+        warmups.append(self.spec.model_id)
+        return real_warmup(self)
+
+    TorchModelBatcher.warmup = warmup
+    app = Application(s)
+    served: dict[str, list[tuple[float, float]]] = {}
+    handoff = app._on_window_result
+
+    def on_window(model_id, w, vals, idx):
+        served.setdefault(model_id, []).append((w.end_time, time.time()))
+        handoff(model_id, w, vals, idx)
+
+    app._on_window_result = on_window
+    t0 = time.monotonic()
+    app.setup()
+    setup_s = time.monotonic() - t0
+    real_add = app.device_loop.add_batcher
+
+    def add_batcher(b):
+        added.append(b)
+        return real_add(b)
+
+    app.device_loop.add_batcher = add_batcher
+    added += list(app.device_loop.batchers.values())
+    approved = []
+    on_approved = app.processor.on_approved
+    app.processor.on_approved = lambda d, item: (
+        approved.append(d.model_id), on_approved(d, item))[1]
+
+    inc = app.processor.included_species
+    labels = app.labels["BirdNET_V2.4"]
+    b24 = app.device_loop.batchers["BirdNET_V2.4"]
+    trigger = s.dynamic_threshold.trigger
+    cal = {"BirdNET_V2.4": _calibrate(
+        b24, labels, inc, _cal_windows(48000, CLIP, wavs, tones), trigger)}
+    v3 = BirdNETv3().init(torch.Generator().manual_seed(0))   # load_model's
+    b3 = TorchModelBatcher(TorchClassifier(v3, "cuda"), max_batch=256)
+    cal["BirdNET_V3.0"] = _calibrate(
+        b3, labels, inc, _cal_windows(32000, CLIP32, wavs, tones), trigger)
+    del b3, v3
+    torch.cuda.empty_cache()
+    for ms in s.models:
+        ms.threshold = cal[ms.model_id]["threshold"]
+        ms.sensitivity = cal[ms.model_id]["sensitivity"]
+    app._reload_model_settings()
+
+    for k in KERNELS:
+        k.launches = 0
+    warmups.clear()
+    t1 = time.monotonic()
+    app.start(warmup=True)
+    start_s = time.monotonic() - t1
+    client = Client(app.api.port, API_PASSWORD)
+    client.login()
+    readers = [SseReader(client, "/api/v2/detections/stream"),
+               SseReader(client, "/api/v2/soundlevels/stream")]
+    for r in readers:
+        r.start()
+    t_start = time.time()
+    clips = Path(s.export.path)
+    row, deadline = None, time.monotonic() + 20
+    while row is None and time.monotonic() < deadline:
+        row = next((r for r in app.datastore.recent_detections(50)
+                    if r["model_id"] == "BirdNET_V2.4" and r["clip_name"]
+                    and (clips / r["clip_name"]).is_file()
+                    and (clips / r["clip_name"]).with_suffix(".png")
+                    .is_file()), None)
+        time.sleep(0.25)
+    assert row is not None, "no detection with a clip and its PNG in 20 s"
+    rf = app._range_filter
+    records, hls = [], []
+    heat_url = (f"/api/v2/range/heatmap?resolution={API_HEAT_RES}"
+                f"&week={API_HEAT_WEEK}")
+    # what each HLS segment's FLAC frames encode, to hold its decode to
+    encoded: list[np.ndarray] = []
+    real_frames = hlsmux.encode_flac_frames
+
+    def recorded_frames(pcm, rate, **kw):
+        encoded.append(np.array(pcm))
+        return real_frames(pcm, rate, **kw)
+
+    hlsmux.encode_flac_frames = recorded_frames
+    for i in range(API_WALKS):
+        # the first walk decodes the clip of its spectrogram on the
+        # handler's thread, as JAX does; the second in the codec workers
+        if i == 0:
+            app.clip_encoder.decode = load_clip_audio
+        recs, bodies = walk(
+            client, detection_id=row["id"], clip=row["clip_name"],
+            source="tone0", unload_after_s=API_UNLOAD_AFTER_S,
+            heatmap_resolution=API_HEAT_RES, heatmap_week=API_HEAT_WEEK,
+            range_point=APP_LATLON,
+            range_threshold=s.range_filter.threshold,
+            png_path=(clips / row["clip_name"]).with_suffix(".png"))
+        if i == 0:
+            del app.clip_encoder.decode
+        for r in recs:
+            r["walk"] = i
+        records += recs
+        # decoded after stop(): the Python FLAC decoder holds the GIL
+        hls.append((bodies["hls_segment"], bodies["hls_init"]))
+    last = bodies
+    # the heatmap's effect on the served step: blocks of API_HEAT_BLOCK
+    # back-to-back heatmaps in turns, the range filter's way ("own": its
+    # own stream, the scores into pinned memory) and JAX's ("step": the
+    # served step's stream, a pageable copy back)
+
+    def on_step(coords):
+        with torch.inference_mode():
+            x = torch.as_tensor(np.asarray(coords, np.float32),
+                                device=rf.device)
+            return rf.geomodel(x).cpu().numpy()
+
+    blocks = []
+    for mode in API_HEAT_MODES:
+        if mode == "step":
+            rf._scores = on_step
+        t_a = time.time()
+        for _ in range(API_HEAT_BLOCK):
+            st, _, _, _ = client.call("GET", heat_url)
+            assert st == 200, st
+        blocks.append((mode, t_a, time.time()))
+        rf.__dict__.pop("_scores", None)
+    time.sleep(max(0.0, t_start + API_SECONDS - time.time()))
+    t_end = time.time()
+    connected = [not r.ended.is_set() for r in readers]
+    t2 = time.monotonic()
+    app.stop()
+    stop_s = time.monotonic() - t2
+    for r in readers:
+        r.ended.wait(10)
+        r.close()
+    hlsmux.encode_flac_frames = real_frames
+    for k, (seg, init) in enumerate(hls):
+        # the HLS segment: its FLAC frames decode to the PCM they encode
+        info = streaminfo_block(48000, _segment_samples(seg))
+        pcm, rate = decode_flac(b"fLaC" + bytes([0x80, 0, 0, len(info)])
+                                + info + _mdat(seg))
+        hls[k] = {"samples": len(pcm), "rate": rate,
+                  "lossless": any(np.array_equal(pcm, e) for e in encoded),
+                  "zero_tail": _zero_tail(pcm), "init_bytes": len(init),
+                  "segment_bytes": len(seg)}
+    launches = {k.__name__: k.launches for k in KERNELS}
+    left = [th.name for th in threading.enumerate()
+            if th is not threading.main_thread() and th.is_alive()
+            and not th.daemon]
+    with contextlib.closing(sqlite3.connect(s.database.path)) as conn:
+        rows = conn.execute("SELECT COUNT(*) FROM detections").fetchone()[0]
+
+    # the heatmap against the app's Geomodel copied to the CPU, same grid
+    values = np.asarray(json.loads(last["heatmap"])["values"], np.float64)
+    lats = np.linspace(-85, 85, API_HEAT_RES)
+    lons = np.linspace(-180, 180, 2 * API_HEAT_RES)
+    grid = np.stack(np.meshgrid(lats, lons, indexing="ij"), axis=-1)
+    coords = np.concatenate([grid.reshape(-1, 2),
+                             np.full((grid.shape[0] * grid.shape[1], 1),
+                                     float(API_HEAT_WEEK))], axis=1)
+    cpu_rf = TorchRangeFilter(copy.deepcopy(rf.geomodel).cpu(), "cpu")
+    t3 = time.perf_counter()
+    cpu_sum = cpu_rf.predict_batch(coords).sum(axis=1).reshape(values.shape)
+    cpu_heat_s = time.perf_counter() - t3
+    # the spectrogram: the PNG served, the card's render of its clip, and
+    # the CPU's colour index against the card's
+    png = out / "served.png"
+    png.write_bytes(last["spectrogram"])
+    samples, rate = load_clip_audio(clips / row["clip_name"])
+    rgb = render_spectrogram(samples, rate, 800, device="cuda")
+    gap = np.abs(spectrogram_index(samples, rate, 800, device="cuda")
+                 .astype(int) - spectrogram_index(samples, rate, 800,
+                                                  device="cpu"))
+    info = json.loads(last["system_info"])
+    v24 = served.get("BirdNET_V2.4", [])
+    during, busy = {}, []
+    for mode in dict.fromkeys(API_HEAT_MODES):
+        spans = [(a, b) for m, a, b in blocks if m == mode]
+        busy += spans
+        lat_in = _split_by_spans(v24, spans)[0]
+        during[mode] = _pct(lat_in or [0.0]) | {
+            "windows": len(lat_in), "heatmaps": API_HEAT_BLOCK * len(spans),
+            "wall_ms": round(sum(b - a for a, b in spans) * 1e3
+                             / (API_HEAT_BLOCK * len(spans)), 1)}
+    outside = _split_by_spans(v24, busy + [(r["t0"], r["t1"])
+                                           for r in records])[1]
+    by_route: dict[str, float] = {}
+    for r in records:
+        key = f"{r['route']} (walk {r['walk']})"
+        lat_in = _split_by_spans(v24, [(r["t0"], r["t1"])])[0]
+        by_route[key] = round(max(lat_in or [0.0]), 1)
+    rec = {
+        "card": _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"]).splitlines()[0],
+        "setup_s": round(setup_s, 2), "start_s": round(start_s, 2),
+        "stop_s": round(stop_s, 2), "served_s": round(t_end - t_start, 1),
+        "calibration": cal,
+        "statuses": [(r["route"], r["status"], r["want"]) for r in records],
+        "route_ms": route_times(records),
+        "v24_latency_during_heatmaps": during,
+        "v24_latency_outside_requests": _pct(outside or [0.0]),
+        "v24_latency_max_during_route": by_route,
+        "heatmap": {"shape": list(values.shape),
+                    "finite": bool(np.isfinite(values).all()),
+                    "sum": float(values.sum()),
+                    "cpu_sum": float(cpu_sum.sum()),
+                    "max_abs_gap": float(np.abs(values - cpu_sum).max()),
+                    "species": len(labels), "cpu_s": round(cpu_heat_s, 2)},
+        "spectrogram": {"png_equals_card_render": bool(np.array_equal(
+                            png_pixels(png), rgb)),
+                        "index_gap_max": int(gap.max()),
+                        "index_gap_share": float((gap > 0).mean()),
+                        "detection": row["id"], "clip": row["clip_name"]},
+        "clip_range_ok": last["clip_range"]
+        == (clips / row["clip_name"]).read_bytes()[:4096],
+        "hls": hls,
+        "system_info_devices": info["devices"],
+        "range_test": json.loads(last["range_test"]),
+        "sse": {"detection": len(readers[0].named("detection")),
+                "soundlevel": len(readers[1].named("soundlevel")),
+                "connected_at_stop": connected,
+                "status": [r.status for r in readers]},
+        "approved": len(approved),
+        "approved_by_model": {m: approved.count(m) for m in set(approved)},
+        "rows": rows,
+        "latency_ms": {m: _pct([(h - e) * 1e3 for e, h in v])
+                       for m, v in served.items()},
+        "batches": sum(b.stats.batches_dispatched for b in added),
+        "batchers": [b.spec.model_id for b in added],
+        "windows_dropped": app.device_loop.windows_dropped,
+        "launches": launches, "warmups": list(warmups),
+        "threads_left": left, "losses": len(losses),
+        "loss_lines": losses[:10],
+    }
+    record_path.write_text(json.dumps(rec, indent=1))
+
+
+def phase_api(card: str) -> None:
+    """Phase 18, the API on the card: ``api_leg`` in a process of its own
+    (record and log under ``build/api_smoke/``), gated here: every request
+    of both walks answers the status ``diag/api_walk.py`` holds it to
+    (the statuses ``tests/test_torch_api.py`` gets from the port on the
+    CPU); ``system/info`` names the card; the heatmap (90 x 180 points,
+    v2.4's 6,522 species) is finite and within API_HEAT_TOL a score of the
+    app's Geomodel copied to the CPU; the served PNG decodes and is the card's
+    render, whose colour index is the CPU's within 1 level at no more
+    than AUX_INDEX_SHARE of the pixels (phase 15's tolerance); each HLS
+    segment's 2 s decode to the PCM its session encoded, bit for bit (the
+    zeros it read where the source had not delivered yet are printed:
+    ``_zero_tail``); the clip's
+    Range is the file's first bytes; SSE detection events = approvals =
+    rows; no window dropped and v2.4's latency p95 below API_P95_MS; the
+    mel kernel once a batch and once a warm-up, v3.0's loads over HTTP
+    included, the MBConv kernels never; ``stop()`` within API_STOP_S with
+    both SSE clients still connected; nothing logged at ERROR. Prints
+    each route's p50/p95 time and the heatmap's wall time on either
+    stream."""
+    t0 = time.monotonic()
+    out = REPO / "build" / "api_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    rec_path = out / "api.json"
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                           "--api-leg", str(rec_path)], capture_output=True,
+                          text=True, timeout=600, cwd=REPO)
+    wall = time.monotonic() - t0
+    (out / "api.log").write_text(proc.stderr)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-6000:])
+    assert proc.returncode == 0, f"the API leg exited {proc.returncode}"
+    _api_gates(json.loads(rec_path.read_text()), wall,
+               torch.cuda.get_device_name(0))
+    print(f"phase 18 (API) {time.monotonic() - t0:.1f} s [{card}]")
+
+
+def _api_gates(rec: dict, wall: float, kind: str) -> None:
+    """Phase 18's prints and gates on the API leg's record; `kind` is the
+    card's name."""
+    lat, heat, spec = rec["latency_ms"], rec["heatmap"], rec["spectrogram"]
+    print(f"api: {API_TONES} tone + {API_FILES} file sources, v2.4 at batch "
+          f"256 with the API on 127.0.0.1 (password, no local bypass), "
+          f"{rec['served_s']} s served, {API_WALKS} walks; process "
+          f"{wall:.1f} s (setup {rec['setup_s']} s, start {rec['start_s']} "
+          f"s, stop {rec['stop_s']} s) [{rec['card']}]")
+    for route, t in rec["route_ms"].items():
+        print(f"api route {route}: n {t['n']}, p50 {t['p50']} ms, p95 "
+              f"{t['p95']} ms, max {t['max']} ms [{rec['card']}]")
+    where = {"step": "the served step's stream, copied back pageable",
+             "own": "their own stream, copied into pinned memory"}
+    for mode, d in rec["v24_latency_during_heatmaps"].items():
+        print(f"api heatmaps {API_HEAT_RES} x {2 * API_HEAT_RES} on "
+              f"{where[mode]}: {d['heatmaps']} back to back, "
+              f"{d['wall_ms']} ms "
+              f"wall each; v2.4 latency (ms) of the {d['windows']} windows "
+              f"harvested meanwhile p50 {d['p50']}, p95 {d['p95']}, max "
+              f"{d['max']} [{rec['card']}]")
+    print(f"api v2.4 latency (ms) outside every request: "
+          f"{rec['v24_latency_outside_requests']}; its largest during each "
+          f"request: {rec['v24_latency_max_during_route']} [{rec['card']}]")
+    print(f"api heatmap vs the CPU: {heat}; range test "
+          f"{rec['range_test']}; system/info devices "
+          f"{rec['system_info_devices']}")
+    print(f"api spectrogram: {spec}; clip Range {rec['clip_range_ok']}; "
+          f"HLS {rec['hls']}")
+    print(f"api SSE: {rec['sse']}; approved {rec['approved']} "
+          f"({rec['approved_by_model']}), rows {rec['rows']}; latency "
+          f"{lat} [{rec['card']}]")
+    print(f"api kernels: launches {rec['launches']} for {rec['batches']} "
+          f"batches ({rec['batchers']}) and warm-ups {rec['warmups']}; "
+          f"calibration {rec['calibration']}; windows dropped "
+          f"{rec['windows_dropped']}; threads left {rec['threads_left']}; "
+          f"errors logged {rec['losses']} {rec['loss_lines']}")
+    bad = [r for r in rec["statuses"] if r[1] != r[2]]
+    assert not bad and len(rec["statuses"]) >= 2 * 22, bad
+    assert kind in " ".join(rec["system_info_devices"]), \
+        rec["system_info_devices"]
+    assert heat["finite"] and heat["shape"] == [API_HEAT_RES,
+                                                2 * API_HEAT_RES], heat
+    assert heat["max_abs_gap"] <= API_HEAT_TOL * heat["species"], heat
+    assert abs(heat["sum"] - heat["cpu_sum"]) <= API_HEAT_TOL * \
+        heat["species"] * API_HEAT_RES * 2 * API_HEAT_RES, heat
+    assert spec["png_equals_card_render"], spec
+    assert spec["index_gap_max"] <= 1, spec
+    assert spec["index_gap_share"] <= AUX_INDEX_SHARE, spec
+    assert all(h["lossless"] and h["rate"] == 48000
+               and h["samples"] == 2 * 48000 for h in rec["hls"]), rec["hls"]
+    assert rec["clip_range_ok"]
+    sse = rec["sse"]
+    assert sse["status"] == [200, 200] and all(sse["connected_at_stop"])
+    assert sse["detection"] == rec["approved"] == rec["rows"] > 0, rec
+    assert sse["soundlevel"] >= 1, sse
+    assert rec["windows_dropped"] == 0
+    assert lat["BirdNET_V2.4"]["p95"] < API_P95_MS, lat
+    assert sorted(rec["warmups"]) == ["BirdNET_V2.4"] + ["BirdNET_V3.0"] * \
+        API_WALKS, rec["warmups"]
+    assert rec["launches"]["melspec_fused"] == rec["batches"] + len(
+        rec["warmups"]), rec
+    assert rec["launches"]["expand_dw_pool"] == 0
+    assert rec["launches"]["scale_project"] == 0
+    assert rec["stop_s"] <= API_STOP_S and not rec["threads_left"], rec
+    assert rec["losses"] == 0, rec["loss_lines"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     if sys.argv[1:2] == ["--app-leg"]:       # phase 16's own process
         app_leg(Path(sys.argv[2]))
+        return
+    if sys.argv[1:2] == ["--api-leg"]:       # phase 18's own process
+        api_leg(Path(sys.argv[2]))
         return
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3608,6 +4122,7 @@ def main() -> None:
     phase_aux(dev, card, plain)
     phase_app(card)
     phase_crash(card)
+    phase_api(card)
     print(f"total {time.monotonic() - t0:.1f} s of phases, "
           f"{time.monotonic() - T_START:.1f} s since the imports")
     print(f"kernels line: melspec_fused at the v2.4 main path's [{BATCH}, "

@@ -27,8 +27,9 @@ instead: runtime load and unload (the port serves what the unloaded model
 already holds), the mesh choice, the refusals of unported subsystems, the
 threshold-persistence stop race (JAX's closure re-reads the attribute),
 the lazy HTTP client of ``NotificationService``, the probe that raises
-rather than degrade, ``serve`` headless, and ``load_settings`` reading
-JSON where yaml is missing.
+rather than degrade, ``serve`` with the API on, the ``ApiServer`` and the
+image service built in ``setup``, and ``load_settings`` reading JSON
+where yaml is missing.
 """
 
 import copy
@@ -1265,11 +1266,22 @@ def test_mesh_choice_builds_sharded_classifier(tmp_path, monkeypatch,
     assert app._mesh is None and asked == ["cuda"]
 
 
+def _webserver_with(**kw):
+    """A settings change that turns the webserver on with `kw`."""
+    def enable(s):
+        s.webserver.enabled = True
+        for k, v in kw.items():
+            setattr(s.webserver, k, v)
+    return enable
+
+
 REFUSALS = {
-    "webserver": (lambda s: setattr(s.webserver, "enabled", True),
-                  "item 6", None),
-    "imageprovider": (lambda s: setattr(s.imageprovider, "enabled", True),
-                      "item 8", None),
+    "tls": (_webserver_with(tls_enabled=True), "item 10", None),
+    "oidc": (_webserver_with(oidc_issuer="https://id.example"), "item 10",
+             None),
+    "github": (_webserver_with(github_client_id="id"), "item 10", None),
+    "cloudflare": (_webserver_with(cloudflare_bypass_enabled=True),
+                   "item 10", None),
     "mqtt": (lambda s: setattr(s.mqtt, "enabled", True), "item 8",
              "_reconfigure_mqtt"),
     "birdweather": (lambda s: (setattr(s.birdweather, "enabled", True),
@@ -1312,6 +1324,35 @@ def test_unported_subsystem_refused(name, tmp_path, monkeypatch, tiny_v24):
     enable(app.settings)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         getattr(app, handler)()
+    app.datastore.close()
+
+
+@pytest.mark.parametrize("name", ["webserver", "imageprovider"])
+def test_setup_builds_the_api_and_the_image_service(name, tmp_path,
+                                                    monkeypatch, tiny_v24):
+    """``webserver.enabled`` and ``imageprovider.enabled`` (both on by
+    default) build the ``ApiServer`` and the image service in ``setup``,
+    as JAX's app does; neither is refused any more."""
+    from birdnet_go_tpu_torch.api.server import ApiServer
+    from birdnet_go_tpu_torch.integrations.imageprovider import (
+        ImageProviderService,
+    )
+
+    _patch_models(T, monkeypatch, tiny_v24)
+    s = _app_settings(T, tmp_path)
+    getattr(s, name).enabled = True
+    s.imageprovider.providers = ["avicommons"]
+    s.webserver.host, s.webserver.port = "127.0.0.1", 0
+    app = T.app.Application(s, device="cpu")
+    app.setup()
+    if name == "webserver":
+        assert isinstance(app.api, ApiServer) and app.api.ctx is app
+        assert app.images is None
+    else:
+        assert isinstance(app.images, ImageProviderService)
+        assert [p.name for p in app.images.providers] == ["avicommons"]
+        assert app.api is None
+    assert name not in app._unported()
     app.datastore.close()
 
 
@@ -1395,10 +1436,13 @@ def _serve_config(tmp_path: Path, sources: int = 2, **extra) -> Path:
 
 
 def test_serve_headless_in_process(tmp_path, monkeypatch, capsys, tiny_v24):
-    """``serve --device cpu --config app.json`` with the tiny model: it
-    turns off the webserver and the image provider (on by default) and
-    says so, serves, and on SIGTERM stops with exit 0, its windows in the
-    pipeline stats."""
+    """``serve --device cpu --config app.json`` with the tiny model, which
+    now serves with the API on (the name is from when ``serve`` ran
+    headless): it serves, answers ``/api/v2/health`` and
+    ``/api/v2/system/info`` in the process at the port it prints, and on
+    SIGTERM stops with exit 0, its windows in the pipeline stats."""
+    import urllib.request
+
     from birdnet_go_tpu_torch.cli import main as tcli
 
     _patch_models(T, monkeypatch, tiny_v24)
@@ -1414,34 +1458,49 @@ def test_serve_headless_in_process(tmp_path, monkeypatch, capsys, tiny_v24):
 
     monkeypatch.setattr(T.app.Application, "start", start)
 
+    answers = {}
+
     def terminate():
         _wait(lambda: signal.SIGTERM in handlers and apps
               and apps[0].device_loop.batchers["BirdNET_V2.4"]
               .stats.windows_processed > 0, 60)
+        base = f"http://127.0.0.1:{apps[0].api.port}/api/v2"
+        for route in ("health", "system/info"):
+            with urllib.request.urlopen(f"{base}/{route}", timeout=30) as r:
+                answers[route] = (r.status, json.loads(r.read()))
         handlers[signal.SIGTERM](signal.SIGTERM, None)
 
     killer = threading.Thread(target=terminate)
     killer.start()
     rc = tcli.main(["serve", "--device", "cpu", "--config",
-                    str(_serve_config(tmp_path))])
+                    str(_serve_config(tmp_path, webserver={
+                        "host": "127.0.0.1", "port": 0}))])
     killer.join()
     out = capsys.readouterr().out
     assert rc == 0
-    assert "headless: turned off webserver and imageprovider" in out
-    assert "ROADMAP.md queue 1 item 6" in out
-    assert "serving headless on cpu: 1 model(s), 2 source(s)" in out
     app = apps[0]
-    assert not app.settings.webserver.enabled
-    assert not app.settings.imageprovider.enabled
+    assert f"serving on http://127.0.0.1:{app.api.port} on cpu: 1 model(s)" \
+        f", 2 source(s)" in out
+    assert "headless" not in out
+    assert answers["health"][0] == 200
+    assert answers["health"][1]["version"] == "0.1.0"
+    assert answers["system/info"][1]["devices"] == ["cpu"]
+    assert answers["system/info"][1]["sources"] == ["tone0", "tone1"]
+    assert app.settings.webserver.enabled and app.images is not None
     assert app.device_loop.batchers["BirdNET_V2.4"].stats.windows_processed
 
 
 def test_serve_subprocess_stops_on_sigterm(tmp_path):
     """``python -m birdnet_go_tpu_torch serve --device cpu --config
     app.json`` (the full-width v2.4 on seeded weights, batch 4, two tone
-    sources): it prints the headless and serving lines, serves, and exits
-    0 on SIGTERM with no traceback."""
-    cfg = _serve_config(tmp_path)
+    sources, the API at a port the OS picks): it prints the serving line
+    with the API's address, answers ``/api/v2/health`` there, and exits 0
+    on SIGTERM with no traceback."""
+    import re
+    import urllib.request
+
+    cfg = _serve_config(tmp_path, webserver={"host": "127.0.0.1",
+                                             "port": 0})
     proc = subprocess.Popen(
         [sys.executable, "-m", "birdnet_go_tpu_torch", "serve", "--device",
          "cpu", "--config", str(cfg)], cwd=REPO, stdout=subprocess.PIPE,
@@ -1450,8 +1509,12 @@ def test_serve_subprocess_stops_on_sigterm(tmp_path):
     try:
         for line in proc.stdout:
             lines.append(line)
-            if line.startswith("serving headless"):
+            if line.startswith("serving on"):
                 break
+        url = re.search(r"http://[\d.]+:\d+", lines[-1]).group(0)
+        with urllib.request.urlopen(f"{url}/api/v2/health",
+                                    timeout=30) as r:
+            health = (r.status, json.loads(r.read())["version"])
         time.sleep(4.0)
         proc.send_signal(signal.SIGTERM)
         out, err = proc.communicate(timeout=60)
@@ -1461,8 +1524,9 @@ def test_serve_subprocess_stops_on_sigterm(tmp_path):
             proc.communicate()
     out = "".join(lines) + out
     assert proc.returncode == 0, err[-3000:]
-    assert "headless: turned off webserver and imageprovider" in out
-    assert "serving headless on cpu: 1 model(s), 2 source(s)" in out
+    assert re.search(r"serving on http://127\.0\.0\.1:\d+ on cpu: "
+                     r"1 model\(s\), 2 source\(s\)", out), out
+    assert health == (200, "0.1.0")
     assert "Traceback" not in err and "application stopped" in err
 
 
@@ -1593,6 +1657,7 @@ def test_system_monitor_and_metrics_history(tmp_path):
         mon = P.monitor.SystemMonitor(eng, s, extra_paths=[str(tmp_path)])
         paths = mon.critical_paths()
         mon._cpu_percent()
+        time.sleep(0.05)      # a jiffy of /proc/stat, or no CPU delta yet
         n = mon.sample_once()
         hist = P.sysmonitor.MetricsHistory(clip_dir=str(tmp_path), keep=2)
         for _ in range(3):

@@ -367,9 +367,10 @@ def _port_modules() -> list[str]:
 
 
 # the JAX package and what the card's machine lacks: JAX, and the yaml,
-# aiohttp, orbax, optax, httpx and Pillow the JAX host modules import
+# aiohttp, orbax, optax, httpx, Pillow and cryptography the JAX host
+# modules import
 _BLOCKED = ("jax", "jaxlib", "birdnet_go_tpu", "yaml", "aiohttp", "orbax",
-            "optax", "httpx", "PIL")
+            "optax", "httpx", "PIL", "cryptography")
 
 _GUARDED_IMPORT = """
 import importlib, sys
@@ -459,7 +460,22 @@ def test_port_imports_with_jax_and_jax_package_blocked():
             "birdnet_go_tpu_torch.analysis.recovery",
             "birdnet_go_tpu_torch.scheduler.crashleg",
             "birdnet_go_tpu_torch.utils.support",
-            "birdnet_go_tpu_torch.config.schema"} <= set(mods)
+            "birdnet_go_tpu_torch.config.schema",
+            "birdnet_go_tpu_torch.api",
+            "birdnet_go_tpu_torch.api.web",
+            "birdnet_go_tpu_torch.api.sse",
+            "birdnet_go_tpu_torch.api.auth",
+            "birdnet_go_tpu_torch.api.security",
+            "birdnet_go_tpu_torch.api.server",
+            "birdnet_go_tpu_torch.api.handlers_ext",
+            "birdnet_go_tpu_torch.utils.metrics",
+            "birdnet_go_tpu_torch.utils.sysinfo",
+            "birdnet_go_tpu_torch.utils.update",
+            "birdnet_go_tpu_torch.utils.unported",
+            "birdnet_go_tpu_torch.analysis.insights",
+            "birdnet_go_tpu_torch.taxonomy.speciesdict",
+            "birdnet_go_tpu_torch.integrations.imageprovider",
+            "birdnet_go_tpu_torch.version"} <= set(mods)
     res = subprocess.run([sys.executable, "-c",
                           _GUARDED_IMPORT % (_BLOCKED, mods)],
                          cwd=REPO, capture_output=True, text=True,

@@ -12,9 +12,8 @@ imports nothing of the JAX package; ``tests/test_torch_api.py`` holds it to
 the original. Where it differs:
 
 - the routes of ``UNPORTED_ROUTES`` need a module the port does not have
-  yet (the ffmpeg probes, MQTT's test client, the eBird client, the
-  BirdNET-Pi and BirdNET-Go importers, the TLS certificate manager, the
-  terminal): each answers 501 with ``{"error": <the refusal naming its
+  yet (MQTT's test client, the eBird client, the BirdNET-Pi and
+  BirdNET-Go importers, the TLS certificate manager, the terminal): each answers 501 with ``{"error": <the refusal naming its
   ROADMAP.md item>}`` where JAX's handler would reach that module, and as
   JAX's does before it (the eBird routes while ``ebird.enabled`` is off);
 - the routes of ``ABSENT_SUBSYSTEM_ROUTES`` answer as JAX's do without
@@ -46,7 +45,6 @@ from birdnet_go_tpu_torch.utils.unported import (
     IMPORTERS,
     INTEGRATIONS,
     LOGINS,
-    SOURCES,
     refuse,
 )
 
@@ -58,9 +56,6 @@ log = logging.getLogger("birdnet_tpu.api")
 UNPORTED_ROUTES = {
     ("GET", "/system/ws"): ("the terminal (WebSocket and pty shell)",
                             LOGINS),
-    ("POST", "/streams/probe"): ("the stream probe (ffprobe)", SOURCES),
-    ("POST", "/streams/analyze-channels"):
-        ("the stream channel analysis (ffmpeg)", SOURCES),
     ("POST", "/integrations/mqtt/test"): ("the MQTT test client",
                                           INTEGRATIONS),
     ("POST", "/integrations/ebird/test"): ("the eBird client", INTEGRATIONS),
@@ -572,12 +567,26 @@ class ExtendedHandlers:
             return _json({"ok": False, "error": str(e)})
 
     async def h_stream_probe(self, request):
-        """Full ffprobe stream inventory (ffmpeg/probe.go): 501."""
-        return await self._refused(request)
+        """Full ffprobe stream inventory (ffmpeg/probe.go)."""
+        from birdnet_go_tpu_torch.audio.ffmpeg import probe_stream
+
+        body = await request.json()
+        out = await asyncio.get_event_loop().run_in_executor(
+            None, probe_stream, body.get("url", ""),
+            body.get("transport", "tcp"))
+        return _json(out, status=200 if out.get("ok") else 503)
 
     async def h_analyze_channels(self, request):
-        """Per-channel RMS so the UI can pick the mic channel: 501."""
-        return await self._refused(request)
+        """Per-channel RMS so the UI can pick the mic channel."""
+        from birdnet_go_tpu_torch.audio.ffmpeg import analyze_channels
+
+        body = await request.json()
+        out = await asyncio.get_event_loop().run_in_executor(
+            None, lambda: analyze_channels(
+                body.get("url", ""),
+                seconds=float(body.get("seconds", 3.0)),
+                channels=int(body.get("channels", 2))))
+        return _json(out, status=200 if out.get("ok") else 503)
 
     async def h_stream_health_one(self, request):
         sid = request.match_info["source"]

@@ -19,7 +19,8 @@ holds every point against the JAX package's aiohttp server):
   ``headers``, ``cookies``, ``remote``, ``host``, ``content_type``,
   ``can_read_body``, ``read()``, ``text()``, ``json()``, ``post()``); a
   body over ``client_max_size`` (1 MiB) raises 413 where a handler reads
-  it;
+  it, and is drained for up to 10 s before the connection closes
+  (aiohttp's lingering close);
 - ``Response``, ``json_response``, ``StreamResponse`` (chunked:
   ``prepare``, ``write``, ``drain``, ``write_eof``; a write to a closed
   connection raises ``ConnectionResetError``, which ends the SSE pumps),
@@ -66,6 +67,7 @@ from typing import Any
 log = logging.getLogger("birdnet_tpu.api.web")
 
 CLIENT_MAX_SIZE = 1024 ** 2          # aiohttp's default client_max_size
+LINGER_S = 10.0                      # aiohttp's default lingering_time
 KEEPALIVE_TIMEOUT = 75.0             # aiohttp's default keepalive_timeout
 SHUTDOWN_GRACE = 0.1                 # cleanup() lets handlers run this
 SHUTDOWN_TIMEOUT = 5.0               # ... then cancels and waits this
@@ -969,9 +971,32 @@ class AppRunner:
             except (asyncio.IncompleteReadError, ConnectionError):
                 return False
         elif request._length > self.app._client_max_size:
-            return False                    # its body was never read
+            # its body was never read: drain what the client still sends
+            # before closing, for up to LINGER_S (aiohttp's lingering
+            # close), or the unread bytes reset the connection and the
+            # client may lose the response
+            await _discard(request._reader, request._length, LINGER_S)
+            return False
         return request.keep_alive and not resp._closes \
             and "close" not in resp.headers.get("Connection", "").lower()
+
+
+async def _discard(reader: asyncio.StreamReader, n: int,
+                   seconds: float) -> None:
+    """Read and drop up to `n` bytes from `reader` for at most
+    `seconds`."""
+    deadline = asyncio.get_running_loop().time() + seconds
+    try:
+        while n > 0:
+            left = deadline - asyncio.get_running_loop().time()
+            if left <= 0:
+                return
+            chunk = await asyncio.wait_for(reader.read(min(n, 65536)), left)
+            if not chunk:
+                return
+            n -= len(chunk)
+    except (asyncio.TimeoutError, ConnectionError):
+        return
 
 
 class TCPSite:

@@ -21,10 +21,12 @@ and raises without one. Where they differ from JAX:
   naming their ``ROADMAP.md`` item when a setting enables them, from
   ``setup`` and from the ``_reconfigure_*`` handlers (``refuse``):
   the API's HTTPS and its OIDC, GitHub and Cloudflare logins, MQTT,
-  BirdWeather, weather, backup, MySQL, and the rtsp, http and
-  audio_card sources. The API (``api/server.py``, on the standard
-  library's ``asyncio``: ``api/web.py``) and the image providers are
-  built as in JAX;
+  BirdWeather, weather, backup and MySQL. The API (``api/server.py``, on
+  the standard library's ``asyncio``: ``api/web.py``), the image
+  providers and the rtsp, http and audio_card sources (``audio/rtsp.py``,
+  ``audio/ffmpeg.py``, ``audio/capture.py``, chosen by JAX's rules: the
+  native RTSP client where the source says ``client: native`` or ffmpeg
+  is missing, as on the card's machine) are built as in JAX;
 - the malloc arena cap goes through the port's native library, which
   raises where it cannot be built (JAX passes silently), and ``setup``
   also caps numpy's OpenBLAS pool at one thread (``utils/blas.py``).
@@ -38,9 +40,10 @@ and raises without one. Where they differ from JAX:
   (``ClipEncoder``), so that the codec does not hold the GIL the served
   step's eager ops take;
 - the device loop and the batchers hold the engine's ``SourceGate``
-  closed while they tick, launch or warm up, so that the source threads
-  do not take the GIL at each eager op and ring poll of theirs
-  (``audio/engine.py``).
+  closed while they tick or launch, so that the source threads do not
+  take the GIL at each eager op and ring poll of theirs
+  (``audio/engine.py``); a warm-up, at start or at a runtime load, runs
+  beside the sources as JAX's does.
 """
 
 from __future__ import annotations
@@ -88,7 +91,6 @@ from birdnet_go_tpu_torch.utils.blas import set_blas_threads
 from birdnet_go_tpu_torch.utils.unported import (
     INTEGRATIONS,
     LOGINS,
-    SOURCES,
     refuse,
 )
 
@@ -900,12 +902,6 @@ class Application:
         for name, enabled, what, item in checks:
             if enabled:
                 out[name] = str(refuse(what, item))
-        for i, cfg in enumerate(s.realtime.sources):
-            stype = cfg.get("type", "file")
-            if stype in ("rtsp", "http", "audio_card"):
-                sid = cfg.get("id") or f"{stype}{i}"
-                out[f"source {sid}"] = str(refuse(
-                    f"the {stype} source {sid!r}", SOURCES))
         return out
 
     def _check_ported(self, *names: str) -> None:
@@ -1006,13 +1002,14 @@ class Application:
 
     def _add_source_from_config(self, cfg: dict) -> None:
         stype = cfg.get("type", "file")
-        if stype in ("rtsp", "http", "audio_card"):
-            raise refuse(f"the {stype} source {cfg.get('id', '?')!r}",
-                         SOURCES)
         # a malformed entry must not abort startup or leave a live
         # reconfigure half-applied — skip it with a log instead
         if stype == "file" and not cfg.get("path"):
             log.warning("file source %r missing 'path': skipped",
+                        cfg.get("id", "?"))
+            return None
+        if stype in ("rtsp", "http") and not cfg.get("url"):
+            log.warning("%s source %r missing 'url': skipped", stype,
                         cfg.get("id", "?"))
             return None
         if stype == "file":
@@ -1025,6 +1022,32 @@ class Application:
                              rate=int(cfg.get("rate", 48000)),
                              pulse_hz=float(cfg.get("pulse", 0.0)),
                              speed=float(cfg.get("speed", 1.0)))
+        elif stype in ("rtsp", "http"):
+            from birdnet_go_tpu_torch.audio.ffmpeg import (
+                FfmpegSource,
+                ffmpeg_available,
+            )
+
+            if stype == "rtsp" and (cfg.get("client") == "native"
+                                    or not ffmpeg_available()):
+                # native RTSP/RTP client: uncompressed + G.711 audio works
+                # without the ffmpeg binary (audio/rtsp.py)
+                from birdnet_go_tpu_torch.audio.rtsp import RtspSource
+
+                src = RtspSource(self.engine, cfg["url"],
+                                 source_id=cfg.get("id"))
+            else:
+                src = FfmpegSource(self.engine, cfg["url"],
+                                   source_id=cfg.get("id"),
+                                   transport=cfg.get("transport", "tcp"))
+        elif stype == "audio_card":
+            from birdnet_go_tpu_torch.audio.capture import SoundcardSource
+
+            src = SoundcardSource(self.engine,
+                                  device=cfg.get("device", "default"),
+                                  source_id=cfg.get("id"),
+                                  rate=int(cfg.get("rate", 48000)),
+                                  channels=int(cfg.get("channels", 1)))
         else:
             log.warning("unknown source type %r", stype)
             return None

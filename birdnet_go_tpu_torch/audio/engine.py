@@ -15,7 +15,7 @@ nothing of the JAX package; ``tests/test_torch_app.py`` holds it to the
 original. Two divergences: the analysis rings are always the native
 library's (``_make_analysis_buffer``), and ``ingest`` passes through the
 engine's ``SourceGate``, which the app's device loop closes for each tick
-and its batchers for each eager step they launch.
+and its batchers for each eager step they launch (not for a warm-up).
 """
 
 from __future__ import annotations
@@ -60,10 +60,13 @@ class SourceGate:
 
     The device loop's tick has the same trouble at each native ring it
     polls (ctypes releases the GIL too), so the app's ``DeviceLoop``
-    holds the gate closed for a whole tick and its batchers for a launch
-    or a warm-up. The sources, not the tick, then take what a busy host
-    withholds: a ``ToneSource`` or ``FileLoopSource`` that falls behind
-    resumes its pace from now.
+    holds the gate closed for a whole tick and its batchers for a launch.
+    The sources, not the tick, then take what a busy host withholds: a
+    ``ToneSource`` or ``FileLoopSource`` that falls behind resumes its
+    pace from now, and a live source (``RtspSource``, ``SoundcardSource``)
+    backs up into its socket or its card's ring. A warm-up does not close
+    the gate: its first call's set-up (up to 1.2 s for v3.0 on an NVIDIA
+    H100 80GB HBM3, 700.00 W) would hold every source that long.
 
     ``turn()`` is a source's pass through ``AudioEngine.ingest``; any
     number run at once. ``closed()`` is a tick or a launch: it stops new

@@ -12,8 +12,18 @@ native code; this host path serves capture-rate conversion for moderate
 stream counts and tests.
 
 A copy of ``birdnet_go_tpu/audio/resampler.py`` for the port, over the
-port's ``ops/resample.py``; ``tests/test_torch_aux.py`` holds it to the
-original.
+port's ``ops/resample.py``, with one divergence: ``process`` sums only the
+taps that meet input samples (the filter's polyphase form: output j takes
+phase (−u) mod L of the filter, u = j·M − pad_lo, against the inputs from
+ceil(u / L) on), where JAX's multiplies the whole zero-stuffed signal,
+L − 1 of whose samples in L are zero. The sums are the same but for their
+float32 rounding (``tests/test_torch_aux.py`` holds each chunk to JAX's
+within 1e-6 of the largest sample, ``tests/test_torch_app.py`` the
+engine's resampled int16 windows within one step). JAX's way costs L
+times the work and a gather of n_out × n_taps floats a call: on the card's
+host a 50 ms chunk at 44.1 kHz took 27.04 ms to 48 kHz and 49.55 ms to
+32 kHz (NVIDIA H100 80GB HBM3, 700.00 W, in ``chip_smoke.py`` phase 19),
+so eight 44.1 kHz RTSP sources could not keep their pace.
 """
 
 from __future__ import annotations
@@ -33,11 +43,19 @@ class StreamingResampler:
         self.l, self.m = self.cfg.ratio
         self.identity = (self.l == 1 and self.m == 1)
         if not self.identity:
-            self.h = _design_filter(self.l, self.m,
-                                    self.cfg.taps_per_phase, self.cfg.beta,
-                                    self.cfg.cutoff_scale)
-            self.n_taps = len(self.h)
+            h = _design_filter(self.l, self.m, self.cfg.taps_per_phase,
+                               self.cfg.beta, self.cfg.cutoff_scale)
+            self.n_taps = len(h)
             self.pad_lo = (self.n_taps - 1) // 2
+            # the filter's L phases: phase p holds the taps p, p + L, ...
+            # (zero past the filter), the only ones that meet an input
+            # sample of the zero-stuffed signal
+            k = -(-self.n_taps // self.l)
+            taps = self.l * np.arange(k)[None, :] \
+                + np.arange(self.l)[:, None]
+            self._phases = np.where(taps < self.n_taps,
+                                    h[np.minimum(taps, self.n_taps - 1)],
+                                    np.float32(0.0))
         self._in_total = 0            # absolute input samples received
         self._out_total = 0           # absolute output samples emitted
         # retained tail of past input (absolute index of tail[0])
@@ -62,23 +80,20 @@ class StreamingResampler:
         if n_new <= 0:
             return np.zeros(0, np.float32)
 
-        j0 = self._out_total
-        # input range needed: from i_lo(j0) through i_hi(j_max)
-        i_lo = math.floor((j0 * self.m - self.pad_lo) / self.l)
-        i_lo = min(i_lo, self._tail_start)    # never before what we kept
-        # Build the segment in upsampled space with explicit absolute origin.
-        seg_start = max(i_lo, 0)
-        lead_zeros = max(0, -i_lo) if i_lo < 0 else 0
-        seg = self._tail[seg_start - self._tail_start:]
-        up_origin = (seg_start - lead_zeros) * self.l   # abs upsampled idx of xup[0]
-        xup = np.zeros(lead_zeros * self.l + len(seg) * self.l
-                       + self.n_taps, np.float32)
-        xup[lead_zeros * self.l:(lead_zeros + len(seg)) * self.l:self.l] = seg
-
-        offsets = (np.arange(j0, j0 + n_new) * self.m
-                   - self.pad_lo - up_origin)
-        win = np.lib.stride_tricks.sliding_window_view(xup, self.n_taps)
-        y = win[offsets] @ self.h
+        # Output j's first tap sits at upsampled position u = j·M − pad_lo;
+        # the taps that meet input samples are phase (−u) mod L of the
+        # filter, against inputs ceil(u / L), ceil(u / L) + 1, ...
+        # (negative inputs are the stream's leading zeros)
+        u = np.arange(self._out_total, j_max + 1) * self.m - self.pad_lo
+        first = -(-u // self.l)
+        phase = first * self.l - u
+        k = self._phases.shape[1]
+        lead = max(0, -int(first[0]))
+        seg = np.concatenate([np.zeros(lead, np.float32), self._tail,
+                              np.zeros(k, np.float32)])
+        rows = np.lib.stride_tricks.sliding_window_view(seg, k)[
+            first - (self._tail_start - lead)]
+        y = np.einsum("jk,jk->j", rows, self._phases[phase])
 
         self._out_total += n_new
         # trim retained input: next call needs inputs from i_lo(out_total)

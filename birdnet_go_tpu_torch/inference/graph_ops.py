@@ -6,6 +6,7 @@ valid inputs, resizing)."""
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Hashable
 
 import numpy as np
@@ -185,14 +186,57 @@ def reduce(kind: str, x: torch.Tensor, axes: tuple[int, ...],
     return x
 
 
-def resize(x: torch.Tensor, sizes: list[int], linear: bool) -> torch.Tensor:
-    """``jax.image.resize`` of x [N, C, *spatial] to `sizes` for the
-    spatial dims: nearest at half-pixel centres, or linear (antialiased
-    when a 2-D image shrinks, as JAX's resize is)."""
-    sizes = [int(s) for s in sizes]
-    if not linear:
-        return F.interpolate(x, size=sizes, mode="nearest-exact")
-    mode = {1: "linear", 2: "bilinear", 3: "trilinear"}[len(sizes)]
-    shrink = any(s < d for s, d in zip(sizes, x.shape[2:]))
-    return F.interpolate(x, size=sizes, mode=mode, align_corners=False,
-                         antialias=shrink and len(sizes) == 2)
+def _linear_weights(m: int, n: int) -> np.ndarray:
+    """``jax.image``'s weight matrix [m, n] that resizes an axis of `m`
+    samples to `n` linearly: the triangle kernel at half-pixel centres,
+    widened by the shrink factor when the axis shrinks (JAX's antialias,
+    in any number of dimensions), each output column normalised, columns
+    whose centre falls outside the input zero. Built in float64."""
+    inv = m / n if n else 1.0
+    kernel_scale = max(inv, 1.0)
+    sample = (np.arange(n, dtype=np.float64) + 0.5) * inv - 0.5
+    x = np.abs(sample[None, :] - np.arange(m, dtype=np.float64)[:, None])
+    w = np.maximum(0.0, 1.0 - x / kernel_scale)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return np.where(inside[None, :], w, 0.0)
+
+
+@functools.lru_cache(maxsize=256)
+def _resize_operand(m: int, n: int, linear: bool, device: torch.device,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """What ``resize`` applies to an axis of `m` samples resized to `n`,
+    on `device`: the linear weights [m, n] in `dtype`, or the nearest
+    indices [n] (JAX's float32 half-pixel offsets). Built on the host once
+    for each shape, so a served graph's steps copy nothing to the card."""
+    if linear:
+        w = torch.from_numpy(_linear_weights(m, n))
+        return w.to(device=device, dtype=dtype)
+    at = np.floor((np.arange(n, dtype=np.float32) + np.float32(0.5))
+                  * np.float32(m) / np.float32(n)).astype(np.int64)
+    return torch.from_numpy(at).to(device)
+
+
+def resize(x: torch.Tensor, shape, linear: bool) -> torch.Tensor:
+    """``jax.image.resize`` of x to `shape`, every axis whose size
+    changes, batch and channel axes included: nearest at half-pixel
+    centres, or linear through JAX's scale-and-translate weights
+    (``_linear_weights``), one product per axis, which antialiases a
+    shrink in 1-D and 3-D as in 2-D (where ``F.interpolate`` antialiases
+    only bilinear and bicubic). Each axis's operand comes from
+    ``_resize_operand``'s cache."""
+    shape = [int(s) for s in shape]
+    if len(shape) != x.dim():
+        raise ValueError(f"resize to {shape}: {x.dim()} axes in "
+                         f"{tuple(x.shape)}")
+    axes = [d for d, (m, n) in enumerate(zip(x.shape, shape)) if m != n]
+    if linear and not x.is_floating_point():
+        x = x.to(torch.float32)
+    for d in axes:
+        op = _resize_operand(x.shape[d], shape[d], linear, x.device,
+                             x.dtype if linear else torch.int64)
+        x = (torch.tensordot(x, op, dims=([d], [0])).movedim(-1, d)
+             if linear else x.index_select(d, op))
+    return x

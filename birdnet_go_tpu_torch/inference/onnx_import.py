@@ -671,9 +671,7 @@ def _resize(node: OnnxNode, value):
             sizes = [int(round(d * s)) for d, s in zip(x.shape, scales)]
     if sizes is None:
         return x
-    if list(sizes[:2]) != list(x.shape[:2]):
-        raise NotImplementedError("Resize of the batch or channel axis")
-    return resize(x, sizes[2:], linear=mode != "nearest")
+    return resize(x, sizes, linear=mode != "nearest")
 
 
 # ---- opset-17 signal ops: the lowering real audio graphs (Perch-class

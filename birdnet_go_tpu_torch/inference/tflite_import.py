@@ -888,8 +888,8 @@ class TFLiteGraph(nn.Module):
         def h(op: OpInfo, value):
             x = value(op.inputs[0])                 # NHWC
             hw = [int(v) for v in value.host(op.inputs[1]).ravel()]
-            return _to_nhwc(resize(_to_nchw(x), hw[:2],
-                                   linear=method == "bilinear"))
+            return resize(x, (x.shape[0], hw[0], hw[1], x.shape[3]),
+                          linear=method == "bilinear")
 
         return h
 

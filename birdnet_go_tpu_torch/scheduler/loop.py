@@ -24,8 +24,10 @@ a bounded retry backlog with drop accounting. A window is overdue if its
 dispatch→result latency exceeds ClipLength/2; overruns are counted.
 Given an ``AudioEngine``'s ``SourceGate``, the ``DeviceLoop`` holds it
 closed for the whole of each tick and a ``TorchModelBatcher`` while it
-launches a step or warms up, so that the source threads wait on a lock
-and not on the GIL meanwhile.
+launches a step, so that the source threads wait on a lock and not on the
+GIL meanwhile. A warm-up holds no gate: it includes the first call's
+set-up, up to 1.2 s for v3.0 on an NVIDIA H100 80GB HBM3 (700.00 W), and
+a live source (RTSP, a sound card) cannot hold its audio that long.
 """
 
 from __future__ import annotations
@@ -288,8 +290,9 @@ class TorchModelBatcher(HostBatcher):
                  on_result: Callable[..., None] | None = None,
                  pipeline_depth: int = 2, gate=None):
         self.classifier = classifier
-        # an AudioEngine's SourceGate, closed while a step launches (the
-        # app passes its engine's; None: nothing to hold off)
+        # an AudioEngine's SourceGate, closed while a step launches, not
+        # while it warms up (the app passes its engine's; None: nothing
+        # to hold off)
         self.gate = gate
         self.model = classifier.model
         self.device = classifier.device
@@ -370,9 +373,10 @@ class TorchModelBatcher(HostBatcher):
     def warmup(self) -> float:
         """Run one step ahead of live traffic; returns its seconds."""
         t0 = time.monotonic()
-        with self._closed():
-            self._step(self._to_device(self._staged), self.sensitivity,
-                       self.top_k, self.classifier._range_mask)
+        # no gate: the first call's set-up would hold every source off
+        # (as JAX's load does, this runs beside them)
+        self._step(self._to_device(self._staged), self.sensitivity,
+                   self.top_k, self.classifier._range_mask)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.monotonic() - t0

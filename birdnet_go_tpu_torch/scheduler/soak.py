@@ -38,6 +38,20 @@ Per-window serving latency is measured against the window's realtime
 deadline (the moment its last sample was produced), so queueing, packing,
 dispatch, device time, and result fan-out are all inside the number.
 
+``ingest="rtsp"`` feeds the loop from real RTSP sessions instead of the
+farm: an in-process ``RtspLoadServer`` paces `streams` realtime L16
+sessions over loopback TCP into one ``RtspDemux`` (``native/
+rtsp_plane.cpp``), whose ``collect`` packs windows into the staging
+buffer as the farm's does; the record's ``ingest`` gives the sessions
+connected at the end, restarts, samples sent, received and dropped by the
+server, and the demux thread's CPU. It is single-model. One divergence:
+JAX's refuses it on its TPU and runs it on its stub or the CPU; the port
+runs it on every device mode, the card included, where each batch of the
+demux's windows launches the mel kernel; and the record's server
+counters are read with the demux's, before teardown (JAX's reads them
+after, so its samples sent include what went out while the demux
+stopped).
+
 ``kitchen_sink=True`` runs every aux plane in the soak's process
 (``_AuxPlanes``): a live FLAC HLS session, sound levels and LUFS, the
 spectrogram pre-renderer, range-filter rebuilds and a dual-write legacy
@@ -510,10 +524,11 @@ def run_soak(streams: int = 2500, seconds: float = 120.0,
         raise RuntimeError("native stream farm required for the soak")
     if ingest not in ("farm", "rtsp"):
         raise ValueError(f"unknown ingest mode: {ingest}")
-    if ingest == "rtsp" and (len(models) != 1 or device != "stub"):
+    if ingest == "rtsp" and len(models) != 1:
         # the RTSP leg proves the CONSOLIDATED DEMUX at scale (SURVEY §7);
-        # consensus / real-device variation is the farm legs' job
-        raise ValueError("--ingest rtsp is single-model, stub-device")
+        # consensus is the farm legs' job. JAX's refuses its TPU here; the
+        # port serves the leg on the card too (module docstring)
+        raise ValueError("--ingest rtsp is single-model")
     unknown = [m for m in models if m not in MODEL_REGISTRY]
     if unknown:
         raise ValueError(f"unknown model(s): {unknown}")
@@ -982,7 +997,7 @@ def run_soak(streams: int = 2500, seconds: float = 120.0,
         elapsed = time.monotonic() - t0
         # snapshot ingest stats while sessions are still up — teardown
         # closes every connection, which would zero connected_at_end
-        rtsp_snapshot = (farms[0][1].stats()
+        rtsp_snapshot = ((farms[0][1].stats(), rtsp_server.stats())
                          if rtsp_server is not None else None)
     finally:
         for _spec, farm in farms:
@@ -1058,8 +1073,10 @@ def run_soak(streams: int = 2500, seconds: float = 120.0,
             b.stats.batches_dispatched for b in batchers))
     ingest_rec: dict[str, Any] = {"type": ingest}
     if rtsp_server is not None:
-        ds = rtsp_snapshot
-        ss = rtsp_server.stats()
+        # the server's counters at the demux's instant (JAX's reads them
+        # after teardown, when what it sent meanwhile is counted too): sent
+        # minus received is then what was in flight
+        ds, ss = rtsp_snapshot
         ingest_rec.update({
             "protocol": "RTSP/TCP-interleaved, L16 realtime sessions",
             "connected_at_end": ds["connected"],

@@ -1,10 +1,12 @@
 """The size of numpy's OpenBLAS thread pool, read and set in this process.
 
 The realtime engine resamples every source on the source's own thread:
-each 0.1 s chunk is one small product (``StreamingResampler.process``,
-about 3,200 x 72 for 48 to 32 kHz). With OpenBLAS's default pool, one
-thread a core, every such call wakes the pool, and 64 source threads
-calling at once keep every core spinning. The app caps the pool at one
+in JAX's ``StreamingResampler.process`` each 0.1 s chunk is one small
+product (about 3,200 x 72 for 48 to 32 kHz; the port's sums its phases
+with ``einsum`` instead), and the host planes make other small products.
+With OpenBLAS's default pool, one thread a core, every such call wakes
+the pool, and 64 source threads calling at once keep every core
+spinning. The app caps the pool at one
 thread (``Application.setup``), as it caps malloc's arenas. The numbers
 do not change: a product's rows are summed alike whatever the pool's
 size.

@@ -7,8 +7,9 @@ quantization with mesh-sharded serving, the whole realtime server in a
 2,000-stream soak, the clip and aux planes (spectrograms, sound levels,
 clip export, live HLS) with the soak's kitchen-sink leg, the realtime
 app and ``serve``, crash recovery: a durable soak SIGKILLed on the card,
-recovered and restarted, and the REST/SSE API with its device handlers
-driven over HTTP.
+recovered and restarted, the REST/SSE API with its device handlers
+driven over HTTP, and live RTSP sources: 2,000 sessions into the soak and
+the app on the port's RTSP client.
 
     python3 chip_smoke.py
 
@@ -194,7 +195,33 @@ Phases, in order; any failure propagates and exits non-zero:
    events = approvals = rows, no window dropped, v2.4's p95 below
    1,500 ms, the mel kernel once a batch and a warm-up, ``stop()``
    within 15 s with both SSE clients connected, nothing logged at ERROR;
-   each route's p50/p95 printed.
+   each route's p50/p95 printed. Each HLS segment ends in no more than
+   0.60 s of zeros, and the largest gap between two returns of a
+   source's ``engine.ingest`` during v3.0's loads is within one tick of
+   the largest outside every request, and no warm-up closed the engine's
+   gate (a warm-up holds no source off);
+19. live sources (``phase_live``): what the machine offers (the ALSA
+   shim and its capture devices, ``ffmpeg``, ``ffprobe``; no leg runs on
+   them); then ``soak --device cuda --ingest rtsp`` over 2,000 realtime
+   L16 sessions (48 kHz, 50 ms packets) from the port's
+   ``RtspLoadServer`` over loopback TCP through one ``RtspDemux`` into
+   the v2.4 step, with phase 14's gates, all 2,000 connected at the end,
+   no restart, nothing dropped by the server and every sample sent
+   received but one 50 ms packet a session in flight
+   (``build/rtsp_soak_smoke/``);
+   then, in a process of its own (``live_leg``, ``build/live_smoke/``),
+   the app with its API on 127.0.0.1 and 32 ``rtsp`` sources on the
+   port's native client (24 at 48 kHz, 8 at 44.1 kHz, so the engine
+   resamples) from two load servers, v2.4 at batch 256 for 30 s, v3.0
+   loaded over HTTP at 10 s and unloaded at 20 s: every window served,
+   v2.4's p95 below 1,500 ms, the largest ingest stall during the load
+   within one tick of the largest outside it and no closing of the
+   engine's gate made by a warm-up (``_gate_record``, which also prints
+   how much of the largest stalls the gate was closed and a garbage
+   collection ran), nothing dropped by the
+   servers, no restart, every source's samples ingested but 0.25 s in
+   flight, approvals = rows, the mel kernel once a batch and a warm-up,
+   health ok, ``stop()`` within 15 s, nothing logged at ERROR.
 
 Every kernel line carries its bound (``ops/roofline.py``: the larger of its
 bytes over the memory rate and its operations over the peak for their type)
@@ -214,6 +241,7 @@ import copy
 import dataclasses
 import datetime
 import functools
+import gc
 import importlib
 import io
 import json
@@ -226,6 +254,7 @@ import struct
 import subprocess
 import sys
 import tarfile
+import threading
 import time
 import zlib
 from pathlib import Path
@@ -3616,6 +3645,7 @@ API_HEAT_RES = 90            # the heatmap's resolution: 90 x 180 points
 API_HEAT_WEEK = 20
 API_HEAT_BLOCK = 6           # heatmaps back to back, a block a mode:
 API_HEAT_MODES = ("step", "own", "own", "step")
+API_ZERO_TAIL_S = 0.60       # an HLS segment's zeros where audio was due
 API_HEAT_TOL = 1e-5          # card vs CPU per species score (phase 9's
                              # gate), summed over the species of a point
 
@@ -3661,8 +3691,10 @@ def api_leg(record_path: Path) -> None:
     calibrated as phase 16's. While it serves API_SECONDS, a client holds
     ``detections/stream`` and another ``soundlevels/stream``, and a
     logged-in client walks ``diag/api_walk.py`` API_WALKS times (the first
-    walk decodes its spectrogram's clip on the handler's thread, as JAX
-    does, the second in the app's codec workers, the app's own way), then
+    walk decodes its spectrogram's clip in the app's codec workers, the
+    app's own way, the last on the handler's thread, as JAX does: after
+    that walk's HLS segment, whose zero tail then counts what the port's
+    own way and the loads held tone0 back, not JAX's decode), then
     requests blocks of API_HEAT_BLOCK heatmaps back to back, in the turns
     of API_HEAT_MODES: the range filter's way (its own stream, the scores
     copied into pinned memory) and JAX's (the served step's stream, a
@@ -3726,14 +3758,8 @@ def api_leg(record_path: Path) -> None:
         {"type": "file", "id": f"file{k}", "path": str(out / f"loop{k}.wav")}
         for k in range(API_FILES)]
 
-    warmups, added = [], []
-    real_warmup = TorchModelBatcher.warmup
-
-    def warmup(self):
-        warmups.append(self.spec.model_id)
-        return real_warmup(self)
-
-    TorchModelBatcher.warmup = warmup
+    warmups, warm_spans, added = [], [], []
+    _timed_warmups(warmups, warm_spans)
     app = Application(s)
     served: dict[str, list[tuple[float, float]]] = {}
     handoff = app._on_window_result
@@ -3775,10 +3801,13 @@ def api_leg(record_path: Path) -> None:
         ms.threshold = cal[ms.model_id]["threshold"]
         ms.sensitivity = cal[ms.model_id]["sensitivity"]
     app._reload_model_settings()
+    returns = _ingest_returns(app.engine)
+    closings, gcs = _watch_gate(app.engine)
 
     for k in KERNELS:
         k.launches = 0
     warmups.clear()
+    warm_spans.clear()
     t1 = time.monotonic()
     app.start(warmup=True)
     start_s = time.monotonic() - t1
@@ -3813,9 +3842,12 @@ def api_leg(record_path: Path) -> None:
 
     hlsmux.encode_flac_frames = recorded_frames
     for i in range(API_WALKS):
-        # the first walk decodes the clip of its spectrogram on the
-        # handler's thread, as JAX does; the second in the codec workers
-        if i == 0:
+        # the last walk decodes the clip of its spectrogram on the
+        # handler's thread, as JAX does (after its HLS segment: the decode
+        # holds the GIL, and a tone source that waits loses its pace for
+        # good); the others in the codec workers
+        jax_decode = i == API_WALKS - 1
+        if jax_decode:
             app.clip_encoder.decode = load_clip_audio
         recs, bodies = walk(
             client, detection_id=row["id"], clip=row["clip_name"],
@@ -3824,7 +3856,7 @@ def api_leg(record_path: Path) -> None:
             range_point=APP_LATLON,
             range_threshold=s.range_filter.threshold,
             png_path=(clips / row["clip_name"]).with_suffix(".png"))
-        if i == 0:
+        if jax_decode:
             del app.clip_encoder.decode
         for r in recs:
             r["walk"] = i
@@ -3913,6 +3945,11 @@ def api_leg(record_path: Path) -> None:
                              / (API_HEAT_BLOCK * len(spans)), 1)}
     outside = _split_by_spans(v24, busy + [(r["t0"], r["t1"])
                                            for r in records])[1]
+    loads = [(r["t0"], r["t1"]) for r in records
+             if r["route"] == "POST models/load/{id}"]
+    stalls = _stalls(returns, loads, busy + [(r["t0"], r["t1"])
+                                             for r in records],
+                     t_start + LIVE_SETTLE_S)
     by_route: dict[str, float] = {}
     for r in records:
         key = f"{r['route']} (walk {r['walk']})"
@@ -3958,6 +3995,14 @@ def api_leg(record_path: Path) -> None:
         "batchers": [b.spec.model_id for b in added],
         "windows_dropped": app.device_loop.windows_dropped,
         "launches": launches, "warmups": list(warmups),
+        "stalls": stalls, "tick_ms": s.realtime.tick_ms,
+        "gate": _gate_record(
+            closings, gcs, warm_spans, returns, loads,
+            busy + [(r["t0"], r["t1"]) for r in records], t_start,
+            {f"{r['route']} (walk {r['walk']})": [(r["t0"], r["t1"])]
+             for r in records} | {f"heatmaps {m}": [
+                 (a, b) for x, a, b in blocks if x == m]
+                 for m in API_HEAT_MODES}, watch="tone0"),
         "threads_left": left, "losses": len(losses),
         "loss_lines": losses[:10],
     }
@@ -4054,6 +4099,12 @@ def _api_gates(rec: dict, wall: float, kind: str) -> None:
     assert spec["index_gap_share"] <= AUX_INDEX_SHARE, spec
     assert all(h["lossless"] and h["rate"] == 48000
                and h["samples"] == 2 * 48000 for h in rec["hls"]), rec["hls"]
+    # a source held up stays behind the wall clock and its segments end
+    # in zeros: no more than API_ZERO_TAIL_S, the most measured before a
+    # warm-up stopped holding the sources
+    assert all(h["zero_tail"] <= API_ZERO_TAIL_S * 48000
+               for h in rec["hls"]), rec["hls"]
+    _stall_gate(rec, "api")
     assert rec["clip_range_ok"]
     sse = rec["sse"]
     assert sse["status"] == [200, 200] and all(sse["connected_at_stop"])
@@ -4071,6 +4122,555 @@ def _api_gates(rec: dict, wall: float, kind: str) -> None:
     assert rec["losses"] == 0, rec["loss_lines"]
 
 
+LIVE_SESSIONS = 2000         # phase 19, leg 1: RTSP sessions into the soak
+LIVE_IN_FLIGHT_S = 0.25      # leg 2: on their way, a source (from wall time)
+LIVE_SOAK_IN_FLIGHT_S = 0.05  # leg 1: one packet a session (counters read
+                              # at one instant)
+LIVE_RATES = ((48000, 24), (44100, 8))   # leg 2: (rate, rtsp sources)
+LIVE_WAVES = 8               # each load server's waveforms
+LIVE_CAL_S = 8.2             # captured a waveform to calibrate on
+LIVE_SECONDS = 30.0          # leg 2's serving
+LIVE_LOAD_AT = 10.0          # v3.0 loaded over HTTP this far in
+LIVE_UNLOAD_AT = 20.0        # ... and unloaded
+LIVE_SETTLE_S = 2.0          # ingest stalls counted from this far in
+LIVE_P95_MS = 1500.0
+LIVE_STOP_S = 15.0
+LIVE_PASSWORD = "chip-smoke"
+
+
+def _ingest_returns(engine) -> dict[str, list[tuple[float, int]]]:
+    """Wrap `engine.ingest` so that every return is recorded, per
+    source: (the wall clock, the samples ingested). Sources call it from
+    their own threads, so a gap between two returns is how long that
+    source's audio waited (at the engine's gate, for the GIL, in its
+    socket)."""
+    returns: dict[str, list[tuple[float, int]]] = {}
+    real = engine.ingest
+
+    def ingest(source_id, pcm, timestamp=None):
+        real(source_id, pcm, timestamp)
+        returns.setdefault(source_id, []).append((time.time(), len(pcm)))
+
+    engine.ingest = ingest
+    return returns
+
+
+def _hits(a: float, b: float, spans: list) -> bool:
+    return any(a < y and b > x for x, y in spans)
+
+
+def _stalls(returns: dict, during: list, busy: list, t_from: float
+            ) -> dict[str, tuple[float, float]]:
+    """Per source, the largest gap (ms) between two returns of its
+    ``engine.ingest`` that overlaps a span of `during` (wall-clock
+    intervals: the runtime loads), and the largest that overlaps no span
+    of `busy` (every request); gaps that end before `t_from` are left
+    out (the sources' connects)."""
+    out = {}
+    for sid, ts in returns.items():
+        d = o = 0.0
+        for (a, _), (b, _) in zip(ts, ts[1:]):
+            if b < t_from:
+                continue
+            if _hits(a, b, during):
+                d = max(d, (b - a) * 1e3)
+            elif not _hits(a, b, busy):
+                o = max(o, (b - a) * 1e3)
+        out[sid] = (round(d, 1), round(o, 1))
+    return out
+
+
+def _watch_gate(engine) -> tuple[list, list]:
+    """Record every closing of `engine`'s ``SourceGate`` as (thread
+    ident, wall start, wall end), and every garbage collection as (wall
+    start, wall end). The device loop and every batcher, one loaded at
+    runtime too, call ``closed()`` on the engine's one gate, so an
+    attribute of that instance sees them all."""
+    closings, gcs, started = [], [], []
+    real = engine.gate.closed
+
+    @contextlib.contextmanager
+    def closed():
+        a = time.time()
+        try:
+            with real():
+                yield
+        finally:
+            closings.append((threading.get_ident(), a, time.time()))
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started.append(time.time())
+        elif started:
+            gcs.append((started.pop(), time.time()))
+
+    engine.gate.closed = closed
+    gc.callbacks.append(on_gc)
+    return closings, gcs
+
+
+def _timed_warmups(warmups: list, spans: list) -> None:
+    """Wrap ``TorchModelBatcher.warmup``: each warm-up's model id goes to
+    `warmups` and its (thread ident, wall start, wall end) to `spans`."""
+    real = TorchModelBatcher.warmup
+
+    def warmup(self):
+        warmups.append(self.spec.model_id)
+        a = time.time()
+        try:
+            return real(self)
+        finally:
+            spans.append((threading.get_ident(), a, time.time()))
+
+    TorchModelBatcher.warmup = warmup
+
+
+def _union(spans: list) -> list[tuple[float, float]]:
+    out: list[list[float]] = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
+
+
+def _overlap_ms(a: float, b: float, merged: list) -> float:
+    return round(sum(max(0.0, min(b, y) - max(a, x))
+                     for x, y in merged) * 1e3, 1)
+
+
+def _gate_record(closings: list, gcs: list, warm_spans: list,
+                 returns: dict, during: list, busy: list,
+                 t_start: float, named: dict | None = None,
+                 watch: str | None = None) -> dict:
+    """What held the sources: the gate's closings made on a warm-up's own
+    thread while it ran (a warm-up that holds the gate; none since its
+    repair), the longest time the gate stayed closed during the runtime
+    loads and outside every request, the warm-ups' and the longest
+    garbage collection's times, and, for the largest ingest stall during
+    the loads, the largest outside every request and the largest of all
+    (over all sources, from LIVE_SETTLE_S on, as ``_stalls`` counts),
+    how much of it the gate was closed and a collection ran, and the
+    spans of `named` (name → wall-clock spans: the requests) it
+    overlaps; the same for the largest stall of source `watch`."""
+    t_from = t_start + LIVE_SETTLE_S
+    shut, collected = _union([(a, b) for _, a, b in closings]), _union(gcs)
+    in_warmup = [c for c in closings
+                 if any(c[0] == t and a <= c[1] <= b
+                        for t, a, b in warm_spans)]
+    worst: dict[str, tuple[float, float, float, str]] = {}
+    for sid, ts in returns.items():
+        for (a, _), (b, _) in zip(ts, ts[1:]):
+            if b < t_from:
+                continue
+            key = ("during" if _hits(a, b, during) else
+                   None if _hits(a, b, busy) else "outside")
+            for k in (key, "any", "watched" if sid == watch else None):
+                if k and b - a > worst.get(k, (0.0,))[0]:
+                    worst[k] = (b - a, a, b, sid)
+
+    def longest(keep) -> float:
+        return round(max([(b - a) * 1e3 for a, b in shut if keep(a, b)]
+                         or [0.0]), 1)
+
+    return {
+        "closings": len(closings), "warmup_closings": len(in_warmup),
+        "longest_closed_during_ms": longest(
+            lambda a, b: _hits(a, b, during)),
+        "longest_closed_outside_ms": longest(
+            lambda a, b: b >= t_from and not _hits(a, b, busy)),
+        "warmup_ms": [round((b - a) * 1e3, 1) for _, a, b in warm_spans],
+        "gc_max_ms": round(max([(b - a) * 1e3 for a, b in gcs] or [0.0]),
+                           1),
+        "largest_stalls": {k: {"ms": round(dt * 1e3, 1), "source": sid,
+                               "at_s": round(a - t_start, 2),
+                               "gate_closed_ms": _overlap_ms(a, b, shut),
+                               "gc_ms": _overlap_ms(a, b, collected),
+                               "overlaps": sorted(
+                                   n for n, sp in (named or {}).items()
+                                   if _hits(a, b, sp))}
+                           for k, (dt, a, b, sid) in worst.items()},
+    }
+
+
+def _stall_gate(rec: dict, what: str) -> None:
+    """The largest ingest stall during a runtime load is at most the
+    largest outside every request plus one tick; and no warm-up closed
+    the gate (``_gate_record``). The first compares stalls that the GIL,
+    the scheduler and the sockets make as well as the gate, so a
+    warm-up's 0.2 to 0.35 s hold passes it as often as not; the second
+    sees the hold itself."""
+    stalls, tick_ms, g = rec["stalls"], rec["tick_ms"], rec["gate"]
+    during = max(d for d, _ in stalls.values())
+    outside = max(o for _, o in stalls.values())
+    print(f"{what} ingest stalls: the largest during the runtime load "
+          f"{during} ms, outside every request {outside} ms (gate: "
+          f"+ one tick, {tick_ms:.0f} ms); the engine's gate: {g} "
+          f"[{rec['card']}]")
+    assert during > 0 and outside > 0, stalls
+    assert during <= outside + tick_ms, stalls
+    assert g["closings"] > 0 and g["warmup_closings"] == 0, g
+
+
+def _capture_windows(servers: dict) -> dict[str, np.ndarray]:
+    """Windows of every waveform the load servers (rate → server) send,
+    as the app's engine makes them: LIVE_WAVES sessions a server (which
+    the server hands its waveforms in turn) through the port's
+    ``RtspSource`` into an ``AudioEngine`` with v2.4's and v3.0's taps,
+    LIVE_CAL_S of each; returns model id → its windows, int16 [n, T]."""
+    from birdnet_go_tpu_torch.audio.engine import AudioEngine
+    from birdnet_go_tpu_torch.audio.rtsp import RtspSource
+    from birdnet_go_tpu_torch.models.registry import MODEL_REGISTRY
+
+    eng = AudioEngine([MODEL_REGISTRY["BirdNET_V2.4"],
+                       MODEL_REGISTRY["BirdNET_V3.0"]])
+    returns = _ingest_returns(eng)
+    srcs = [(rate, RtspSource(eng, f"rtsp://127.0.0.1:{srv.port}/cal{k}",
+                              source_id=f"cal{rate}-{k}"))
+            for rate, srv in servers.items() for k in range(LIVE_WAVES)]
+    for _, src in srcs:
+        src.start()
+    deadline = time.monotonic() + 30
+    while not all(sum(n for _, n in returns.get(x.source.source_id, []))
+                  >= LIVE_CAL_S * rate for rate, x in srcs):
+        assert time.monotonic() < deadline, "calibration capture stalled"
+        time.sleep(0.1)
+    windows = eng.collect_ready()
+    for _, src in srcs:
+        src.stop()
+    return {m: np.stack([w for mid, w, *_ in windows if mid == m])
+            for m in ("BirdNET_V2.4", "BirdNET_V3.0")}
+
+
+def live_leg(record_path: Path) -> None:
+    """Phase 19's app leg, in a process of its own (``python3
+    chip_smoke.py --live-leg <record.json>``): two of the port's
+    ``RtspLoadServer``s (L16, 50 ms packets) at 48 and 44.1 kHz, and the
+    ``Application`` on the card at full width with LIVE_RATES' rtsp
+    sources (``client: native``: the port's ``RtspSource``, as where
+    ffmpeg is missing), so the 44.1 kHz ones resample through the
+    engine's taps; v2.4 at batch 256 for LIVE_SECONDS, v3.0 loaded over
+    HTTP at LIVE_LOAD_AT and unloaded at LIVE_UNLOAD_AT; the API on
+    127.0.0.1 behind a password, FLAC clips, the range filter, SQLite.
+    Thresholds are calibrated as phase 16's, on the windows an engine
+    makes of every waveform each server sends, captured first by the
+    port's ``RtspSource`` (``_capture_windows``). Records each source's ingest returns (``_stalls``),
+    the samples it ingested against those its server sent, and what
+    phase 16 records. Writes the record to `record_path`; ``phase_live``
+    gates it."""
+    import logging
+    import threading
+
+    from birdnet_go_tpu_torch.app import Application
+    from birdnet_go_tpu_torch.config.settings import ModelSettings, Settings
+    from birdnet_go_tpu_torch.diag.api_walk import Client
+    from birdnet_go_tpu_torch.native.lib import RtspLoadServer
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: "
+                               "%(message)s")
+    losses: list[str] = []
+
+    class _Losses(logging.Handler):
+        def emit(self, r: logging.LogRecord) -> None:
+            msg = r.getMessage()
+            if r.levelno >= logging.ERROR or any(w in msg
+                                                 for w in APP_WARNINGS):
+                losses.append(f"{r.levelname} {r.name}: {msg[:300]}")
+
+    logging.getLogger().addHandler(_Losses())
+    out = record_path.parent
+    servers = {rate: RtspLoadServer(rate=rate, n_waveforms=LIVE_WAVES,
+                                    seed=SEED + 190 + k, pkt_ms=50)
+               for k, (rate, _) in enumerate(LIVE_RATES)}
+    for srv in servers.values():
+        srv.start()
+    t0 = time.monotonic()
+    cal_windows = _capture_windows(servers)
+    capture_s = time.monotonic() - t0
+
+    s = Settings()
+    s.models = [ModelSettings(model_id="BirdNET_V2.4"),
+                ModelSettings(model_id="BirdNET_V3.0", enabled=False)]
+    s.data_dir = str(out)
+    s.database.path = str(out / "live.db")
+    s.export.path = str(out / "clips")
+    s.export.format = "flac"
+    s.export.clip_length_seconds = 6.0
+    s.export.pre_capture_seconds = 1.5
+    s.realtime.interval_seconds = 0.0
+    s.realtime.max_batch = 256
+    s.location.latitude, s.location.longitude = APP_LATLON
+    s.range_filter.enabled = True
+    ws = s.webserver
+    ws.enabled, ws.host, ws.port = True, "127.0.0.1", 0
+    ws.password, ws.allow_local_bypass = LIVE_PASSWORD, False
+    ws.token_file = str(out / "tokens.json")
+    s.imageprovider.providers = ["avicommons"]
+    rate_of = {}
+    s.realtime.sources = []
+    for rate, n in LIVE_RATES:
+        for k in range(n):
+            sid = f"cam{rate // 100}-{k}"
+            rate_of[sid] = rate
+            s.realtime.sources.append({
+                "type": "rtsp", "id": sid, "client": "native",
+                "url": f"rtsp://127.0.0.1:{servers[rate].port}/cam{k}"})
+
+    warmups, warm_spans, added = [], [], []
+    _timed_warmups(warmups, warm_spans)
+    app = Application(s)
+    served: dict[str, list[tuple[float, float]]] = {}
+    handoff = app._on_window_result
+
+    def on_window(model_id, w, vals, idx):
+        served.setdefault(model_id, []).append((w.end_time, time.time()))
+        handoff(model_id, w, vals, idx)
+
+    app._on_window_result = on_window
+    t1 = time.monotonic()
+    app.setup()
+    setup_s = time.monotonic() - t1
+    kinds = sorted({type(x).__name__ for x in app._sources})
+    real_add = app.device_loop.add_batcher
+
+    def add_batcher(b):
+        added.append(b)
+        return real_add(b)
+
+    app.device_loop.add_batcher = add_batcher
+    added += list(app.device_loop.batchers.values())
+    approved = []
+    on_approved = app.processor.on_approved
+    app.processor.on_approved = lambda d, item: (
+        approved.append(d.model_id), on_approved(d, item))[1]
+    inc = app.processor.included_species
+    labels = app.labels["BirdNET_V2.4"]
+    b24 = app.device_loop.batchers["BirdNET_V2.4"]
+    trigger = s.dynamic_threshold.trigger
+    cal = {"BirdNET_V2.4": _calibrate(
+        b24, labels, inc, cal_windows["BirdNET_V2.4"], trigger)}
+    v3 = BirdNETv3().init(torch.Generator().manual_seed(0))   # load_model's
+    b3 = TorchModelBatcher(TorchClassifier(v3, "cuda"), max_batch=256)
+    cal["BirdNET_V3.0"] = _calibrate(
+        b3, labels, inc, cal_windows["BirdNET_V3.0"], trigger)
+    del b3, v3
+    torch.cuda.empty_cache()
+    for ms in s.models:
+        ms.threshold = cal[ms.model_id]["threshold"]
+        ms.sensitivity = cal[ms.model_id]["sensitivity"]
+    app._reload_model_settings()
+    returns = _ingest_returns(app.engine)
+    closings, gcs = _watch_gate(app.engine)
+    # the calibration's sessions are over: count what is sent from here
+    sent0 = {rate: srv.stats()["samples_sent"]
+             for rate, srv in servers.items()}
+
+    for k in KERNELS:
+        k.launches = 0
+    warmups.clear()
+    warm_spans.clear()
+    t2 = time.monotonic()
+    app.start(warmup=True)
+    start_s = time.monotonic() - t2
+    t_start = time.time()
+    client = Client(app.api.port, LIVE_PASSWORD)
+    client.login()
+    calls = []
+    for at, verb in ((LIVE_LOAD_AT, "load"), (LIVE_UNLOAD_AT, "unload")):
+        time.sleep(max(0.0, t_start + at - time.time()))
+        a = time.time()
+        st, _, body, ms = client.call(
+            "POST", f"/api/v2/models/{verb}/BirdNET_V3.0")
+        calls.append({"verb": verb, "status": st, "ms": round(ms, 1),
+                      "t0": a, "t1": time.time(),
+                      "body": body[:200].decode(errors="replace")})
+    time.sleep(max(0.0, t_start + LIVE_SECONDS - time.time()))
+    st_health, _, health_body, _ = client.call("GET", "/api/v2/health")
+    t_stop = time.time()
+    server_stats = {rate: srv.stats() for rate, srv in servers.items()}
+    for rate, st in server_stats.items():
+        st["samples_sent"] -= sent0[rate]
+    ingested = {sid: sum(n for _, n in ts) for sid, ts in returns.items()}
+    first = {sid: ts[0][0] for sid, ts in returns.items() if ts}
+    restarts = {x.source.source_id: x.restarts for x in app._sources}
+    health = [(r.name, r.healthy, r.detail) for r in app.health.run_all()]
+    t3 = time.monotonic()
+    app.stop()
+    stop_s = time.monotonic() - t3
+    for srv in servers.values():
+        srv.stop()
+        srv.close()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    left = [th.name for th in threading.enumerate()
+            if th is not threading.main_thread() and th.is_alive()
+            and not th.daemon]
+    with contextlib.closing(sqlite3.connect(s.database.path)) as conn:
+        rows = conn.execute("SELECT COUNT(*) FROM detections").fetchone()[0]
+    load = [(c["t0"], c["t1"]) for c in calls if c["verb"] == "load"]
+    busy = [(c["t0"], c["t1"]) for c in calls]
+    samples = {sid: {"rate": rate_of[sid], "ingested": ingested.get(sid, 0),
+                     "expected": round(rate_of[sid] * (t_stop - first[sid]))
+                     if sid in first else None}
+               for sid in rate_of}
+    rec = {
+        "card": _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"]).splitlines()[0],
+        "capture_s": round(capture_s, 2), "setup_s": round(setup_s, 2),
+        "start_s": round(start_s, 2), "stop_s": round(stop_s, 2),
+        "served_s": round(t_stop - t_start, 1), "source_kinds": kinds,
+        "calibration": cal, "calls": calls,
+        "tick_ms": s.realtime.tick_ms,
+        "stalls": _stalls(returns, load, busy, t_start + LIVE_SETTLE_S),
+        "gate": _gate_record(closings, gcs, warm_spans, returns, load, busy,
+                             t_start),
+        "samples": samples,
+        "servers": {str(r): v for r, v in server_stats.items()},
+        "sessions": {str(r): n for r, n in LIVE_RATES},
+        "restarts": restarts,
+        "health_http": [st_health, json.loads(health_body or b"{}")
+                        .get("status")],
+        "health": health,
+        "approved": len(approved),
+        "approved_by_model": {m: approved.count(m) for m in set(approved)},
+        "rows": rows,
+        "processor": dataclasses.asdict(app.processor.stats),
+        "latency_ms": {m: _pct([(h - e) * 1e3 for e, h in v])
+                       for m, v in served.items()},
+        "served": {m: len(v) for m, v in served.items()},
+        "batches": sum(b.stats.batches_dispatched for b in added),
+        "overruns": {b.spec.model_id: b.stats.overruns for b in added},
+        "batchers": [b.spec.model_id for b in added],
+        "windows_dropped": app.device_loop.windows_dropped,
+        "launches": launches, "warmups": list(warmups),
+        "threads_left": left, "losses": len(losses),
+        "loss_lines": losses[:10],
+    }
+    record_path.write_text(json.dumps(rec, indent=1))
+
+
+def _live_soak(card: str) -> None:
+    """Phase 19's first leg: ``soak --device cuda --ingest rtsp`` over
+    LIVE_SESSIONS sessions with phase 14's prints and gates
+    (``_soak_leg``), then the sessions': all connected at the end, none
+    restarted, nothing dropped by the server, and every sample sent
+    received but what is still in flight (LIVE_SOAK_IN_FLIGHT_S, one
+    50 ms packet a session: the soak reads the server's counters and the
+    demux's at one instant)."""
+    rec = _soak_leg(card, "rtsp_soak", SOAK_SECONDS, "--ingest", "rtsp")
+    ing = rec["ingest"]
+    print(f"rtsp soak ingest: {ing} [{card}]")
+    assert rec["streams"] == LIVE_SESSIONS, rec["streams"]
+    assert ing["type"] == "rtsp" and ing["connected_at_end"] == \
+        LIVE_SESSIONS, ing
+    assert ing["session_restarts"] == 0, ing
+    assert ing["samples_dropped_by_server"] == 0, ing
+    assert ing["samples_received"] >= ing["samples_sent"] - \
+        LIVE_SOAK_IN_FLIGHT_S * 48000 * LIVE_SESSIONS, ing
+
+
+def phase_live(card: str) -> None:
+    """Phase 19, live sources: what the machine offers them (the ALSA
+    shim and its devices, ``ffmpeg`` and ``ffprobe``; no leg runs on
+    them), then the RTSP soak (``_live_soak``), then ``live_leg`` in a
+    process of its own (record and log under ``build/live_smoke/``),
+    gated here: the app built ``RtspSource``s; every window served (none
+    dropped, no overrun); v2.4's p95 below LIVE_P95_MS across v3.0's
+    runtime load; the largest ingest stall during that load within one
+    tick of the largest outside every request, and no gate closing by a
+    warm-up (``_stall_gate``); nothing
+    dropped by the servers, no source restarted, each source's samples
+    ingested at least those its server sent it less LIVE_IN_FLIGHT_S
+    (from its first ingest to the end), and every server's sum;
+    approvals = rows; the mel kernel once a batch and a warm-up (v3.0's
+    load over HTTP included), the MBConv kernels never; health ok over
+    HTTP and every check; ``stop()`` within LIVE_STOP_S with the sources
+    connected; nothing logged at ERROR."""
+    import resource
+
+    t0 = time.monotonic()
+    print(f"live: bn_alsa_available() {native.alsa_available()}, ALSA "
+          f"capture devices {native.alsa_list_devices()}, ffmpeg "
+          f"{shutil.which('ffmpeg')}, ffprobe {shutil.which('ffprobe')}, "
+          f"open files {resource.getrlimit(resource.RLIMIT_NOFILE)}")
+    _live_soak(card)
+    out = REPO / "build" / "live_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    rec_path = out / "live.json"
+    t1 = time.monotonic()
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                           "--live-leg", str(rec_path)], capture_output=True,
+                          text=True, timeout=600, cwd=REPO)
+    wall = time.monotonic() - t1
+    (out / "live.log").write_text(proc.stderr)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-6000:])
+    assert proc.returncode == 0, f"the live leg exited {proc.returncode}"
+    _live_gates(json.loads(rec_path.read_text()), wall)
+    print(f"phase 19 (live sources) {time.monotonic() - t0:.1f} s [{card}]")
+
+
+def _live_gates(rec: dict, wall: float) -> None:
+    """Phase 19's prints and gates on the live leg's record."""
+    lat, sam = rec["latency_ms"], rec["samples"]
+    print(f"live app: {dict(rec['sessions'])} rtsp sources by rate "
+          f"({rec['source_kinds']}), v2.4 at batch 256 for "
+          f"{rec['served_s']} s, v3.0 over HTTP {rec['calls']}; process "
+          f"{wall:.1f} s (capture {rec['capture_s']} s, setup "
+          f"{rec['setup_s']} s, start {rec['start_s']} s, stop "
+          f"{rec['stop_s']} s) [{rec['card']}]")
+    print(f"live latency (ms): {lat}; served {rec['served']}; batches "
+          f"{rec['batches']} ({rec['batchers']}), overruns "
+          f"{rec['overruns']}, windows dropped {rec['windows_dropped']} "
+          f"[{rec['card']}]")
+    print(f"live kernels: launches {rec['launches']}, warm-ups "
+          f"{rec['warmups']}; calibration {rec['calibration']}")
+    print(f"live servers: {rec['servers']}; restarts "
+          f"{sum(rec['restarts'].values())}; health {rec['health_http']} "
+          f"{[(n, ok) for n, ok, _ in rec['health']]}; approved "
+          f"{rec['approved']} ({rec['approved_by_model']}), rows "
+          f"{rec['rows']}; processor {rec['processor']}; threads left "
+          f"{rec['threads_left']}; errors logged {rec['losses']} "
+          f"{rec['loss_lines']}")
+    short = {sid: v["expected"] - v["ingested"] for sid, v in sam.items()}
+    print(f"live samples: the most a source ingested short of its "
+          f"server's pace {max(short.values())} (of "
+          f"{LIVE_IN_FLIGHT_S} s in flight); stalls (during the load, "
+          f"outside every request, ms) {rec['stalls']}")
+    assert rec["source_kinds"] == ["RtspSource"], rec["source_kinds"]
+    assert [c["status"] for c in rec["calls"]] == [200, 200], rec["calls"]
+    _stall_gate(rec, "live")
+    assert rec["windows_dropped"] == 0
+    assert not any(rec["overruns"].values()), rec["overruns"]
+    assert lat["BirdNET_V2.4"]["p95"] < LIVE_P95_MS, lat
+    assert rec["served"].get("BirdNET_V3.0", 0) > 0, rec["served"]
+    for rate, n in rec["sessions"].items():
+        srv = rec["servers"][rate]
+        assert srv["samples_dropped"] == 0 and srv["playing"] >= n, srv
+        got = sum(v["ingested"] for v in sam.values()
+                  if str(v["rate"]) == rate)
+        assert got >= srv["samples_sent"] - LIVE_IN_FLIGHT_S * int(rate) \
+            * n, (rate, got, srv)
+    for sid, v in sam.items():
+        assert v["expected"] is not None, sid
+        assert v["ingested"] >= v["expected"] - LIVE_IN_FLIGHT_S * \
+            v["rate"], (sid, v)
+    assert not any(rec["restarts"].values()), rec["restarts"]
+    assert rec["approved"] == rec["rows"] > 0, rec
+    assert sorted(rec["warmups"]) == ["BirdNET_V2.4", "BirdNET_V3.0"]
+    assert rec["launches"]["melspec_fused"] == rec["batches"] + len(
+        rec["warmups"]), rec
+    assert rec["launches"]["expand_dw_pool"] == 0
+    assert rec["launches"]["scale_project"] == 0
+    assert rec["health_http"] == [200, "healthy"], rec["health_http"]
+    assert all(ok for _, ok, _ in rec["health"]), rec["health"]
+    assert rec["stop_s"] <= LIVE_STOP_S and not rec["threads_left"], rec
+    assert rec["losses"] == 0, rec["loss_lines"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -4079,6 +4679,9 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--api-leg"]:       # phase 18's own process
         api_leg(Path(sys.argv[2]))
+        return
+    if sys.argv[1:2] == ["--live-leg"]:      # phase 19's own process
+        live_leg(Path(sys.argv[2]))
         return
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4123,6 +4726,7 @@ def main() -> None:
     phase_app(card)
     phase_crash(card)
     phase_api(card)
+    phase_live(card)
     print(f"total {time.monotonic() - t0:.1f} s of phases, "
           f"{time.monotonic() - T_START:.1f} s since the imports")
     print(f"kernels line: melspec_fused at the v2.4 main path's [{BATCH}, "

@@ -945,6 +945,50 @@ def test_unported_routes_answer_501_with_their_item(pair):
         eb.enabled, eb.api_token = was
 
 
+class _Ran:
+    def __init__(self, stdout: bytes):
+        self.returncode, self.stdout, self.stderr = 0, stdout, b""
+
+
+def _fake_tools(cmd, **kw):
+    """ffprobe's JSON for a probe, else two channels of PCM, one silent."""
+    if "-show_streams" in cmd:
+        return _Ran(json.dumps({
+            "streams": [{"codec_type": "audio", "codec_name": "pcm_s16be",
+                         "sample_rate": "48000", "channels": 2}],
+            "format": {"format_name": "rtsp"}}).encode())
+    pcm = np.zeros((4800, 2), np.int16)
+    pcm[:, 1] = np.where(np.arange(4800) % 2 == 0, 9000, -9000)
+    return _Ran(pcm.tobytes())
+
+
+@pytest.mark.parametrize("tools", ["missing", "present"])
+def test_stream_probe_routes_answer_as_jax(pair, tools, monkeypatch):
+    """``POST streams/probe`` and ``POST streams/analyze-channels`` answer
+    as JAX's handlers do: 503 with the helper's body without ffprobe and
+    ffmpeg (the card's machine has neither), 200 with it when the
+    binaries answer (faked here through the helpers' ``run``)."""
+    import functools
+    import shutil
+
+    monkeypatch.setattr(shutil, "which", lambda n: (
+        None if tools == "missing" else f"/usr/bin/{n}"))
+    for P in (J, T):
+        ff = importlib.import_module(f"{P.app.__name__[:-4]}.audio.ffmpeg")
+        monkeypatch.setattr(ff, "ffmpeg_available",
+                            lambda: tools == "present")
+        for name in ("probe_stream", "analyze_channels"):
+            monkeypatch.setattr(ff, name, functools.partial(
+                getattr(ff, name), run=_fake_tools))
+    for route, body in (("streams/probe", {"url": "rtsp://cam/1"}),
+                        ("streams/analyze-channels",
+                         {"url": "rtsp://cam/1", "seconds": 0.1,
+                          "channels": 2})):
+        out = _compare(pair, "POST", f"{V2}/{route}", body, "json")
+        assert out["torch"][1] == (503 if tools == "missing" else 200)
+        assert json.loads(out["torch"][3])["ok"] is (tools == "present")
+
+
 def test_absent_subsystem_routes_answer_as_jax(pair):
     """The routes whose subsystem the port's app refuses answer as JAX's
     do without it."""

@@ -10,7 +10,9 @@ log deduplicator, the species tracker, the alerting rules, the
 notification inbox and service, the event bus, the health registry and
 error ring, the equalizer's filter chains, the tone and file-loop sources'
 PCM, and the audio engine's windows and capture buffers (48 and 256 kHz
-sources, a runtime ``add_model``/``remove_model``).
+sources, a runtime ``add_model``/``remove_model``; resampled windows
+within one int16 step, the port's resampler rounding its sums
+differently), and the rtsp, http and audio_card sources the app builds.
 
 The app as a whole is driven without its threads: a tiny float32 v2.4 in
 both packages on the same JAX ``init`` weights (``inference/params.py``),
@@ -24,7 +26,10 @@ the pixels), the included species and the health checks equal.
 
 The port's own behaviour has tests of its own, each stating what JAX does
 instead: runtime load and unload (the port serves what the unloaded model
-already holds), the mesh choice, the refusals of unported subsystems, the
+already holds), the engine's gate (closed for ticks and launches, open
+for a warm-up), a native RTSP source served by the app, the quiet-hours
+gates on a ``SoundcardSource``, the mesh choice, the refusals of
+unported subsystems, the
 threshold-persistence stop race (JAX's closure re-reads the attribute),
 the lazy HTTP client of ``NotificationService``, the probe that raises
 rather than degrade, ``serve`` with the API on, the ``ApiServer`` and the
@@ -83,6 +88,7 @@ def _pkg(name: str) -> SimpleNamespace:
         ("equalizer", "audio.equalizer"),
         ("sources_file", "audio.sources_file"),
         ("engine", "audio.engine"),
+        ("resampler", "audio.resampler"),
         ("wav", "audio.wav"),
         ("liveness", "audio.liveness"),
         ("quiet", "audio.quiet_hours"),
@@ -793,12 +799,18 @@ def _engine_specs(P):
 
 @pytest.mark.parametrize("eq", [False, True])
 @pytest.mark.parametrize("rate", [48000, 256000])
-def test_engine_windows_and_capture(rate, eq):
+def test_engine_windows_and_capture(rate, eq, monkeypatch):
     """The same PCM at fixed timestamps into both engines (two sources,
     v2.4 at 48 kHz, Perch at 32 kHz resampled, the bat model raw at
     256 kHz, a 1.5 s overlap on v2.4): the same ``collect_ready`` windows
     and capture-buffer contents; a model added and one removed at runtime
-    rewire the live streams alike."""
+    rewire the live streams alike. With JAX's ``StreamingResampler`` in
+    the port's engine, everything is equal bit for bit. With the port's
+    own, a window that was resampled may differ from JAX's by one int16
+    step at no more than 1e-3 of its samples (its resampler rounds its
+    float32 sums differently: ``audio/resampler.py``, held to the
+    resampler's float64 definition in ``tests/test_torch_aux.py``); every
+    other window, and everything else, is equal."""
     rng = np.random.default_rng(5)
     chunks = [np.clip(3000 * rng.standard_normal(rate // 10), -32768,
                       32767).astype(np.int16) for _ in range(70)]
@@ -837,7 +849,25 @@ def test_engine_windows_and_capture(rate, eq):
         out.append([s.source_id for s in eng.sources()])
         return out
 
-    _both(case)
+    want = case(J)
+    with monkeypatch.context() as m:
+        m.setattr(T.engine, "StreamingResampler",
+                  J.resampler.StreamingResampler)
+        assert _plain(case(T)) == _plain(want)
+    got = case(T)
+    windows = [(w, g) for a, b in zip(want, got)
+               if isinstance(a, list) and a and isinstance(a[0], tuple)
+               and len(a[0]) == 5 for w, g in zip(a, b)]
+    assert windows and len(want) == len(got)
+    for w, g in windows:
+        assert _plain(g[:1] + g[2:]) == _plain(w[:1] + w[2:])
+        step = np.abs(g[1].astype(np.int32) - w[1].astype(np.int32))
+        if w[4] == rate:                      # not resampled
+            assert step.max() == 0
+        else:
+            assert step.max() <= 1 and (step > 0).mean() <= 1e-3
+        g[1][:] = w[1]
+    assert _plain(got) == _plain(want)
 
 
 def test_source_gate_holds_ingest_off_during_a_launch():
@@ -901,9 +931,10 @@ def test_source_gate_holds_ingest_off_during_a_launch():
 def test_app_closes_the_engine_gate_for_ticks_and_launches(
         tmp_path, monkeypatch, tiny_v24):
     """The app's device loop holds its engine's gate closed for each tick,
-    and every batcher, the one loaded at runtime too, while it warms up
-    and while it launches a step (the port only: JAX's jitted step takes
-    the GIL once a batch)."""
+    and every batcher, the one loaded at runtime too, while it launches a
+    step (the port only: JAX's jitted step takes the GIL once a batch).
+    A warm-up leaves the gate open: its first call's set-up would hold a
+    live source's audio (JAX's load holds no gate either)."""
     v3 = _tiny_v3(tiny_v24)
     monkeypatch.setattr(T.app, "load_model",
                         lambda model_id, checkpoint=None, **kw:
@@ -929,10 +960,10 @@ def test_app_closes_the_engine_gate_for_ticks_and_launches(
     batchers = app.device_loop.batchers
     assert set(batchers) == {"BirdNET_V2.4", "BirdNET_V3.0"}
     assert all(b.gate is gate for b in batchers.values())
-    # the runtime load's warm-up, then one warm-up of each: closed once
+    # the runtime load's warm-up, then one warm-up of each: never closed
     for b in batchers.values():
         b.warmup()
-    assert [n for _, n in steps] == [1, 1, 1], steps
+    assert [n for _, n in steps] == [0, 0, 0], steps
     polls = []
     collect = app.device_loop._providers[0]
     app.device_loop._providers[0] = lambda: (polls.append(gate._closings),
@@ -945,6 +976,185 @@ def test_app_closes_the_engine_gate_for_ticks_and_launches(
     assert {m for m, _ in steps} == {"BirdNET_V2.4", "BirdNET_V3.0"}
     assert {n for _, n in steps} == {2}, steps
     assert gate._closings == 0 and gate._turns == 0
+    app.datastore.close()
+
+
+def test_a_source_ingests_while_a_warmup_runs(tmp_path, monkeypatch,
+                                              tiny_v24):
+    """Repair of the warm-up stall: a source's ``gate.turn()`` completes
+    while ``warmup()`` runs a slow step, and a launch still holds the
+    gate closed against it."""
+    _patch_models(T, monkeypatch, tiny_v24)
+    app = T.app.Application(_app_settings(T, tmp_path), device="cpu")
+    app.setup()
+    gate, b = app.engine.gate, app.device_loop.batchers["BirdNET_V2.4"]
+    in_step, release = threading.Event(), threading.Event()
+    real_step = b._step
+
+    def slow_step(*a):
+        in_step.set()
+        assert release.wait(10)
+        return real_step(*a)
+
+    b._step = slow_step
+
+    def turn_when(started, done):
+        assert started.wait(10)
+        with gate.turn():
+            done.set()
+
+    for kind, run in (("warmup", b.warmup),
+                      ("launch", lambda: b._launch(b._staged, 1))):
+        in_step.clear()
+        release.clear()
+        done = threading.Event()
+        src = threading.Thread(target=turn_when, args=(in_step, done))
+        step = threading.Thread(target=run)
+        src.start()
+        step.start()
+        assert in_step.wait(10)
+        if kind == "warmup":
+            assert done.wait(5), "a warm-up held the source off"
+        else:
+            time.sleep(0.2)
+            assert not done.is_set(), "a launch let the source in"
+        release.set()
+        step.join(10)
+        src.join(10)
+        assert done.is_set() and not step.is_alive()
+    assert gate._closings == 0 and gate._turns == 0
+    app.datastore.close()
+
+
+LIVE_SOURCES = {
+    "rtsp_native": ({"type": "rtsp", "id": "cam", "client": "native",
+                     "url": "rtsp://u:p@cam/live"}, True),
+    "rtsp_ffmpeg": ({"type": "rtsp", "id": "cam", "url": "rtsp://cam/live",
+                     "transport": "udp"}, True),
+    "rtsp_no_ffmpeg": ({"type": "rtsp", "url": "rtsp://cam/live"}, False),
+    "http": ({"type": "http", "id": "web", "url": "http://x/a.mp3"}, True),
+    "http_no_url": ({"type": "http", "id": "web"}, True),
+    "audio_card": ({"type": "audio_card", "device": "hw:1,0", "rate": 32000,
+                    "channels": 2}, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LIVE_SOURCES))
+def test_live_sources_build_as_jax(name, tmp_path, monkeypatch, tiny_v24):
+    """``rtsp``, ``http`` and ``audio_card`` entries: the same source
+    classes, ids, rates and types as JAX's app builds in ``setup`` (the
+    native RTSP client where the entry asks for it or ffmpeg is missing,
+    else ffmpeg; an entry without its url skipped), not started."""
+    cfg, ffmpeg = LIVE_SOURCES[name]
+
+    def case(P):
+        _patch_models(P, monkeypatch, tiny_v24)
+        ff = importlib.import_module(f"{P.app.__name__[:-4]}.audio.ffmpeg")
+        monkeypatch.setattr(ff, "ffmpeg_available", lambda: ffmpeg)
+        s = _app_settings(P, _dir(tmp_path, P))
+        s.realtime.sources = [dict(cfg)]
+        app = (P.app.Application(s) if P is J
+               else P.app.Application(s, device="cpu"))
+        app.setup()
+        out = [(type(x).__name__, x.source, getattr(x, "transport", None),
+                getattr(x, "channels", None)) for x in app._sources]
+        app.datastore.close()
+        return out, sorted(app._source_cfgs)
+
+    got = _both(case)
+    assert len(got[0]) == (0 if name == "http_no_url" else 1)
+
+
+def test_app_serves_a_native_rtsp_source(tmp_path, monkeypatch, tiny_v24):
+    """A tiny v2.4 app on the CPU with one ``rtsp`` source on the native
+    client, against ``tests/test_torch_sources.py``'s small RTSP server
+    (L16 at 48 kHz, sent as fast as the socket takes it): the source
+    started by ``start`` as the app starts its sources, its windows served
+    by the loop, none dropped."""
+    from tests.test_torch_sources import _MiniRtsp, _tone
+
+    _patch_models(T, monkeypatch, tiny_v24)
+    srv = _MiniRtsp(_tone(48000 * 8, 48000), rates=(48000,), packet=960)
+    srv.start()
+    s = _app_settings(T, tmp_path)
+    s.realtime.sources = [{"type": "rtsp", "id": "cam", "client": "native",
+                           "url": srv.url()}]
+    app = T.app.Application(s, device="cpu")
+    served = []
+    real = app._on_window_result
+    app._on_window_result = lambda model_id, w, vals, idx: (
+        served.append((model_id, w.source_id)), real(model_id, w, vals, idx))
+    app.setup()
+    (src,) = app._sources
+    assert type(src).__name__ == "RtspSource"
+    try:
+        src.start()
+        _wait(lambda: src.packets >= 400, 20)
+        _run_ticks(app)          # before stop() removes the source
+    finally:
+        src.stop()
+        srv.stop()
+    assert len(served) >= 4 and set(served) == {("BirdNET_V2.4", "cam")}
+    assert app.device_loop.windows_dropped == 0
+    app.datastore.close()
+
+
+class _Capture:
+    """``AlsaCapture``'s stand-in for the app: silence until closed."""
+
+    opened: list = []
+
+    def __init__(self, device="default", rate=48000, channels=1,
+                 latency_us=100000):
+        self.closed = False
+        _Capture.opened.append(self)
+
+    def read(self, frames):
+        if self.closed:
+            raise RuntimeError("closed")
+        time.sleep(0.01)
+        return np.zeros(frames, np.int16)
+
+    def close(self):
+        self.closed = True
+
+
+def test_soundcard_gates_act_on_soundcard_sources(tmp_path, monkeypatch,
+                                                  tiny_v24):
+    """The port's ``SoundcardSource`` has the ``audio_card`` type the
+    app's quiet-hours gates test: ``_gate_soundcards`` stops and starts
+    it (and leaves the tone source alone), and ``_apply_quiet_gates``
+    stops it inside its quiet window and starts it after."""
+    from birdnet_go_tpu_torch import native
+
+    _patch_models(T, monkeypatch, tiny_v24)
+    monkeypatch.setattr(native, "alsa_available", lambda: True)
+    monkeypatch.setattr(native, "AlsaCapture", _Capture)
+    _Capture.opened = []
+    s = _app_settings(T, tmp_path)
+    s.realtime.sources = [{"type": "audio_card", "id": "mic"},
+                          {"type": "tone", "id": "tone0"}]
+    app = T.app.Application(s, device="cpu")
+    app.setup()
+    mic, tone = app._sources
+    assert mic.source.source_type.value == "audio_card"
+    calls = []
+    monkeypatch.setattr(tone, "start", lambda: calls.append("start"))
+    monkeypatch.setattr(tone, "stop", lambda: calls.append("stop"))
+    app._gate_soundcards(True)
+    assert len(_Capture.opened) == 1 and mic._thread is not None
+    app._gate_soundcards(False)
+    assert _Capture.opened[0].closed and mic._thread is None
+    quiet = {"now": True}
+    app.quiet_hours = SimpleNamespace(is_quiet=lambda sid: quiet["now"])
+    app._gate_soundcards(True)
+    app._apply_quiet_gates()
+    assert _Capture.opened[1].closed and app._quiet_gated == {"mic"}
+    quiet["now"] = False
+    app._apply_quiet_gates()
+    assert len(_Capture.opened) == 3 and not _Capture.opened[2].closed
+    assert app._quiet_gated == set() and calls == []
+    mic.stop()
     app.datastore.close()
 
 
@@ -1292,15 +1502,6 @@ REFUSALS = {
     "backup": (lambda s: setattr(s.backup, "enabled", True), "item 8", None),
     "mysql": (lambda s: setattr(s.database, "type", "mysql"), "item 8",
               None),
-    "rtsp": (lambda s: s.realtime.sources.append(
-        {"type": "rtsp", "id": "cam", "url": "rtsp://cam/live"}), "item 7",
-             "_reconfigure_sources"),
-    "http": (lambda s: s.realtime.sources.append(
-        {"type": "http", "id": "web", "url": "http://x/a.mp3"}), "item 7",
-             "_reconfigure_sources"),
-    "audio_card": (lambda s: s.realtime.sources.append(
-        {"type": "audio_card", "id": "mic"}), "item 7",
-                   "_reconfigure_sources"),
 }
 
 

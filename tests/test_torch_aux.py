@@ -8,10 +8,14 @@ port's copies (``audio/buffers.py`` ``CaptureBuffer``, ``resampler.py``,
 ``analysis/soundlevel_worker.py``) from the same inputs, and records what it
 observes; ``_both`` asserts the two records equal. Tolerances:
 
-- bit for bit: the capture buffer, the streaming resampler, loudness
-  normalisation, the FLAC codec, encoded WAV and FLAC bytes, exported
-  clips, HLS init and media segments, playlists, and the migration's
-  tables (timestamps of the wall clock stripped), all host numpy or SQL;
+- bit for bit: the capture buffer, loudness normalisation, the FLAC
+  codec, encoded WAV and FLAC bytes, exported clips, HLS init and media
+  segments, playlists, and the migration's tables (timestamps of the wall
+  clock stripped), all host numpy or SQL;
+- the streaming resampler: each chunk within 1e-6 of the largest sample
+  of JAX's (the port sums its polyphase taps only), and no further from
+  the resampler's float64 definition than JAX's chunk plus one float32
+  epsilon of the largest input;
 - the spectrogram's colour index (the port's torch on the CPU against
   JAX's): at most 1 level apart, at no more than 1e-3 of the pixels (the
   two FFTs and resamplers round differently before a uint8 truncation).
@@ -56,6 +60,7 @@ def _pkg(name: str) -> SimpleNamespace:
     mod = {k: importlib.import_module(f"{name}.{path}") for k, path in (
         ("buffers", "audio.buffers"),
         ("resampler", "audio.resampler"),
+        ("resample_op", "ops.resample"),
         ("audionorm", "audio.audionorm"),
         ("flac", "audio.flac"),
         ("encode", "audio.encode"),
@@ -183,9 +188,14 @@ def test_capture_buffer_wrap_and_zero_fill_equal_jax(seed):
 
 # -- streaming resampler ------------------------------------------------------
 
-def _resample_chunks(P, in_rate, out_rate, seed):
+def _resample_input(in_rate, seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(int(0.8 * in_rate)).astype(np.float32) * 1000
+    return x, rng
+
+
+def _resample_chunks(P, in_rate, out_rate, seed):
+    x, rng = _resample_input(in_rate, seed)
     rs = P.resampler.StreamingResampler(in_rate, out_rate)
     out, pos = [], 0
     while pos < len(x):
@@ -197,17 +207,67 @@ def _resample_chunks(P, in_rate, out_rate, seed):
     return out, np.concatenate([whole.process(x), whole.flush()])
 
 
+def _resample_float64(x, in_rate, out_rate, n_out):
+    """The streaming resampler's definition in float64, independent of
+    both packages' sums: output j is sum_t h[t] · xup[j·M − pad_lo + t]
+    over JAX's filter h, xup the input zero-stuffed by L (scipy's
+    ``upfirdn`` at the full upsampled rate, read every M samples)."""
+    from scipy.signal import upfirdn
+
+    cfg = J.resample_op.ResampleConfig(in_rate, out_rate)
+    up, down = cfg.ratio
+    if up == down == 1:
+        return x.astype(np.float64)[:n_out]
+    h = J.resample_op._design_filter(up, down, cfg.taps_per_phase, cfg.beta,
+                                     cfg.cutoff_scale).astype(np.float64)
+    n_taps = len(h)
+    y = upfirdn(h[::-1], x.astype(np.float64), up=up, down=1)
+    at = np.arange(n_out) * down - (n_taps - 1) // 2 + n_taps - 1
+    return np.concatenate([y, np.zeros(max(0, at[-1] + 1 - len(y)))])[at]
+
+
 @pytest.mark.parametrize("rates", [(44100, 48000), (256000, 48000),
                                    (48000, 24000), (48000, 48000)])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_streaming_resampler_equal_jax(rates, seed):
-    """Chunked ``process`` then ``flush``: every chunk's output equal to
-    JAX's; their concatenation is the whole-stream resample's to float32
-    rounding (the products run over other row blocks)."""
-    chunks, whole = _both(_resample_chunks, *rates, seed)
-    np.testing.assert_allclose(np.concatenate(chunks), whole, rtol=0,
-                               atol=1e-6 * np.abs(whole).max())
+    """Chunked ``process`` then ``flush``: every chunk as long as JAX's
+    and equal to it to float32 rounding, as their concatenation is to the
+    whole-stream resample's (1e-6 of the largest sample, the bound JAX's
+    own chunks keep against its whole stream). The port sums only the
+    taps that meet input samples (the filter's polyphase form), where
+    JAX's product runs over the zero-stuffed signal, so the float32 sums
+    round differently (``audio/resampler.py``). So each chunk is also
+    held to the resampler's definition in float64
+    (``_resample_float64``): no further from it than JAX's chunk is, plus
+    one float32 epsilon of the largest input sample, where a wrong tap,
+    phase or offset would miss it by the signal's size. JAX's chunks are
+    within two such epsilons of it, which holds the reference itself."""
+    (want, want_whole), (got, whole) = (_resample_chunks(P, *rates, seed)
+                                        for P in (J, T))
+    atol = 1e-6 * np.abs(whole).max()
+    assert [len(c) for c in got] == [len(c) for c in want]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.float32
+        np.testing.assert_allclose(g, w, rtol=0, atol=atol)
+    np.testing.assert_allclose(whole, want_whole, rtol=0, atol=atol)
+    np.testing.assert_allclose(np.concatenate(got), whole, rtol=0,
+                               atol=atol)
     assert len(whole) == int(0.8 * rates[0]) * rates[1] // rates[0]
+
+    x, _ = _resample_input(rates[0], seed)
+    exact = _resample_float64(x, *rates, len(whole))
+    eps = float(np.finfo(np.float32).eps) * float(np.abs(x).max())
+    pos = 0
+    for g, w in zip(got, want):
+        ref = exact[pos:pos + len(w)]
+        pos += len(w)
+        if not len(w):
+            continue
+        jax_err = float(np.abs(w - ref).max())
+        assert jax_err <= 2 * eps, (jax_err, eps)
+        assert float(np.abs(g - ref).max()) <= jax_err + eps, (jax_err, eps)
+    assert pos == len(exact)
+    assert float(np.abs(whole - exact).max()) <= 2 * eps
 
 
 # -- loudness -----------------------------------------------------------------

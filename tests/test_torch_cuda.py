@@ -8,11 +8,11 @@ float32 step on the card against the CPU, and no kernel launched by a
 train step; and int8 and meshes: ``int_mm`` exact at the shapes
 ``_int_mm`` refuses, the depthwise float route equal to int32 tap sums,
 the ``act_int8`` step against the CPU, and ``ShardedClassifier`` on meshes
-that list the card more than once; the soak on the card, and its aux
-planes (spectrogram index and sound levels against the CPU, a kitchen-sink
-leg); the realtime app serving on the card; and a crash leg on the card
-(its victim SIGKILLed, recovered, restarted), with the crash leg and
-``support`` refusing or naming no device with the card hidden.
+that list the card more than once; the soak on the card, its aux planes
+(spectrogram index and sound levels against the CPU, a kitchen-sink leg)
+and its RTSP leg; the realtime app serving on the card; and a crash leg
+on the card (its victim SIGKILLed, recovered, restarted), with the crash
+leg and ``support`` refusing or naming no device with the card hidden.
 
 Every test needs a CUDA card and skips without one. The file imports no
 JAX, so it also runs where JAX is missing:
@@ -807,6 +807,27 @@ def test_soak_on_card_launches_the_mel_kernel_once_a_batch(dev, tmp_path):
     assert rec["windows_processed"] > 0
     assert cal["mel_kernel_launches"] == cal["batches_dispatched"] > 0
     assert cal["mode"] == "device step (cuda)" and "H100" in cal["card"]
+
+
+def test_rtsp_soak_on_card_serves_its_sessions(dev, tmp_path):
+    """A short ``run_soak(device="cuda", ingest="rtsp")``: 64 realtime L16
+    sessions from the load server through the native demux into
+    full-width v2.4 on the card; every session connected at the end, none
+    restarted, nothing dropped by the server or the rings, every sample
+    sent received but one 50 ms packet a session in flight (the counters
+    are read at one instant), the mel kernel once a
+    batch."""
+    from birdnet_go_tpu_torch.scheduler.soak import run_soak
+
+    rec = run_soak(streams=64, seconds=6.0, device="cuda", ingest="rtsp",
+                   db_path=str(tmp_path / "soak.db"), sample_seconds=2.0)
+    ing, da, cal = rec["ingest"], rec["drop_accounting"], rec["calibration"]
+    assert ing["connected_at_end"] == 64 and ing["session_restarts"] == 0
+    assert ing["samples_dropped_by_server"] == 0
+    assert ing["samples_received"] >= ing["samples_sent"] - 0.05 * 48000 * 64
+    assert da["farm_samples_lost"] == da["scheduler_windows_dropped"] == 0
+    assert rec["windows_processed"] > 0
+    assert cal["mel_kernel_launches"] == cal["batches_dispatched"] > 0
 
 
 def test_soak_cli_refuses_without_a_card(monkeypatch, capsys, tmp_path):

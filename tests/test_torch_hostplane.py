@@ -14,6 +14,7 @@ import ast
 import dataclasses
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -84,9 +85,25 @@ SPEC = dataclasses.replace(treg.BIRDNET_V24, clip_seconds=0.01,
                            num_species=40)
 
 
-def _stub(base):
+class _Clock:
+    """One fake ``time.monotonic`` for both loops. It moves only where a
+    stub's launch moves it, by LAUNCH_S a window, so a batch's latency,
+    and with it ``stats.overruns`` (latencies past the budget), follows
+    from the windows launched and not from the host's load."""
+
+    LAUNCH_S = 0.002
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def monotonic(self) -> float:
+        return self.t
+
+
+def _stub(base, clock=None):
     """A batcher on `base` whose device step is a numpy function of the
-    staged rows, so that the two host planes can be compared exactly."""
+    staged rows, so that the two host planes can be compared exactly; a
+    launch moves `clock` (a ``_Clock``) if one is given."""
 
     class Stub(base):
         def __init__(self, max_batch, depth, ready):
@@ -96,6 +113,8 @@ def _stub(base):
 
         def _launch(self, staged, n):
             self.launched.append(n)
+            if clock is not None:
+                clock.t += clock.LAUNCH_S * n
             x = staged.astype(np.float32)
             vals = np.stack([x[:, i::5].mean(axis=1) for i in range(5)], 1)
             idx = np.argsort(-vals, axis=1).astype(np.int32)
@@ -174,10 +193,15 @@ def _counters(batcher, loop):
     (2, 2, False, 1, ("fill", "block", "items")),
 ])
 def test_host_plane_fans_out_as_jax(max_batch, depth, ready, dispatches,
-                                    paths):
+                                    paths, monkeypatch):
+    """Both loops on one fake clock each (``_Clock``), so that every
+    counter, ``overruns`` included, is compared exactly."""
     results = []
     for mod in (jloop, tloop):
-        b = _stub(mod.HostBatcher)(max_batch, depth, ready)
+        clock = _Clock()
+        monkeypatch.setattr(mod, "time", types.SimpleNamespace(
+            monotonic=clock.monotonic))
+        b = _stub(mod.HostBatcher, clock)(max_batch, depth, ready)
         out, loop = _drive(mod, b, 7, 9, 6, dispatches, paths)
         results.append((out, _counters(b, loop)))
     (want, wc), (got, gc) = results
@@ -475,6 +499,9 @@ def test_port_imports_with_jax_and_jax_package_blocked():
             "birdnet_go_tpu_torch.analysis.insights",
             "birdnet_go_tpu_torch.taxonomy.speciesdict",
             "birdnet_go_tpu_torch.integrations.imageprovider",
+            "birdnet_go_tpu_torch.audio.rtsp",
+            "birdnet_go_tpu_torch.audio.capture",
+            "birdnet_go_tpu_torch.audio.ffmpeg",
             "birdnet_go_tpu_torch.version"} <= set(mods)
     res = subprocess.run([sys.executable, "-c",
                           _GUARDED_IMPORT % (_BLOCKED, mods)],

@@ -358,6 +358,19 @@ def _t_resize_nearest():
     return _finish(mb, [x_t], [out]), [x]
 
 
+@_tflite_case("resize_bilinear_shrink_and_grow")
+def _t_resize_bilinear():
+    """RESIZE_BILINEAR as ``jax.image.resize``: the height shrinks
+    (antialiased), the width grows."""
+    x = np.random.default_rng(31).standard_normal((2, 6, 9, 3)).astype(
+        np.float32)
+    mb = ModelBuilder()
+    x_t = mb.add_tensor([2, 6, 9, 3], "x")
+    out = mb.add_tensor([2, 4, 13, 3], "out")
+    mb.add_op(Op.RESIZE_BILINEAR, [x_t, _i32(mb, "hw", [4, 13])], [out])
+    return _finish(mb, [x_t], [out]), [x]
+
+
 # 2048-point rFFT power (values to ~1e5) through a 64-band product
 @_tflite_case("stft_gather_framing_mid_scale", rtol=1e-4, atol=1e-2)
 def _t_gather_stft():
@@ -994,6 +1007,38 @@ def _o_shape_ops():
             "rprod", "rmean", "expand", "flat0", "s1", "reshaped", "cat",
             "shape"]
     return ob.model(nodes, inits, ["x"], outs), [x]
+
+
+@_onnx_case("resize_every_axis", rtol=1e-5, atol=1e-5)
+def _o_resize_every_axis():
+    """Resize as ``jax.image.resize``, every axis that changes: a 1-D
+    input [1, 2, 40] shrunk linearly (antialiased, as JAX's shrink is in
+    any number of dimensions) and grown, a 3-D input [1, 2, 4, 6, 6]
+    shrunk, and the batch and channel axes of [2, 3, 8, 5] resized
+    linearly, by scales and nearest. Float32, rtol and atol 1e-5."""
+    rng = np.random.default_rng(32)
+    a = rng.standard_normal((1, 2, 40)).astype(np.float32)
+    b = rng.standard_normal((1, 2, 4, 6, 6)).astype(np.float32)
+    c = rng.standard_normal((2, 3, 8, 5)).astype(np.float32)
+    lin = [_attr_str("mode", "linear")]
+    nodes = [
+        ob.node("Resize", ["a", "", "", "a_small"], ["a_shrink"], lin),
+        ob.node("Resize", ["a", "", "", "a_big"], ["a_grow"], lin),
+        ob.node("Resize", ["b", "", "", "b_small"], ["b_shrink"], lin),
+        ob.node("Resize", ["c", "", "", "c_bc"], ["c_batch_channel"], lin),
+        ob.node("Resize", ["c", "", "c_scales"], ["c_scaled"], lin),
+        ob.node("Resize", ["c", "", "", "c_near"], ["c_nearest"]),
+    ]
+    inits = _inits(
+        a_small=np.array([1, 2, 17], np.int64),
+        a_big=np.array([1, 2, 93], np.int64),
+        b_small=np.array([1, 2, 3, 4, 4], np.int64),
+        c_bc=np.array([1, 5, 8, 5], np.int64),
+        c_scales=np.array([1.5, 0.5, 0.5, 1.0], np.float32),
+        c_near=np.array([3, 2, 8, 11], np.int64))
+    outs = ["a_shrink", "a_grow", "b_shrink", "c_batch_channel",
+            "c_scaled", "c_nearest"]
+    return ob.model(nodes, inits, ["a", "b", "c"], outs), [a, b, c]
 
 
 @pytest.mark.parametrize("case", sorted(ONNX))

@@ -239,6 +239,30 @@ def test_cpu_soak_serves_the_classifier(tmp_path, monkeypatch):
         assert (idx[:n, 0] == 17).all()
 
 
+def test_rtsp_cpu_soak_serves_four_sessions(tmp_path, monkeypatch):
+    """``ingest="rtsp"`` on ``device="cpu"`` (JAX's refuses only its TPU;
+    the port also serves the leg on the card): four realtime L16 sessions
+    from the load server through the native demux into the tiny net's
+    step. All four connected at the end, none restarted, nothing dropped
+    by the server or the rings, every sample sent received but 0.25 s a
+    session still in flight, every window to the processor."""
+    monkeypatch.setattr(tsoak, "soak_classifier", _tiny_classifier)
+    rec = tsoak.run_soak(streams=4, seconds=SECONDS, device="cpu",
+                         ingest="rtsp", db_path=str(tmp_path / "soak.db"),
+                         action_mix="db", sample_seconds=2.0)
+    ing = rec["ingest"]
+    assert ing["type"] == "rtsp" and ing["connected_at_end"] == 4, ing
+    assert ing["session_restarts"] == 0, ing
+    assert ing["samples_dropped_by_server"] == 0, ing
+    assert ing["samples_received"] >= ing["samples_sent"] - 0.25 * 48000 * 4
+    da = rec["drop_accounting"]
+    assert da["farm_samples_lost"] == da["scheduler_windows_dropped"] == 0
+    assert da["jobqueue_dropped_critical"] == 0
+    assert rec["windows_processed"] > 0
+    assert rec["processor"]["windows_submitted"] == rec["windows_processed"]
+    assert rec["calibration"]["batches_dispatched"] > 0
+
+
 def test_durable_cpu_soak_floors_at_the_calibrated_threshold(
         tmp_path, monkeypatch):
     """``device="cpu"``, durable, calibrated: the port's durable device
@@ -341,8 +365,9 @@ def test_soak_cli_flags_reach_run_soak_as_in_jax(device, monkeypatch,
 
 
 def test_soak_refuses_what_is_not_ported_or_stub_only():
-    with pytest.raises(ValueError, match="rtsp"):
-        tsoak.run_soak(streams=4, seconds=1.0, device="cpu", ingest="rtsp")
+    with pytest.raises(ValueError, match="single-model"):
+        tsoak.run_soak(streams=4, seconds=1.0, device="stub", ingest="rtsp",
+                       models=("BirdNET_V2.4", "Perch_V2"))
     with pytest.raises(ValueError, match="single-model"):
         tsoak.run_soak(streams=4, seconds=1.0, device="cpu",
                        models=("BirdNET_V2.4", "Perch_V2"))

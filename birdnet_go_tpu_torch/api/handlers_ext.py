@@ -12,14 +12,10 @@ imports nothing of the JAX package; ``tests/test_torch_api.py`` holds it to
 the original. Where it differs:
 
 - the routes of ``UNPORTED_ROUTES`` need a module the port does not have
-  yet (MQTT's test client, the eBird client, the BirdNET-Pi and
-  BirdNET-Go importers, the TLS certificate manager, the terminal): each answers 501 with ``{"error": <the refusal naming its
-  ROADMAP.md item>}`` where JAX's handler would reach that module, and as
-  JAX's does before it (the eBird routes while ``ebird.enabled`` is off);
-- the routes of ``ABSENT_SUBSYSTEM_ROUTES`` answer as JAX's do without
-  their subsystem, which the port's app refuses to build (MQTT's Home
-  Assistant discovery, the BirdWeather and weather tests, the backup
-  routes);
+  yet (the BirdNET-Pi and BirdNET-Go importers, the TLS certificate
+  manager, the terminal): each answers 501 with ``{"error": <the refusal
+  naming its ROADMAP.md item>}`` where JAX's handler would reach that
+  module;
 - spectrograms render on the app's device, on a CUDA stream of their
   own, and a clip is decoded in the app's codec workers (``_render_png``,
   ``h_audio_process``): the Python FLAC decoder on a thread of the app's
@@ -41,12 +37,7 @@ from pathlib import Path
 from typing import Any
 
 from birdnet_go_tpu_torch.api import web
-from birdnet_go_tpu_torch.utils.unported import (
-    IMPORTERS,
-    INTEGRATIONS,
-    LOGINS,
-    refuse,
-)
+from birdnet_go_tpu_torch.utils.unported import IMPORTERS, LOGINS, refuse
 
 log = logging.getLogger("birdnet_tpu.api")
 
@@ -56,13 +47,6 @@ log = logging.getLogger("birdnet_tpu.api")
 UNPORTED_ROUTES = {
     ("GET", "/system/ws"): ("the terminal (WebSocket and pty shell)",
                             LOGINS),
-    ("POST", "/integrations/mqtt/test"): ("the MQTT test client",
-                                          INTEGRATIONS),
-    ("POST", "/integrations/ebird/test"): ("the eBird client", INTEGRATIONS),
-    ("GET", "/ebird/taxonomy"): ("the eBird client", INTEGRATIONS),
-    ("GET", "/ebird/observations"): ("the eBird client", INTEGRATIONS),
-    ("GET", "/insights/expected-today/regional"): ("the eBird client",
-                                                   INTEGRATIONS),
     ("POST", "/imports/birdnet-pi"): ("the BirdNET-Pi importer", IMPORTERS),
     ("POST", "/imports/birdnet-go"): ("the BirdNET-Go database import",
                                       IMPORTERS),
@@ -79,17 +63,6 @@ UNPORTED_ROUTES = {
                                             LOGINS),
     ("GET", "/tls/certificate/download"): ("TLS certificate management",
                                            LOGINS),
-}
-
-# (method, route under /api/v2) -> ROADMAP.md item: the routes that answer
-# as JAX's do without their subsystem, which the port's app refuses
-ABSENT_SUBSYSTEM_ROUTES = {
-    ("POST", "/integrations/mqtt/homeassistant/discovery"): INTEGRATIONS,
-    ("POST", "/integrations/birdweather/test"): INTEGRATIONS,
-    ("POST", "/integrations/weather/test"): INTEGRATIONS,
-    ("POST", "/system/database/backup"): INTEGRATIONS,
-    ("GET", "/system/database/backup/jobs"): INTEGRATIONS,
-    ("POST", "/system/database/backup/verify"): INTEGRATIONS,
 }
 
 
@@ -926,12 +899,38 @@ class ExtendedHandlers:
         ones (GET /insights/expected-today/regional,
         insights.go:340-418). available=false when eBird or the site
         location is unconfigured."""
+        from birdnet_go_tpu_torch.analysis import insights as ins
+
         s = self.ctx.settings
         if (not s.ebird.enabled or not s.ebird.api_token
                 or s.location.latitude is None
                 or s.location.longitude is None):
             return _json({"species": [], "available": False})
-        return await self._refused(request)   # JAX's queries eBird here
+        try:
+            obs = await asyncio.get_event_loop().run_in_executor(
+                None, lambda: self._ebird.recent_observations(
+                    s.location.latitude, s.location.longitude,
+                    back_days=14))
+        except Exception as e:
+            return _json({"error": f"ebird query failed: {e}"},
+                         status=502)
+        local = {r["scientific_name"]
+                 for r in self.ctx.datastore.insights_expected_species(
+                     ins.build_year_ranges(_dt.date.today()))}
+        seen: set[str] = set()
+        items = []
+        for o in obs:
+            sci = o.get("sciName", "")
+            if not sci or sci in local or sci in seen:
+                continue
+            seen.add(sci)
+            items.append({
+                "scientific_name": sci,
+                "common_name": o.get("comName", ""),
+                "observation_date": o.get("obsDt", ""),
+                "location_name": o.get("locName", ""),
+            })
+        return _json({"species": items, "available": True})
 
     async def h_insights_phantom(self, request):
         """Frequent low-confidence species
@@ -1466,11 +1465,24 @@ class ExtendedHandlers:
             date_from=q.get("from"), date_to=q.get("to"),
             top_n=min(int(q.get("top", 10)), 50))})
 
+    @property
+    def _ebird(self):
+        if getattr(self, "_ebird_client", None) is None:
+            from birdnet_go_tpu_torch.integrations.ebird import EBirdClient
+
+            self._ebird_client = EBirdClient(
+                api_token=self.ctx.settings.ebird.api_token)
+        return self._ebird_client
+
     async def h_ebird_taxonomy(self, request):
         if not self.ctx.settings.ebird.enabled:
             return _json({"error": "ebird integration disabled"},
                          status=503)
-        return await self._refused(request)
+        rows = await asyncio.get_event_loop().run_in_executor(
+            None, lambda: self._ebird.taxonomy(
+                species_code=request.query.get("species"),
+                scientific=request.query.get("scientific")))
+        return _json({"taxonomy": rows})
 
     async def h_ebird_observations(self, request):
         s = self.ctx.settings
@@ -1479,7 +1491,11 @@ class ExtendedHandlers:
                          status=503)
         if s.location.latitude is None:
             return _json({"error": "location not configured"}, status=400)
-        return await self._refused(request)
+        rows = await asyncio.get_event_loop().run_in_executor(
+            None, lambda: self._ebird.recent_observations(
+                s.location.latitude, s.location.longitude,
+                dist_km=int(request.query.get("dist", 25))))
+        return _json({"observations": rows})
 
     async def h_species_info(self, request):
         """Alias resolution + class/order/family metadata (openfauna)."""
@@ -1645,16 +1661,43 @@ class ExtendedHandlers:
 
     async def h_mqtt_test(self, request):
         """Publish a test message through the live client, or a transient
-        one built from settings when MQTT isn't running: the port's app
-        never has a live client (MQTT is refused), so 501."""
-        return await self._refused(request)
+        one built from settings when MQTT isn't running."""
+        s = self.ctx.settings.mqtt
+
+        def _test() -> tuple[bool, str]:
+            m = self.ctx.mqtt
+            transient = False
+            if m is None:
+                from birdnet_go_tpu_torch.integrations.mqtt import MqttClient
+
+                m = MqttClient(s.host, s.port, username=s.username,
+                               password=s.password, tls=s.tls)
+                m.start()
+                transient = True
+            try:
+                if not m.wait_connected(5):
+                    return False, "broker not reachable"
+                m.publish(f"{s.topic}/test",
+                          {"message": "birdnet test", "ok": True})
+                return True, "test message published"
+            finally:
+                if transient:
+                    m.stop()
+
+        ok, detail = await asyncio.get_event_loop().run_in_executor(None,
+                                                                    _test)
+        return _json({"success": ok, "message": detail},
+                     status=200 if ok else 502)
 
     async def h_mqtt_ha_discovery(self, request):
-        """JAX's 502 without a connected client, which the port's app
-        never has (MQTT is refused)."""
         if self.ctx.mqtt is None or not self.ctx.mqtt.is_connected:
             return _json({"error": "MQTT not connected"}, status=502)
-        raise refuse("MQTT's Home Assistant discovery", INTEGRATIONS)
+        from birdnet_go_tpu_torch.integrations.mqtt import ha_discovery_payloads
+
+        payloads = ha_discovery_payloads(self.ctx.settings.mqtt.topic)
+        for topic, cfg in payloads.items():
+            self.ctx.mqtt.publish(topic, cfg, retain=True)
+        return _json({"published": len(payloads)})
 
     async def h_birdweather_test(self, request):
         bw = self.ctx.birdweather
@@ -1668,7 +1711,18 @@ class ExtendedHandlers:
         if not self.ctx.settings.ebird.enabled:
             return _json({"error": "ebird integration disabled"},
                          status=503)
-        return await self._refused(request)
+
+        def _probe():
+            try:
+                rows = self._ebird.taxonomy(species_code="houspa")
+                return bool(rows), f"{len(rows)} taxonomy rows"
+            except Exception as e:  # noqa: BLE001
+                return False, str(e)
+
+        ok, detail = await asyncio.get_event_loop().run_in_executor(None,
+                                                                    _probe)
+        return _json({"success": ok, "message": detail},
+                     status=200 if ok else 502)
 
     async def h_weather_test(self, request):
         poller = self.ctx.weather_poller

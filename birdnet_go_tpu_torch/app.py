@@ -19,11 +19,12 @@ and raises without one. Where they differ from JAX:
   ``PreRenderer`` on `device`;
 - subsystems the port does not have yet raise ``NotImplementedError``
   naming their ``ROADMAP.md`` item when a setting enables them, from
-  ``setup`` and from the ``_reconfigure_*`` handlers (``refuse``):
-  the API's HTTPS and its OIDC, GitHub and Cloudflare logins, MQTT,
-  BirdWeather, weather, backup and MySQL. The API (``api/server.py``, on
-  the standard library's ``asyncio``: ``api/web.py``), the image
-  providers and the rtsp, http and audio_card sources (``audio/rtsp.py``,
+  ``setup`` (``refuse``): the API's HTTPS and its OIDC, GitHub and
+  Cloudflare logins. The API (``api/server.py``, on the standard
+  library's ``asyncio``: ``api/web.py``), the image providers, the
+  integrations (MQTT, BirdWeather, weather, backup and MySQL, whose HTTP
+  goes over the standard library's ``urllib``: ``utils/httpclient.py``)
+  and the rtsp, http and audio_card sources (``audio/rtsp.py``,
   ``audio/ffmpeg.py``, ``audio/capture.py``, chosen by JAX's rules: the
   native RTSP client where the source says ``client: native`` or ffmpeg
   is missing, as on the card's machine) are built as in JAX;
@@ -88,11 +89,7 @@ from birdnet_go_tpu_torch.scheduler.loop import DeviceLoop, TorchModelBatcher
 from birdnet_go_tpu_torch.taxonomy.labels import load_labels
 from birdnet_go_tpu_torch.utils import errors as errors_mod
 from birdnet_go_tpu_torch.utils.blas import set_blas_threads
-from birdnet_go_tpu_torch.utils.unported import (
-    INTEGRATIONS,
-    LOGINS,
-    refuse,
-)
+from birdnet_go_tpu_torch.utils.unported import LOGINS, refuse
 
 log = logging.getLogger("birdnet_tpu.app")
 
@@ -282,8 +279,16 @@ class Application:
         elif s.range_filter.enabled and not enabled:
             log.warning("range filter enabled but no models are — skipped")
 
-        # 2. datastore (sqlite; MySQL is refused by _check_ported)
-        self.datastore = Datastore(s.database.path)
+        # 2. datastore (sqlite default; mysql via the wire-level driver)
+        if s.database.type == "mysql":
+            from birdnet_go_tpu_torch.datastore.mysql import MySQLDatastore
+
+            self.datastore = MySQLDatastore(
+                host=s.database.host, port=s.database.port,
+                user=s.database.user, password=s.database.password,
+                database=s.database.name)
+        else:
+            self.datastore = Datastore(s.database.path)
         from birdnet_go_tpu_torch.analysis.species_tracker import SpeciesTracker
 
         self.species_tracker = SpeciesTracker(self.datastore)
@@ -474,7 +479,21 @@ class Application:
 
             self.sysmonitor = SystemMonitor(self.alerting, s)
 
-        # backup manager: refused by _check_ported
+        # backup manager
+        if s.backup.enabled:
+            from birdnet_go_tpu_torch.utils.backup import (
+                BackupConfig,
+                BackupManager,
+                build_target,
+            )
+
+            self.backup = BackupManager(
+                BackupConfig(enabled=True, target_dir=s.backup.target_dir,
+                             keep=s.backup.keep,
+                             interval_hours=s.backup.interval_hours,
+                             passphrase=getattr(s.backup, "passphrase", "")),
+                db_path=s.database.path,
+                target=build_target(s.backup))
 
         # health check registry (internal/health checks analogue)
         from birdnet_go_tpu_torch.utils.health import CheckResult, HealthRegistry
@@ -595,18 +614,75 @@ class Application:
         self._reload_species_config()
 
     def _reconfigure_mqtt(self) -> None:
-        self._check_ported("mqtt")
-        log.info("mqtt reconfigured (enabled=%s)", self.settings.mqtt.enabled)
+        s = self.settings
+        if self.mqtt is not None:
+            try:
+                self.mqtt.stop()
+            except Exception:
+                pass
+            self.mqtt = None
+        if s.mqtt.enabled:
+            from birdnet_go_tpu_torch.integrations.mqtt import MqttClient
+
+            self.mqtt = MqttClient(
+                s.mqtt.host, s.mqtt.port, client_id="birdnet-tpu",
+                username=s.mqtt.username, password=s.mqtt.password,
+                tls=s.mqtt.tls)
+            if self._started:
+                self.mqtt.start()
+        log.info("mqtt reconfigured (enabled=%s)", s.mqtt.enabled)
 
     def _reconfigure_birdweather(self) -> None:
-        self._check_ported("birdweather")
+        s = self.settings
+        self.birdweather = None
+        if s.birdweather.enabled and s.birdweather.station_token:
+            from birdnet_go_tpu_torch.integrations.birdweather import (
+                BirdWeatherClient,
+                BirdWeatherConfig,
+            )
+
+            self.birdweather = BirdWeatherClient(BirdWeatherConfig(
+                station_token=s.birdweather.station_token,
+                latitude=s.location.latitude,
+                longitude=s.location.longitude))
         log.info("birdweather reconfigured (enabled=%s)",
-                 self.settings.birdweather.enabled)
+                 s.birdweather.enabled)
 
     def _reconfigure_weather(self) -> None:
-        self._check_ported("weather")
-        log.info("weather reconfigured (provider=%s)",
-                 self.settings.weather.provider)
+        s = self.settings
+        if self.weather_poller is not None:
+            self.weather_poller.stop()
+            self.weather_poller = None
+        if s.weather.provider != "none" and s.location.latitude is not None:
+            from birdnet_go_tpu_torch.integrations.weather import (
+                OpenWeatherProvider,
+                WeatherPoller,
+                YrNoProvider,
+            )
+
+            if s.weather.provider == "openweather" \
+                    and s.weather.openweather_api_key:
+                provider = OpenWeatherProvider(
+                    s.location.latitude, s.location.longitude,
+                    s.weather.openweather_api_key)
+            elif s.weather.provider == "wunderground" \
+                    and s.weather.wunderground_api_key:
+                from birdnet_go_tpu_torch.integrations.weather import (
+                    WundergroundProvider,
+                )
+
+                provider = WundergroundProvider(
+                    s.weather.wunderground_station_id,
+                    s.weather.wunderground_api_key)
+            else:
+                provider = YrNoProvider(s.location.latitude,
+                                        s.location.longitude)
+            self.weather_poller = WeatherPoller(
+                provider, self.datastore,
+                interval_seconds=s.weather.poll_interval_hours * 3600)
+            if self._started:
+                self.weather_poller.start()
+        log.info("weather reconfigured (provider=%s)", s.weather.provider)
 
     def _reconfigure_notifications(self) -> None:
         from birdnet_go_tpu_torch.integrations.notification import (
@@ -870,47 +946,28 @@ class Application:
 
     def _unported(self) -> dict[str, str]:
         """Each subsystem the settings enable that the port does not have
-        yet: its name → the message of its ``NotImplementedError``."""
-        s = self.settings
-        out = {}
+        yet (``ROADMAP.md`` queue 1 item 10): its name → the message of
+        its ``NotImplementedError``."""
+        ws = self.settings.webserver
         checks = (
-            ("tls", s.webserver.enabled and s.webserver.tls_enabled,
-             "HTTPS (webserver.tls_enabled)", LOGINS),
-            ("oidc", s.webserver.enabled and bool(s.webserver.oidc_issuer),
-             "OIDC login (webserver.oidc_issuer)", LOGINS),
-            ("github", s.webserver.enabled
-             and bool(s.webserver.github_client_id),
-             "GitHub login (webserver.github_client_id)", LOGINS),
-            ("cloudflare", s.webserver.enabled
-             and s.webserver.cloudflare_bypass_enabled,
+            ("tls", ws.enabled and ws.tls_enabled,
+             "HTTPS (webserver.tls_enabled)"),
+            ("oidc", ws.enabled and bool(ws.oidc_issuer),
+             "OIDC login (webserver.oidc_issuer)"),
+            ("github", ws.enabled and bool(ws.github_client_id),
+             "GitHub login (webserver.github_client_id)"),
+            ("cloudflare", ws.enabled and ws.cloudflare_bypass_enabled,
              "the Cloudflare Access bypass "
-             "(webserver.cloudflare_bypass_enabled)", LOGINS),
-            ("mqtt", s.mqtt.enabled, "MQTT (mqtt.enabled)", INTEGRATIONS),
-            ("birdweather", s.birdweather.enabled
-             and bool(s.birdweather.station_token),
-             "BirdWeather (birdweather.enabled with a station token)",
-             INTEGRATIONS),
-            ("weather", s.weather.provider != "none"
-             and s.location.latitude is not None,
-             f"the weather provider {s.weather.provider!r} "
-             f"(weather.provider)", INTEGRATIONS),
-            ("backup", s.backup.enabled, "backup (backup.enabled)",
-             INTEGRATIONS),
-            ("database", s.database.type == "mysql",
-             "MySQL (database.type: mysql)", INTEGRATIONS),
+             "(webserver.cloudflare_bypass_enabled)"),
         )
-        for name, enabled, what, item in checks:
-            if enabled:
-                out[name] = str(refuse(what, item))
-        return out
+        return {name: str(refuse(what, LOGINS))
+                for name, enabled, what in checks if enabled}
 
-    def _check_ported(self, *names: str) -> None:
-        """Raise ``NotImplementedError`` for the first subsystem of `names`
-        (of all, without names) that the settings enable and the port
-        does not have yet (``_unported``)."""
-        for name, message in self._unported().items():
-            if not names or name in names:
-                raise NotImplementedError(message)
+    def _check_ported(self) -> None:
+        """Raise ``NotImplementedError`` for the first subsystem that the
+        settings enable and the port does not have yet (``_unported``)."""
+        for message in self._unported().values():
+            raise NotImplementedError(message)
 
     # -- runtime model management (orchestrator LoadModel/UnloadModel) --------------
 
@@ -1103,7 +1160,19 @@ class Application:
                 except Exception:
                     log.exception("warmup failed for %s", b.spec.model_id)
         self.device_loop.start()
-        # MQTT and weather: refused by _check_ported
+        if self.mqtt is not None:
+            self.mqtt.start()
+            if self.settings.mqtt.ha_discovery:
+                from birdnet_go_tpu_torch.integrations.mqtt import (
+                    ha_discovery_payloads,
+                )
+
+                if self.mqtt.wait_connected(5):
+                    for topic, cfg in ha_discovery_payloads(
+                            self.settings.mqtt.topic).items():
+                        self.mqtt.publish(topic, cfg, retain=True)
+        if self.weather_poller is not None:
+            self.weather_poller.start()
         if self.sysmonitor is not None:
             self.sysmonitor.start()
         if self.diskmanager is not None:
@@ -1133,6 +1202,8 @@ class Application:
         if self.quiet_hours is not None and self.quiet_hours.has_windows():
             self._apply_quiet_gates()
             self._start_quiet_gate()
+        if self.backup is not None:
+            self.backup.start()
         # rolling resource samples for the System page charts
         from birdnet_go_tpu_torch.utils.sysmonitor import MetricsHistory
 
@@ -1164,6 +1235,8 @@ class Application:
             self._quiet_gate_stop = None
         if getattr(self, "metrics_history", None) is not None:
             self.metrics_history.stop()
+        if self.backup is not None:
+            self.backup.stop()
         for src in self._sources:
             try:
                 src.stop()
@@ -1189,6 +1262,10 @@ class Application:
         self.prerenderer.stop()
         if self.events is not None:
             self.events.stop()
+        if self.mqtt is not None:
+            self.mqtt.stop()
+        if self.weather_poller is not None:
+            self.weather_poller.stop()
         if self.sysmonitor is not None:
             self.sysmonitor.stop()
         if self.diskmanager is not None:

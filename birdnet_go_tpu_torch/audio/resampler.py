@@ -12,18 +12,28 @@ native code; this host path serves capture-rate conversion for moderate
 stream counts and tests.
 
 A copy of ``birdnet_go_tpu/audio/resampler.py`` for the port, over the
-port's ``ops/resample.py``, with one divergence: ``process`` sums only the
-taps that meet input samples (the filter's polyphase form: output j takes
-phase (−u) mod L of the filter, u = j·M − pad_lo, against the inputs from
-ceil(u / L) on), where JAX's multiplies the whole zero-stuffed signal,
-L − 1 of whose samples in L are zero. The sums are the same but for their
-float32 rounding (``tests/test_torch_aux.py`` holds each chunk to JAX's
-within 1e-6 of the largest sample, ``tests/test_torch_app.py`` the
-engine's resampled int16 windows within one step). JAX's way costs L
-times the work and a gather of n_out × n_taps floats a call: on the card's
-host a 50 ms chunk at 44.1 kHz took 27.04 ms to 48 kHz and 49.55 ms to
-32 kHz (NVIDIA H100 80GB HBM3, 700.00 W, in ``chip_smoke.py`` phase 19),
-so eight 44.1 kHz RTSP sources could not keep their pace.
+port's ``ops/resample.py``, with one divergence, accepted on purpose:
+``process`` sums only the taps that meet input samples (the filter's
+polyphase form: output j takes phase (−u) mod L of the filter, u = j·M −
+pad_lo, against the inputs from ceil(u / L) on), where JAX's multiplies
+the whole zero-stuffed signal, L − 1 of whose samples in L are zero. JAX's
+way costs L times the work and a gather of n_out × n_taps floats a call:
+on the card's host a 50 ms chunk at 44.1 kHz took 27.04 ms to 48 kHz and
+49.55 ms to 32 kHz, this form 0.21 and 0.18 ms (NVIDIA H100 80GB HBM3,
+700.00 W, in ``chip_smoke.py`` phase 19), and eight 44.1 kHz RTSP sources
+fell behind real time JAX's way.
+
+The sums are the same but for their float32 rounding. The contract, and
+the tests that hold it:
+
+- each chunk is as long as JAX's, within 1e-6 of the largest sample of
+  JAX's chunk, and no further from the resampler's definition computed in
+  float64 than JAX's chunk is, plus one float32 epsilon of the largest
+  input sample (``tests/test_torch_aux.py``,
+  ``test_streaming_resampler_equal_jax``);
+- the engine's resampled int16 windows are within one int16 step of
+  JAX's at no more than 1e-3 of their samples, and bit for bit with JAX's
+  resampler in the port's engine (``tests/test_torch_app.py``).
 """
 
 from __future__ import annotations

@@ -27,8 +27,8 @@ with its API (``api/``) where ``webserver.enabled`` is on, as by default;
 child process first (``utils/backendprobe.py``), which raises rather than
 fall back to the CPU; its ``--config`` is YAML, or JSON where yaml is
 missing. The host commands ``recover``, ``migrate``, ``support``, ``db``,
-``auth``, ``notify`` and ``gen-schema`` use no device (``db`` refuses
-``database.type: mysql``, which is not ported yet); ``support``'s
+``auth``, ``notify`` and ``gen-schema`` use no device (``db doctor``
+connects to MySQL where ``database.type`` is ``mysql``); ``support``'s
 ``system.json`` lists the CUDA cards torch sees, and none without one;
 ``auth reset`` rewrites a config as JAX's does, in YAML, or in JSON
 where yaml is missing.
@@ -658,24 +658,28 @@ def _cmd_migrate(args) -> int:
 
 def _cmd_db(args) -> int:
     """Database doctor (reference: tools/db-doctor/db-doctor.py — a
-    standalone diagnose/repair pass over the configured database). MySQL
-    is not ported yet: it raises ``NotImplementedError``, as the app's
-    refusals do."""
+    standalone diagnose/repair pass over the configured database)."""
     from birdnet_go_tpu_torch.config.settings import Settings, load_settings
-    from birdnet_go_tpu_torch.datastore.sqlite import Datastore
 
     settings = load_settings(args.config) if args.config else Settings()
     if not args.db and settings.database.type == "mysql":
-        raise NotImplementedError(
-            "MySQL (database.type: mysql) is not ported to the PyTorch port "
-            "yet: see ROADMAP.md queue 1 item 8 (the integrations)")
-    path = args.db or settings.database.path
-    # a doctor must never "diagnose" a database it just created — a
-    # typo'd path would report an empty healthy db and strand a file
-    if not Path(path).is_file():
-        print(json.dumps({"error": f"database not found: {path}"}))
-        return 2
-    ds = Datastore(path)
+        from birdnet_go_tpu_torch.datastore.mysql import MySQLDatastore
+
+        ds = MySQLDatastore(
+            host=settings.database.host, port=settings.database.port,
+            user=settings.database.user,
+            password=settings.database.password,
+            database=settings.database.name)
+    else:
+        from birdnet_go_tpu_torch.datastore.sqlite import Datastore
+
+        path = args.db or settings.database.path
+        # a doctor must never "diagnose" a database it just created — a
+        # typo'd path would report an empty healthy db and strand a file
+        if not Path(path).is_file():
+            print(json.dumps({"error": f"database not found: {path}"}))
+            return 2
+        ds = Datastore(path)
     try:
         report = ds.doctor(fix=args.fix)
     finally:

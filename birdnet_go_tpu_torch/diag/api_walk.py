@@ -18,6 +18,12 @@ the server renders where its PNG is missing), a Range of its clip, a
 settings PATCH that sends a control signal, the metrics, the SPA's index
 and script, and unloads the model `unload_after_s` after it loaded. Every
 request stays on ``127.0.0.1``; no redirect is followed.
+
+``integrations_walk`` asks each route of the integrations once (MQTT's
+status, test and Home Assistant discovery, the BirdWeather, weather and
+eBird tests, eBird's taxonomy, observations and regional insight, the
+database backup's run, jobs and verification): what phase 20 sends, and
+``tests/test_torch_api.py`` to both packages' apps on the CPU.
 """
 
 from __future__ import annotations
@@ -193,6 +199,46 @@ def walk(client: Client, *, detection_id: int, clip: str, source: str,
     time.sleep(max(0.0, t_load + unload_after_s - time.time()))
     req("POST models/unload/{id}", "POST", f"{V2}/models/unload/{model}",
         200)
+    return records, bodies
+
+
+# the integrations' routes (ROADMAP.md queue 1 item 8), each with the
+# status it answers where the integration runs against the fake services
+# of diag/fake_services.py; the backup routes' where backup is off
+INTEGRATION_ROUTES = (
+    ("GET", "integrations/mqtt/status", 200),
+    ("POST", "integrations/mqtt/test", 200),
+    ("POST", "integrations/mqtt/homeassistant/discovery", 200),
+    ("POST", "integrations/birdweather/test", 200),
+    ("POST", "integrations/weather/test", 200),
+    ("POST", "integrations/ebird/test", 200),
+    ("GET", "ebird/taxonomy?species=houspa", 200),
+    ("GET", "ebird/observations", 200),
+    ("GET", "insights/expected-today/regional", 200),
+    ("POST", "system/database/backup", 503),
+    ("GET", "system/database/backup/jobs", 200),
+    ("POST", "system/database/backup/verify", 503),
+)
+BACKUP_ON = {"system/database/backup": 200,
+             "system/database/backup/verify": 200}
+
+
+def integrations_walk(client: Client, *, backup: bool = False
+                      ) -> tuple[list, dict]:
+    """One request to each route of INTEGRATION_ROUTES, in order, held to
+    its status (with backup on, a run and its verification answer 200):
+    the records, as ``walk``'s, and each body by route."""
+    records, bodies = [], {}
+    for method, route, want in INTEGRATION_ROUTES:
+        if backup:
+            want = BACKUP_ON.get(route, want)
+        t0 = time.time()
+        st, _, b, ms = client.call(method, f"{V2}/{route}",
+                                   {} if method == "POST" else None)
+        records.append({"route": f"{method} {route}", "status": st,
+                        "want": want, "ms": ms, "bytes": len(b), "t0": t0,
+                        "t1": time.time()})
+        bodies[route] = b
     return records, bodies
 
 

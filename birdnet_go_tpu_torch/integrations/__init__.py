@@ -1,3 +1,3 @@
-"""External integrations of the port: the notification service, its
-inbox and its push-provider URLs. MQTT, BirdWeather, weather and the image
-providers are not ported yet."""
+"""External integrations of the port: the notification service, its inbox
+and its push-provider URLs, the image providers, MQTT (with Home
+Assistant discovery), BirdWeather, the weather providers and eBird."""

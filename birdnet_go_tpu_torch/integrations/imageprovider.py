@@ -60,9 +60,8 @@ class WikipediaProvider:
 
     @property
     def session(self):
-        """The HTTP client, built at the first lookup (JAX builds it in
-        ``__init__``), so that the provider builds where httpx is missing;
-        there a lookup fails as any failed lookup does."""
+        """The HTTP client (the port's transport, ``utils/httpclient.py``),
+        built at the first lookup where JAX builds it in ``__init__``."""
         if self._session is None:
             from birdnet_go_tpu_torch.utils.httpclient import HttpClient
 

@@ -8,11 +8,9 @@ Discord/Slack-compatible endpoints via templates) plus a command runner.
 A copy of ``birdnet_go_tpu/integrations/notification.py`` for the port,
 which imports nothing of the JAX package; ``tests/test_torch_app.py``
 holds it to the original. One divergence: ``NotificationService`` obtains
-its HTTP client at its first webhook, ntfy or push delivery, where the
-JAX service builds it in ``__init__``. So a service without such a target
-never imports httpx, and an HTTP delivery on a machine without httpx
-fails as any delivery error does: the target's circuit breaker counts it
-and nothing falls back.
+its HTTP client (the shared client on the port's transport,
+``utils/httpclient.py``) at its first webhook, ntfy or push delivery,
+where the JAX service builds it in ``__init__``.
 """
 
 from __future__ import annotations
@@ -201,7 +199,7 @@ class NotificationService:
         self.targets = targets or []
         # the HTTP client is obtained at the first webhook, ntfy or push
         # delivery (see _client), not here: a service without such a target
-        # never imports httpx
+        # builds none
         self.session = session
         self._breakers = {t.name: CircuitBreaker() for t in self.targets}
         self._last_sent: dict[str, float] = {}
@@ -304,8 +302,7 @@ class NotificationService:
 
     def _client(self):
         """The HTTP session: the one given, else the shared client, built
-        at the first delivery that needs it. Where httpx is missing that
-        raises ImportError, which the delivery counts as a failure."""
+        at the first delivery that needs it."""
         if self.session is None:
             from birdnet_go_tpu_torch.utils.httpclient import shared_client
 

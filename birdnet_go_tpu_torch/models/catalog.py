@@ -9,21 +9,22 @@ Installed layout: <model_home>/<model_id>/model.(tflite|onnx) — the
 loader (inference.loader) resolves these through the importers. Downloads
 verify SHA-256 before the atomic rename; no pin → refuse (supply-chain
 hygiene, same as the reference). Without an injected session a download
-goes through ``urllib.request`` (the card's machine has no ``httpx``).
+streams through the port's transport (``utils/httpclient.py``
+``UrllibSession``: the card's machine has no ``httpx``), following
+redirects, with a 120 s timeout, as the JAX package's httpx client.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import hashlib
 import logging
 import shutil
-import urllib.request
 from pathlib import Path
 
 from birdnet_go_tpu_torch.inference.loader import model_home
 from birdnet_go_tpu_torch.taxonomy.labels import resolve_data_dir
+from birdnet_go_tpu_torch.utils.httpclient import UrllibSession
 
 log = logging.getLogger("birdnet_tpu.catalog")
 
@@ -90,32 +91,6 @@ def get_entry(model_id: str) -> CatalogEntry | None:
         if e.model_id == model_id:
             return e
     return None
-
-
-class _UrllibResponse:
-    """The part of an httpx streaming response that an install reads."""
-
-    def __init__(self, resp):
-        self._resp = resp
-        self.headers = resp.headers
-
-    def raise_for_status(self) -> None:
-        pass                      # urlopen raises HTTPError for >= 400
-
-    def iter_bytes(self, n: int):
-        while chunk := self._resp.read(n):
-            yield chunk
-
-
-class _UrllibSession:
-    """``session.stream("GET", url)`` over ``urllib.request`` (redirects
-    followed, 120 s timeout, as the JAX package's httpx client)."""
-
-    @contextlib.contextmanager
-    def stream(self, method: str, url: str):
-        req = urllib.request.Request(url, method=method)
-        with urllib.request.urlopen(req, timeout=120.0) as resp:
-            yield _UrllibResponse(resp)
 
 
 class ModelManager:
@@ -205,7 +180,7 @@ class ModelManager:
         if not entry.sha256:
             raise ValueError(
                 f"refusing unpinned download for {entry.model_id}")
-        session = self._session or _UrllibSession()
+        session = self._session or UrllibSession(timeout=120.0)
         digest = hashlib.sha256()
         chunks = []
         with session.stream("GET", entry.url) as r:

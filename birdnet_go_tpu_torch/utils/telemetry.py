@@ -3,17 +3,18 @@
 Reference: internal/telemetry — Sentry-compatible reporting that is OFF by
 default, deduplicates, scrubs secrets/URLs, and never blocks the pipeline
 (async worker + bounded queue). This implementation posts Sentry envelope
-events to a configured DSN using only stdlib+httpx; without a DSN every
-call is a no-op.
+events to a configured DSN using only the standard library; without a DSN
+every call is a no-op.
 
 A copy of ``birdnet_go_tpu/utils/telemetry.py`` for the port, which
 imports nothing of the JAX package; ``tests/test_torch_app.py`` holds it
-to the original.
+to the original. Events go over the port's transport
+(``utils/httpclient.py`` ``UrllibSession``), where JAX's builds an
+``httpx.Client``.
 """
 
 from __future__ import annotations
 
-import importlib
 import json
 import logging
 import queue
@@ -21,6 +22,8 @@ import threading
 import time
 import uuid
 from urllib.parse import urlparse
+
+from birdnet_go_tpu_torch.utils.httpclient import UrllibSession
 
 log = logging.getLogger("birdnet_tpu.telemetry")
 
@@ -65,10 +68,7 @@ def _scrub(text: str) -> str:
 
 class _TelemetryWorker:
     def __init__(self, dsn: str, session=None, capacity: int = 100):
-        # httpx is imported here, where a DSN is configured, so that the
-        # module imports on a machine without httpx
-        self.session = session or importlib.import_module("httpx").Client(
-            timeout=10.0)
+        self.session = session or UrllibSession(timeout=10.0)
         u = urlparse(dsn)
         self._key = u.username or ""
         project = u.path.strip("/")

@@ -4,16 +4,17 @@ in the UI; never auto-updates).
 
 A copy of ``birdnet_go_tpu/utils/update.py`` for the port, which imports
 nothing of the JAX package; ``tests/test_torch_api.py`` holds it to the
-original.
+original. The check goes over the port's transport (``utils/httpclient.py``
+``UrllibSession``), where JAX's builds an ``httpx.Client``.
 """
 
 from __future__ import annotations
 
-import importlib
 import logging
 import re
 import time
 
+from birdnet_go_tpu_torch.utils.httpclient import UrllibSession
 from birdnet_go_tpu_torch.version import __version__
 
 log = logging.getLogger("birdnet_tpu.update")
@@ -44,11 +45,7 @@ def check_for_update(manifest_url: str = DEFAULT_MANIFEST_URL,
     out = {"current": __version__, "latest": None,
            "update_available": False, "url": None, "checked_at": now}
     try:
-        # httpx is imported here, where a check runs, so that the module
-        # imports on a machine without httpx (the failure is the result's
-        # "error", as any other)
-        sess = session or importlib.import_module("httpx").Client(
-            timeout=10.0)
+        sess = session or UrllibSession(timeout=10.0)
         r = sess.get(manifest_url,
                      headers={"Accept": "application/vnd.github+json"})
         r.raise_for_status()

@@ -8,8 +8,9 @@ quantization with mesh-sharded serving, the whole realtime server in a
 clip export, live HLS) with the soak's kitchen-sink leg, the realtime
 app and ``serve``, crash recovery: a durable soak SIGKILLed on the card,
 recovered and restarted, the REST/SSE API with its device handlers
-driven over HTTP, and live RTSP sources: 2,000 sessions into the soak and
-the app on the port's RTSP client.
+driven over HTTP, live RTSP sources: 2,000 sessions into the soak and
+the app on the port's RTSP client, and the integrations: MQTT,
+BirdWeather, weather, eBird, backups and MySQL against loopback fakes.
 
     python3 chip_smoke.py
 
@@ -221,7 +222,32 @@ Phases, in order; any failure propagates and exits non-zero:
    collection ran), nothing dropped by the
    servers, no restart, every source's samples ingested but 0.25 s in
    flight, approvals = rows, the mel kernel once a batch and a warm-up,
-   health ok, ``stop()`` within 15 s, nothing logged at ERROR.
+   health ok, ``stop()`` within 15 s, nothing logged at ERROR;
+20. the integrations (``phase_integrations``): ``cryptography`` present;
+   the fake services (``python -m birdnet_go_tpu_torch.diag.fake_services``:
+   an MQTT broker with a subscriber recording each message and its
+   arrival, ``diag/mysql_server.py`` with caching_sha2 and RSA full auth
+   on the first connect, loopback BirdWeather, yr.no and eBird recording
+   their requests) in a process of their own; then, in another
+   (``integrations_leg``, ``build/integrations_smoke/``), the app with
+   its API behind a password, 16 tone and 4 file sources, v2.4 unfused at
+   batch 256, MQTT (retained, Home Assistant discovery), BirdWeather
+   (its client's base URL set after ``setup``), yr.no weather polled at
+   start, sound levels and eBird on; leg 1 serves 30 s on MySQL, leg 2
+   15 s on SQLite with encrypted backups to a local directory; each leg
+   walks ``diag/api_walk.integrations_walk`` once over HTTP (leg 2's
+   backup run is its backup). Gated: every window served, none dropped,
+   v2.4's p95 below 1,500 ms, the mel kernel once a batch and a warm-up,
+   every walked status, ``stop()`` within 15 s, nothing logged at ERROR;
+   leg 1: approvals = the server's rows = MQTT detection messages = SSE
+   events (each = the event tracker's passes), BirdWeather's POSTs = its
+   passes, the Home Assistant configs retained, a sound-level message an
+   interval, an hourly weather row in MySQL; leg 2: the archive verifies
+   with its passphrase, holding the rows committed before the request.
+   Printed: each leg's v2.4 p50/p95/max beside phase 18's, a row's time
+   from approval to commit and a detection's to the MQTT subscriber, the
+   backup's wall time, bytes and the latency during it, and the MQTT and
+   job-queue threads' CPU.
 
 Every kernel line carries its bound (``ops/roofline.py``: the larger of its
 bytes over the memory rate and its operations over the peak for their type)
@@ -4671,6 +4697,509 @@ def _live_gates(rec: dict, wall: float) -> None:
     assert rec["losses"] == 0, rec["loss_lines"]
 
 
+INT_TONES = 16               # phase 20: the app's tone sources
+INT_FILES = 4                # ... and its file sources (phase 16's WAVs)
+INT_MYSQL_S = 30.0           # leg 1: served on MySQL, every integration on
+INT_BACKUP_S = 15.0          # leg 2: served on SQLite, a backup requested
+INT_BACKUP_AT_S = 8.0        # ... this far into leg 2
+INT_HOP_S = 1.5              # v2.4's window hop at the default overlap
+INT_P95_MS = 1500.0
+INT_STOP_S = 15.0
+INT_PASSWORD = "chip-smoke"
+INT_PASSPHRASE = "chip-smoke-backup"
+INT_SERVICES_S = 60.0        # the fake services listen within
+
+
+def _integrations_app(out: Path, ports: dict, mysql: bool):
+    """Phase 20's app, set up, not started: v2.4 at batch 256, unfused,
+    INT_TONES tone and INT_FILES file sources, FLAC clips, the range
+    filter, sound levels, the API on 127.0.0.1 behind a password; MQTT
+    (retained, Home Assistant discovery), BirdWeather, yr.no weather and
+    eBird against the fake services of `ports` (``diag/fake_services``);
+    the datastore MySQL (`mysql`) or SQLite with encrypted backups to a
+    local directory. Returns (app, settings, wavs, tones)."""
+    from birdnet_go_tpu_torch.app import Application
+    from birdnet_go_tpu_torch.config.settings import ModelSettings, Settings
+    from birdnet_go_tpu_torch.diag.fake_services import urls
+    from birdnet_go_tpu_torch.integrations import ebird, weather
+
+    wavs = _app_wavs(out)[:INT_FILES]
+    tones = _app_tones()[::APP_TONES // INT_TONES]
+    to = urls(ports)
+    weather.YrNoProvider.BASE = to["yrno"]
+    ebird.API_BASE = to["ebird"]
+    s = Settings()
+    s.models = [ModelSettings(model_id="BirdNET_V2.4")]
+    s.data_dir = str(out)
+    s.export.path = str(out / "clips")
+    s.export.format = "flac"
+    s.export.clip_length_seconds = 6.0
+    s.export.pre_capture_seconds = 1.5
+    s.realtime.interval_seconds = 0.0     # every approval saved and sent
+    s.realtime.max_batch = 256
+    s.location.latitude, s.location.longitude = APP_LATLON
+    s.range_filter.enabled = True
+    s.soundlevel.enabled = True
+    ws = s.webserver
+    ws.enabled, ws.host, ws.port = True, "127.0.0.1", 0
+    ws.password, ws.allow_local_bypass = INT_PASSWORD, False
+    ws.token_file = str(out / "tokens.json")
+    s.imageprovider.providers = ["avicommons"]   # nothing leaves the host
+    s.mqtt.enabled, s.mqtt.host, s.mqtt.port = True, "127.0.0.1", \
+        ports["mqtt"]
+    s.mqtt.topic, s.mqtt.retain, s.mqtt.ha_discovery = ports["topic"], \
+        True, True
+    s.birdweather.enabled = True
+    s.birdweather.station_token = ports["station_token"]
+    s.weather.provider = "yrno"
+    s.ebird.enabled, s.ebird.api_token = True, ports["ebird_token"]
+    if mysql:
+        d = s.database
+        d.type, d.host, d.port, d.name = "mysql", "127.0.0.1", \
+            ports["mysql"], ""
+        d.user, d.password = ports["mysql_user"], ports["mysql_password"]
+    else:
+        s.database.path = str(out / "leg2.db")
+        s.backup.enabled, s.backup.passphrase = True, INT_PASSPHRASE
+        s.backup.target_dir = str(out / "backups")
+    s.realtime.sources = [
+        {"type": "tone", "id": f"tone{k}", "freq": f, "pulse": p}
+        for k, (f, p) in enumerate(tones)] + [
+        {"type": "file", "id": f"file{k}", "path": str(out / f"loop{k}.wav")}
+        for k in range(INT_FILES)]
+    app = Application(s)
+    return app, s, wavs, tones
+
+
+def _integrations_serve(out: Path, ports: dict, mysql: bool,
+                        seconds: float, cal: dict | None) -> tuple[dict,
+                                                                   dict]:
+    """One leg of phase 20: the app of ``_integrations_app`` calibrated
+    (as phase 16's, unless `cal` is given), started, its integrations
+    walked over HTTP once (``diag/api_walk.integrations_walk``; on SQLite
+    at INT_BACKUP_AT_S, whose backup run is the leg's backup), a client
+    held on the detection SSE stream, `seconds` served, stopped. Counting
+    wrappers: each window's hand-off, the windows the engine offers, each
+    approval with its wall clock and the datastore id it got, the event
+    tracker's passes by action (``EventType``'s values), the warm-ups and
+    the kernels' launches.
+    Each approval is recorded with the datastore id it got and the wall
+    clock of its approval, of its insert's start and end, and of its MQTT
+    publish. Returns the leg's record and the calibration."""
+    import threading
+
+    from birdnet_go_tpu_torch.diag.api_walk import (
+        Client,
+        SseReader,
+        integrations_walk,
+        route_times,
+    )
+    from birdnet_go_tpu_torch.diag.fake_services import urls
+
+    t_begin = time.time()
+    warmups, warm_spans = [], []
+    _timed_warmups(warmups, warm_spans)
+    t0 = time.monotonic()
+    app, s, wavs, tones = _integrations_app(out, ports, mysql)
+    served: dict[str, list[tuple[float, float]]] = {}
+    handoff = app._on_window_result
+
+    def on_window(model_id, w, vals, idx):
+        served.setdefault(model_id, []).append((w.end_time, time.time()))
+        handoff(model_id, w, vals, idx)
+
+    app._on_window_result = on_window
+    app.setup()
+    setup_s = time.monotonic() - t0
+    # the client exists once setup has built it; nothing posts before start
+    app.birdweather.config.base_url = urls(ports)["birdweather"]
+    produced: dict[str, int] = {}
+    collect = app.device_loop._providers[0]
+
+    def counted():
+        items = collect()
+        for it in items:
+            produced[it[0]] = produced.get(it[0], 0) + 1
+        return items
+
+    app.device_loop._providers[0] = counted
+    approved_at: dict[int, float] = {}
+    approvals: list[tuple[int | None, float]] = []
+    on_approved = app.processor.on_approved
+
+    def approve(d, item):
+        approved_at[id(d)] = time.time()
+        return on_approved(d, item)
+
+    app.processor.on_approved = approve
+    insert = app.datastore.insert_detection
+
+    def inserted(d, *a, **kw):
+        t_a = time.time()
+        det_id = insert(d, *a, **kw)
+        approvals.append((det_id, approved_at.get(id(d)), t_a, time.time()))
+        return det_id
+
+    app.datastore.insert_detection = inserted
+    published: dict[int, float] = {}
+    publish = app.mqtt.publish
+
+    def published_at(topic, payload, *a, **kw):
+        ok = publish(topic, payload, *a, **kw)
+        if isinstance(payload, dict) and "id" in payload:
+            published[payload["id"]] = time.time()
+        return ok
+
+    app.mqtt.publish = published_at
+    passes: dict[str, int] = {}
+    track = app.event_tracker.track
+
+    def tracked(event, common, sci, *a, **kw):
+        ok = track(event, common, sci, *a, **kw)
+        if ok:
+            passes[event] = passes.get(event, 0) + 1
+        return ok
+
+    app.event_tracker.track = tracked
+    if cal is None:
+        cal = _calibrate(app.device_loop.batchers["BirdNET_V2.4"],
+                         app.labels["BirdNET_V2.4"],
+                         app.processor.included_species,
+                         _cal_windows(48000, CLIP, wavs, tones),
+                         s.dynamic_threshold.trigger)
+    s.models[0].threshold = cal["threshold"]
+    s.models[0].sensitivity = cal["sensitivity"]
+    app._reload_model_settings()
+
+    for k in KERNELS:
+        k.launches = 0
+    warmups.clear()
+    t1 = time.monotonic()
+    app.start(warmup=True)
+    start_s = time.monotonic() - t1
+    t_start = time.time()
+    mqtt_up = app.mqtt.wait_connected(10)
+    client = Client(app.api.port, INT_PASSWORD)
+    client.login()
+    sse = SseReader(client, "/api/v2/detections/stream")
+    sse.start()
+    backup = {}
+    if not mysql:
+        time.sleep(max(0.0, t_start + INT_BACKUP_AT_S - time.time()))
+        with contextlib.closing(sqlite3.connect(s.database.path)) as conn:
+            backup["rows_before"] = conn.execute(
+                "SELECT COUNT(*) FROM detections").fetchone()[0]
+    records, bodies = integrations_walk(client, backup=not mysql)
+    if not mysql:
+        run = next(r for r in records
+                   if r["route"] == "POST system/database/backup")
+        name = json.loads(bodies["system/database/backup"])["backup"]
+        archive = Path(s.backup.target_dir) / name
+        backup.update(name=name, path=str(archive),
+                      bytes=archive.stat().st_size,
+                      wall_ms=round(run["ms"], 1), t0=run["t0"],
+                      t1=run["t1"])
+    time.sleep(max(0.0, t_start + seconds - time.time()))
+    t_end = time.time()
+    cpu = _thread_cpu_s()
+    t2 = time.monotonic()
+    app.stop()
+    stop_s = time.monotonic() - t2
+    t_stopped = time.time()
+    sse.ended.wait(10)
+    sse.close()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    left = [th.name for th in threading.enumerate()
+            if th is not threading.main_thread() and th.is_alive()
+            and not th.daemon]
+    v24 = served.get("BirdNET_V2.4", [])
+    if backup:
+        # the windows due within one hop (1.5 s) of its start: those its
+        # hold of the GIL could serve late (every source's windows fall
+        # due at the same instants, 1.5 s apart, so a 0.1 s request may
+        # see none in flight)
+        during = [(h - e) * 1e3 for e, h in v24
+                  if backup["t0"] <= e <= backup["t0"] + INT_HOP_S]
+        backup["v24_latency_ms_max_during"] = round(max(during or [0.0]), 1)
+        backup["windows_during"] = len(during)
+    rec = {
+        "database": "mysql" if mysql else "sqlite",
+        "setup_s": round(setup_s, 2), "start_s": round(start_s, 2),
+        "stop_s": round(stop_s, 2), "served_s": round(t_end - t_start, 1),
+        "t_begin": t_begin, "t_start": t_start, "t_end": t_end,
+        "t_stopped": t_stopped,
+        "mqtt_connected": mqtt_up,
+        "produced": produced,
+        "served": {m: len(v) for m, v in served.items()},
+        "latency_ms": {m: _pct([(h - e) * 1e3 for e, h in v])
+                       for m, v in served.items()},
+        "batches": sum(b.stats.batches_dispatched
+                       for b in app.device_loop.batchers.values()),
+        "overruns": sum(b.stats.overruns
+                        for b in app.device_loop.batchers.values()),
+        "windows_dropped": app.device_loop.windows_dropped,
+        "launches": launches, "warmups": list(warmups),
+        "approvals": approvals, "mqtt_published": published,
+        "passes": passes,
+        "sse_detections": len(sse.named("detection")),
+        "sse_status": sse.status,
+        "statuses": [(r["route"], r["status"], r["want"]) for r in records],
+        "route_ms": route_times(records),
+        "backup": backup,
+        "soundlevel_interval_s": s.soundlevel.interval_seconds,
+        "thread_cpu_s": {k: v for k, v in cpu.items()
+                         if k in ("mqtt", "jobq-", "soundlevel",
+                                  "weather", "api-server")},
+        "jobqueue": {"enqueued": app.jobqueue.stats.enqueued,
+                     "failed": app.jobqueue.stats.failed,
+                     "dropped": app.jobqueue.stats.dropped},
+        "birdweather": {"failures": app.birdweather.failures},
+        "threads_left": left,
+    }
+    return rec, cal
+
+
+def integrations_leg(record_path: Path, services_path: Path) -> None:
+    """Phase 20's legs, in a process of their own (``python3 chip_smoke.py
+    --integrations-leg <record.json> <services.json>``), the fake services
+    in another (``phase_integrations`` starts them): leg 1 serves
+    INT_MYSQL_S on MySQL with every integration on, leg 2 INT_BACKUP_S on
+    SQLite with backups (``_integrations_serve``). A logging handler
+    counts every ERROR record. Writes both legs' records to
+    `record_path`; ``phase_integrations`` gates them."""
+    import logging
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: "
+                               "%(message)s")
+    losses: list[str] = []
+
+    class _Losses(logging.Handler):
+        def emit(self, r: logging.LogRecord) -> None:
+            msg = r.getMessage()
+            if r.levelno >= logging.ERROR or any(w in msg
+                                                 for w in APP_WARNINGS):
+                losses.append(f"{r.levelname} {r.name}: {msg[:300]}")
+
+    logging.getLogger().addHandler(_Losses())
+    ports = json.loads(services_path.read_text())
+    out = record_path.parent
+    leg1, cal = _integrations_serve(out, ports, True, INT_MYSQL_S, None)
+    leg2, _ = _integrations_serve(out, ports, False, INT_BACKUP_S, cal)
+    record_path.write_text(json.dumps({
+        "card": _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"]).splitlines()[0],
+        "calibration": cal, "legs": [leg1, leg2],
+        "losses": len(losses), "loss_lines": losses[:10]}, indent=1))
+
+
+def phase_integrations(card: str) -> None:
+    """Phase 20, the integrations on the card: the fake services
+    (``python -m birdnet_go_tpu_torch.diag.fake_services``: the MQTT
+    broker and its recording subscriber, MySQL with caching_sha2 and RSA
+    full auth on the first connect, loopback BirdWeather, yr.no and eBird)
+    in a process of their own, ``integrations_leg`` in another (record,
+    logs and the services' database under ``build/integrations_smoke/``),
+    gated here (``_integrations_gates``)."""
+    import importlib.util
+
+    t0 = time.monotonic()
+    assert importlib.util.find_spec("cryptography") is not None, \
+        "phase 20 needs cryptography (MySQL's RSA full auth, backups)"
+    out = REPO / "build" / "integrations_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    (out / "services").mkdir(parents=True)
+    svc_log = open(out / "services.log", "w")
+    services = subprocess.Popen(
+        [sys.executable, "-m", "birdnet_go_tpu_torch.diag.fake_services",
+         "--out", str(out / "services")],
+        stdout=svc_log, stderr=subprocess.STDOUT, cwd=REPO)
+    try:
+        ports_path = out / "services" / "services.json"
+        deadline = time.monotonic() + INT_SERVICES_S
+        while not ports_path.exists():
+            assert services.poll() is None, "the fake services exited"
+            assert time.monotonic() < deadline, "the fake services are late"
+            time.sleep(0.1)
+        rec_path = out / "integrations.json"
+        t1 = time.monotonic()
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                               "--integrations-leg", str(rec_path),
+                               str(ports_path)], capture_output=True,
+                              text=True, timeout=600, cwd=REPO)
+        wall = time.monotonic() - t1
+        (out / "integrations.log").write_text(proc.stderr)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:])
+            print(proc.stderr[-6000:])
+        assert proc.returncode == 0, \
+            f"the integrations leg exited {proc.returncode}"
+    finally:
+        services.terminate()
+        services.wait(30)
+        svc_log.close()
+    assert services.returncode == 0, services.returncode
+    got = json.loads((out / "services" / "services_record.json").read_text())
+    with contextlib.closing(sqlite3.connect(out / "services" / "mysql.db")
+                            ) as conn:
+        mysql_rows = {t: conn.execute(f"SELECT COUNT(*) FROM {t}")
+                      .fetchone()[0] for t in ("detections",
+                                               "hourly_weather")}
+    api = REPO / "build" / "api_smoke" / "api.json"
+    phase18 = json.loads(api.read_text())["latency_ms"]["BirdNET_V2.4"] \
+        if api.exists() else None
+    _integrations_gates(json.loads(rec_path.read_text()),
+                        json.loads(ports_path.read_text()), got, mysql_rows,
+                        wall, phase18)
+    print(f"phase 20 (integrations) {time.monotonic() - t0:.1f} s [{card}]")
+
+
+def _integrations_gates(rec: dict, ports: dict, got: dict,
+                        mysql_rows: dict, wall: float,
+                        phase18: dict | None) -> None:
+    """Phase 20's prints and gates: the leg's record `rec`, the fake
+    services' `ports` (``services.json``), what they received (`got`) and
+    the rows in their MySQL file. Each leg:
+    every window the engine offered served, none dropped, no overrun,
+    v2.4's p95 below INT_P95_MS, the mel kernel once a batch and a
+    warm-up (the MBConv kernels never), every walked route answering the
+    status ``tests/test_torch_api.py`` gets from the port on the CPU,
+    ``stop()`` within INT_STOP_S. Leg 1 (MySQL): approvals = rows in the
+    server's file = MQTT detection messages = SSE events (each = the event
+    tracker's passes of its action), BirdWeather's detection POSTs = the
+    tracker's BIRDWEATHER_SUBMIT passes, the Home Assistant configs
+    retained, at least one sound-level message an interval, an hourly
+    weather row. Leg 2 (SQLite): the backup archive verifies with the
+    passphrase, its database holding at least the rows committed before
+    the request. Nothing logged at ERROR in either. Prints each leg's
+    v2.4 p50/p95/max (beside phase 18's), a row's approval-to-commit and
+    an approval's MQTT delivery times (p50, p95), the backup's wall time,
+    bytes and the largest window latency during it, and the thread CPU of
+    the MQTT and job-queue threads."""
+    from birdnet_go_tpu_torch.integrations.mqtt import ha_discovery_payloads
+    from birdnet_go_tpu_torch.utils.backup import verify_archive
+
+    card = rec["card"]
+    leg1, leg2 = rec["legs"]
+    topic = ports["topic"]
+    print(f"integrations: {INT_TONES} tone + {INT_FILES} file sources, v2.4 "
+          f"at batch 256 with its API; leg 1 MySQL {leg1['served_s']} s "
+          f"(setup {leg1['setup_s']} s, start {leg1['start_s']} s, stop "
+          f"{leg1['stop_s']} s), leg 2 SQLite + backup {leg2['served_s']} s "
+          f"(stop {leg2['stop_s']} s); process {wall:.1f} s [{card}]")
+    for leg in (leg1, leg2):
+        lat = leg["latency_ms"]["BirdNET_V2.4"]
+        print(f"integrations leg {leg['database']}: v2.4 latency (ms) p50 "
+              f"{lat['p50']}, p95 {lat['p95']}, max {lat['max']} (phase 18: "
+              f"{phase18}); served {leg['served']} of {leg['produced']}; "
+              f"batches {leg['batches']}, launches {leg['launches']}, "
+              f"warm-ups {leg['warmups']}; approvals "
+              f"{len(leg['approvals'])}, passes {leg['passes']}, SSE "
+              f"{leg['sse_detections']}; thread CPU s {leg['thread_cpu_s']}; "
+              f"job queue {leg['jobqueue']} [{card}]")
+        for route, t in leg["route_ms"].items():
+            print(f"integrations {leg['database']} route {route}: "
+                  f"{t['p50']} ms [{card}]")
+    t_split = leg2["t_begin"]          # leg 2 sends nothing before it
+    received = [(t, json.loads(p) if p.startswith("{") else p, at)
+                for t, p, at in got["mqtt"]["received"]]
+    det1 = [(p, at) for t, p, at in received
+            if t == f"{topic}/detections" and at <= t_split]
+    levels1 = [at for t, _, at in received
+               if t == f"{topic}/soundlevels" and at <= t_split]
+    approved1 = {i: at for i, at, _, _ in leg1["approvals"]}
+    committed = dict(got["mysql"]["committed"])
+    commit_ms = [(committed[i] - at) * 1e3 for i, at in approved1.items()
+                 if i in committed and at is not None]
+    mqtt_ms = [(at - approved1[p["id"]]) * 1e3 for p, at in det1
+               if p["id"] in approved1 and approved1[p["id"]] is not None]
+    # where an approval's time to the subscriber goes: waiting for a job
+    # queue worker, the whole insert (its ~15 statements), from the
+    # insert's end to the publish (SSE first), the broker to the
+    # subscriber
+    pub = {int(k): v for k, v in leg1["mqtt_published"].items()}
+    got_at = {p["id"]: at for p, at in det1}
+    parts = {"queue_wait": [(a - at) * 1e3 for _, at, a, _ in
+                            leg1["approvals"]],
+             "insert": [(b - a) * 1e3 for _, _, a, b in leg1["approvals"]],
+             "to_publish": [(pub[i] - b) * 1e3 for i, _, _, b in
+                            leg1["approvals"] if i in pub],
+             "broker": [(got_at[i] - pub[i]) * 1e3 for i in pub
+                        if i in got_at]}
+    bw = [r for r in got["http"]["birdweather"]
+          if r["method"] == "POST" and r["path"].endswith("/detections")]
+    bw1 = [r for r in bw if r["t"] <= t_split]
+    print(f"integrations MySQL: rows {mysql_rows}, RSA full auths "
+          f"{got['mysql']['full_auths']}, statements "
+          f"{got['mysql']['statements']}; approval to commit (ms) "
+          f"{_pct(commit_ms or [0.0])}; MQTT approval to the subscriber's "
+          f"receipt (ms) {_pct(mqtt_ms or [0.0])}; MQTT detections "
+          f"{len(det1)}, sound levels {len(levels1)} (interval "
+          f"{leg1['soundlevel_interval_s']} s), retained "
+          f"{sorted(got['mqtt']['retained'])}; BirdWeather POSTs {len(bw1)} "
+          f"(leg 2 {len(bw) - len(bw1)}), yr.no requests "
+          f"{len(got['http']['yrno'])}, eBird {len(got['http']['ebird'])} "
+          f"[{card}]")
+    each = [(round(at - leg1["t_start"], 2), round((a - at) * 1e3, 1),
+             round((b - a) * 1e3, 1)) for _, at, a, b in leg1["approvals"]]
+    print("integrations MQTT delivery by part (ms): " + "; ".join(
+        f"{k} {_pct(v or [0.0])}" for k, v in parts.items())
+        + f"; each approval (s into leg 1, queue wait ms, insert ms): "
+        f"{each} [{card}]")
+    b = leg2["backup"]
+    report = verify_archive(Path(b["path"]).read_bytes(), INT_PASSPHRASE)
+    print(f"integrations backup: {b['name']}, {b['bytes']} bytes, wall "
+          f"{b['wall_ms']} ms, v2.4 latency max of the "
+          f"{b['windows_during']} windows due within {INT_HOP_S} s of its "
+          f"start {b['v24_latency_ms_max_during']} ms; verified "
+          f"{report['database']} (rows before the request "
+          f"{b['rows_before']}) [{card}]")
+    print(f"integrations calibration {rec['calibration']}; errors logged "
+          f"{rec['losses']} {rec['loss_lines']}")
+    for leg in (leg1, leg2):
+        m = "BirdNET_V2.4"
+        assert leg["produced"].get(m, 0) == leg["served"].get(m, 0) > 0, leg
+        assert leg["windows_dropped"] == 0 and leg["overruns"] == 0, leg
+        assert leg["latency_ms"][m]["p95"] < INT_P95_MS, leg["latency_ms"]
+        assert leg["warmups"] == [m], leg["warmups"]
+        assert leg["launches"]["melspec_fused"] == leg["batches"] + 1, leg
+        assert leg["launches"]["expand_dw_pool"] == 0
+        assert leg["launches"]["scale_project"] == 0
+        bad = [r for r in leg["statuses"] if r[1] != r[2]]
+        assert not bad and len(leg["statuses"]) == 12, leg["statuses"]
+        assert leg["stop_s"] <= INT_STOP_S and not leg["threads_left"], leg
+        assert leg["mqtt_connected"] and leg["sse_status"] == 200, leg
+        assert leg["jobqueue"]["failed"] == 0, leg["jobqueue"]
+    passes = leg1["passes"]
+    n = len(leg1["approvals"])
+    assert n > 0 and all(i is not None and at is not None
+                         for i, at, _, _ in leg1["approvals"]), \
+        leg1["approvals"]
+    assert n == mysql_rows["detections"] == len(committed), \
+        (n, mysql_rows, len(committed))
+    assert passes.get("mqtt_publish") == n == len(det1), (passes, len(det1))
+    assert passes.get("sse_broadcast") == n == leg1["sse_detections"], \
+        (passes, leg1["sse_detections"])
+    assert passes.get("birdweather_submit") == len(bw1) > 0, \
+        (passes, len(bw1))
+    assert leg1["birdweather"]["failures"] == 0, leg1["birdweather"]
+    retained = got["mqtt"]["retained"]
+    assert all(json.loads(retained.get(t, "null")) == json.loads(json.dumps(
+        cfg)) for t, cfg in ha_discovery_payloads(topic).items()), retained
+    every = leg1["soundlevel_interval_s"]
+    assert len(levels1) >= int(leg1["served_s"] // every) - 1 > 0, \
+        (len(levels1), every)
+    assert mysql_rows["hourly_weather"] >= 1, mysql_rows
+    assert got["mysql"]["full_auths"] >= 1, got["mysql"]
+    assert len(commit_ms) == n and len(mqtt_ms) == n, \
+        (len(commit_ms), len(mqtt_ms), n)
+    assert report["encrypted"] and report["files"]["database.sql"][
+        "sha256_ok"], report
+    assert report["database"]["tables"]["detections"] >= \
+        b["rows_before"], (report["database"], b)
+    assert rec["losses"] == 0, rec["loss_lines"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -4682,6 +5211,9 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--live-leg"]:      # phase 19's own process
         live_leg(Path(sys.argv[2]))
+        return
+    if sys.argv[1:2] == ["--integrations-leg"]:   # phase 20's own process
+        integrations_leg(Path(sys.argv[2]), Path(sys.argv[3]))
         return
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4727,6 +5259,7 @@ def main() -> None:
     phase_crash(card)
     phase_api(card)
     phase_live(card)
+    phase_integrations(card)
     print(f"total {time.monotonic() - t0:.1f} s of phases, "
           f"{time.monotonic() - T_START:.1f} s since the imports")
     print(f"kernels line: melspec_fused at the v2.4 main path's [{BATCH}, "

@@ -39,6 +39,7 @@ import contextlib
 import dataclasses
 import datetime
 import email.utils
+import errno
 import http.client
 import importlib
 import json
@@ -105,11 +106,46 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+API_START_TRIES = 5
+
+
+def _start_api(app) -> None:
+    """The app's API server started on ``127.0.0.1``. The port's binds port
+    0 and reports the port the OS gave it; JAX's ``ApiServer`` cannot
+    report one, so it is given a free port, and a fresh one where another
+    process took that port before the server bound it (EADDRINUSE), up to
+    API_START_TRIES times."""
+    api = app.api
+    if type(api).__module__.startswith("birdnet_go_tpu_torch."):
+        api.start()
+        return
+    run = api._run
+    for _ in range(API_START_TRIES):
+        failed = []
+
+        def guarded():
+            try:
+                run()
+            except OSError as e:          # the bind: no loop runs yet
+                failed.append(e)
+                api._started.set()
+
+        api._run = guarded
+        api.port = _free_port()
+        api.start()
+        if not failed:
+            return
+        if failed[0].errno != errno.EADDRINUSE:
+            raise failed[0]
+        api._started.clear()
+    raise RuntimeError(f"no free port in {API_START_TRIES} tries")
+
+
 def _api_settings(P, d: Path):
     s = A._app_settings(P, d)
     s.data_dir = str(d)
     ws = s.webserver
-    ws.enabled, ws.host, ws.port = True, "127.0.0.1", _free_port()
+    ws.enabled, ws.host, ws.port = True, "127.0.0.1", 0
     ws.password = PASSWORD
     ws.allow_local_bypass = False
     ws.token_file = str(d / "tokens.json")
@@ -126,13 +162,17 @@ def _avicommons(d: Path) -> None:
         for i in range(3)]))
 
 
-def _build(P, d: Path):
-    """``_make_app`` with the API's settings and one job-queue worker, 6 s
-    of both tones ingested, ticked and flushed, the actions drained, and
-    one detection of this morning: the app, not started."""
+def _build(P, d: Path, configure=None):
+    """``_make_app`` with the API's settings (changed by `configure`, where
+    given) and one job-queue worker, 6 s of both tones ingested, ticked
+    and flushed, the actions drained, and one detection of this morning:
+    the app, not started."""
     _avicommons(d)
-    app = (J.app.Application(_api_settings(P, d)) if P is J
-           else T.app.Application(_api_settings(P, d), device="cpu"))
+    s = _api_settings(P, d)
+    if configure is not None:
+        configure(P, s)
+    app = (J.app.Application(s) if P is J
+           else T.app.Application(s, device="cpu"))
     app.setup()
     # one job-queue worker: rows are saved, and numbered, in the order the
     # processor approved them, the same in both apps
@@ -216,7 +256,7 @@ def pair(tiny_v24, tmp_path_factory):  # noqa: F811
                 "update_available": False, "url": None,
                 "checked_at": 0.0}))
             app = _build(P, d)
-            app.api.start()
+            _start_api(app)
             client = Client(app.api.port, d)
             client.login()
             sides["jax" if P is J else "torch"] = SimpleNamespace(
@@ -691,9 +731,11 @@ def _serve(web, build, **runner_kw):
         asyncio.set_event_loop(loop)
         runner = web.AppRunner(build(web), **runner_kw)
         loop.run_until_complete(runner.setup())
-        port = _free_port()
-        site = web.TCPSite(runner, "127.0.0.1", port)
+        site = web.TCPSite(runner, "127.0.0.1", 0)
         loop.run_until_complete(site.start())
+        # the port the OS gave it: aiohttp's runner lists the addresses
+        port = site.port if hasattr(type(site), "port") else \
+            runner.addresses[0][1]
         box.update(runner=runner, port=port)
         ready.set()
         loop.run_forever()
@@ -926,23 +968,18 @@ def test_file_response_ranges_and_conditionals(pair):
 
 def test_unported_routes_answer_501_with_their_item(pair):
     """Every route of ``UNPORTED_ROUTES`` answers 501 naming its ROADMAP
-    item (with eBird on, where JAX's would query eBird)."""
+    item (9 or 10: the integrations of item 8 are served)."""
     from birdnet_go_tpu_torch.api.handlers_ext import UNPORTED_ROUTES
 
     side = pair["torch"]
-    eb = side.app.settings.ebird
-    was = (eb.enabled, eb.api_token)
-    eb.enabled, eb.api_token = True, "token"
-    try:
-        for (method, route), (what, item) in sorted(UNPORTED_ROUTES.items()):
-            path = V2 + route.replace("{id}", "1")
-            st, h, b = side.client.call(method, path, body={})
-            assert st == 501, (method, route, b)
-            err = json.loads(b)["error"]
-            assert item in err and what in err and "ROADMAP.md queue 1 " \
-                "item " in err, err
-    finally:
-        eb.enabled, eb.api_token = was
+    for (method, route), (what, item) in sorted(UNPORTED_ROUTES.items()):
+        path = V2 + route.replace("{id}", "1")
+        st, h, b = side.client.call(method, path, body={})
+        assert st == 501, (method, route, b)
+        err = json.loads(b)["error"]
+        assert item in err and what in err and "ROADMAP.md queue 1 " \
+            "item " in err, err
+        assert "item 8" not in err, err
 
 
 class _Ran:
@@ -990,16 +1027,153 @@ def test_stream_probe_routes_answer_as_jax(pair, tools, monkeypatch):
 
 
 def test_absent_subsystem_routes_answer_as_jax(pair):
-    """The routes whose subsystem the port's app refuses answer as JAX's
-    do without it."""
-    from birdnet_go_tpu_torch.api.handlers_ext import (
-        ABSENT_SUBSYSTEM_ROUTES,
-        UNPORTED_ROUTES,
+    """The integrations' routes (``diag/api_walk.INTEGRATION_ROUTES``) on
+    apps that run none of them answer as JAX's: MQTT's test tries a
+    transient client (here to a port that refuses) and answers 502, the
+    others 503 or their empty answers."""
+    from birdnet_go_tpu_torch.diag.api_walk import INTEGRATION_ROUTES
+
+    refused = _free_port()
+    for side in pair.values():
+        side.app.settings.mqtt.port = refused
+    try:
+        statuses = []
+        for method, route, _ in INTEGRATION_ROUTES:
+            out = _compare(pair, method, f"{V2}/{route}",
+                           {} if method == "POST" else None, "json")
+            statuses.append(out["torch"][1])
+    finally:
+        for side in pair.values():
+            side.app.settings.mqtt.port = 1883
+    assert statuses == [200, 502, 502, 503, 503, 503, 503, 503, 200, 503,
+                        200, 503]
+
+
+def _with_integrations(services, out: Path):
+    """`configure` for ``_build``: the integrations of ROADMAP item 8 on,
+    against `services` (``diag/fake_services.Services``): MQTT with
+    retained messages, yr.no weather, eBird, and encrypted backups to a
+    local directory under `out`. BirdWeather is turned on after the build
+    (``_birdweather_on``): its client's base URL can only be pointed at
+    the fake once it exists, and ``_build`` posts its detections."""
+    ports = services.ports()
+
+    def configure(P, s):
+        s.mqtt.enabled, s.mqtt.host = True, "127.0.0.1"
+        s.mqtt.port, s.mqtt.topic, s.mqtt.retain = ports["mqtt"], "bn", True
+        s.weather.provider = "yrno"
+        s.ebird.enabled, s.ebird.api_token = True, ports["ebird_token"]
+        s.backup.enabled, s.backup.passphrase = True, "pass"
+        s.backup.target_dir = str(out / P.app.__name__.split(".")[0])
+    return configure
+
+
+def _birdweather_on(app, token: str, base_url: str) -> None:
+    """BirdWeather turned on in a built app through its control-signal
+    handler, its client pointed at `base_url` before anything posts."""
+    s = app.settings.birdweather
+    s.enabled, s.station_token = True, token
+    app._reconfigure_birdweather()
+    app.birdweather.config.base_url = base_url
+
+
+@pytest.fixture(scope="module")
+def ipair(tiny_v24, tmp_path_factory):  # noqa: F811
+    """Both apps as ``pair`` builds them, with every integration on
+    against one set of fake services (the MQTT clients started; nothing
+    else of the apps' threads runs): {"jax": ..., "torch": ...,
+    "services": ...}."""
+    from birdnet_go_tpu_torch.diag import fake_services as FS
+
+    services = FS.Services(tmp_path_factory.mktemp("services"),
+                           topic="bn").start()
+    urls = FS.urls(services.ports())
+    sides = {}
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            for P in (J, T):
+                A._patch_models(P, mp, tiny_v24)
+                pkg = P.app.__name__.split(".")[0]
+                mp.setattr(importlib.import_module(
+                    f"{pkg}.integrations.weather").YrNoProvider, "BASE",
+                    urls["yrno"])
+                mp.setattr(importlib.import_module(
+                    f"{pkg}.integrations.ebird"), "API_BASE", urls["ebird"])
+                upd = importlib.import_module(f"{pkg}.utils.update")
+                mp.setattr(upd, "_cache", (time.time() + 1e6, {
+                    "current": "0.1.0", "latest": "0.1.0",
+                    "update_available": False, "url": None,
+                    "checked_at": 0.0}))
+                d = tmp_path_factory.mktemp(f"i_{pkg}")
+                app = _build(P, d, _with_integrations(services, d))
+                _birdweather_on(app, services.ports()["station_token"],
+                                urls["birdweather"])
+                app.mqtt.start()
+                assert app.mqtt.wait_connected(10)
+                _start_api(app)
+                client = Client(app.api.port, d)
+                client.login()
+                sides["jax" if P is J else "torch"] = SimpleNamespace(
+                    app=app, client=client, dir=d)
+            yield {**sides, "services": services}
+    finally:
+        for side in sides.values():
+            side.app.api.stop()
+            side.app.mqtt.stop()
+            if hasattr(side.app, "clip_encoder"):
+                side.app.clip_encoder.shutdown()
+            side.app.datastore.close()
+        services.stop()
+
+
+def test_integration_routes_answer_as_jax(ipair):
+    """``diag/api_walk.integrations_walk`` (what ``chip_smoke.py`` phase 20
+    walks on the card) on both apps with every integration on: each
+    status is the walk's, and JAX's; the bodies are JAX's but for a
+    backup's name and its files' bytes (each app's database holds its
+    own wall clocks). The fakes received the same: HA configs retained,
+    a test message on the topic each, the BirdWeather probe, yr.no's
+    forecast, eBird's queries."""
+    from birdnet_go_tpu_torch.diag.api_walk import (
+        Client as WalkClient,
+        integrations_walk,
     )
 
-    assert not ABSENT_SUBSYSTEM_ROUTES.keys() & UNPORTED_ROUTES.keys()
-    for method, route in sorted(ABSENT_SUBSYSTEM_ROUTES):
-        _compare(pair, method, V2 + route, None, "json")
+    services = ipair["services"]
+    bodies, statuses = {}, {}
+    for name in ("jax", "torch"):
+        side = ipair[name]
+        walker = WalkClient(side.app.api.port, PASSWORD)
+        walker.login()
+        records, bodies[name] = integrations_walk(walker, backup=True)
+        statuses[name] = [(r["route"], r["status"], r["want"])
+                          for r in records]
+    assert statuses["torch"] == statuses["jax"]
+    assert all(st == want for _, st, want in statuses["torch"]), statuses
+    for route in bodies["torch"]:
+        got, want = (json.loads(bodies[n][route]) for n in ("torch", "jax"))
+        if route.startswith("system/database/backup"):
+            for b in (got, want):
+                b.pop("backup", None), b.pop("archive", None)
+                if "files" in b:
+                    b["files"] = sorted(b["files"])
+        _same(_drop(got), _drop(want), route)
+    assert json.loads(bodies["torch"]["system/database/backup/verify"])[
+        "encrypted"] is True
+    from birdnet_go_tpu_torch.integrations.mqtt import ha_discovery_payloads
+
+    assert sorted(services.broker.retained) == sorted(
+        ha_discovery_payloads("bn"))
+    assert [t for t, _, _ in services.received] == ["bn/test", "bn/test"]
+    paths = {k: [r["path"] for r in v.requests]
+             for k, v in services.http.items()}
+    assert paths["birdweather"] == [
+        f"/api/v1/stations/{services.ports()['station_token']}"] * 2
+    # eBird: the test's taxonomy query, cached for the taxonomy route; the
+    # observations, then the regional insight's (14 days back)
+    assert len(paths["yrno"]) == 2 and paths["ebird"] == [
+        "/v2/ref/taxonomy/ebird", "/v2/data/obs/geo/recent",
+        "/v2/data/obs/geo/recent"] * 2
 
 
 def test_system_info_names_the_device(pair):

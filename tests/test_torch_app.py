@@ -45,6 +45,7 @@ import itertools
 import json
 import logging
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -537,10 +538,12 @@ def test_notification_service_builds_no_http_client_without_a_target(
         monkeypatch):
     """The port's divergence: JAX's ``NotificationService`` builds its
     shared HTTP client in ``__init__``; the port's obtains it at its first
-    webhook, ntfy or push delivery. With httpx missing, a service without
-    such a target delivers (inbox, command) and imports nothing; a webhook
-    delivery fails as any delivery error does, counted by the target's
-    circuit breaker, with nothing falling back."""
+    webhook, ntfy or push delivery. With httpx blocked (the port's
+    transport is ``urllib``), a service without such a target delivers
+    (inbox, command) and builds no client; a webhook delivery builds the
+    shared client and, against a loopback port that refuses connections,
+    fails as any delivery error does, counted by the target's circuit
+    breaker, with nothing falling back."""
     import birdnet_go_tpu.utils.httpclient as jhttp
 
     monkeypatch.setattr(jhttp, "_shared", None)
@@ -558,13 +561,17 @@ def test_notification_service_builds_no_http_client_without_a_target(
         inbox=N.NotificationInbox())
     assert svc.notify(N.Notification(title="t", message="m")) == 1
     assert svc.session is None and thttp._shared is None
+    with socket.socket() as s:                # a port nothing listens on
+        s.bind(("127.0.0.1", 0))
+        refused = f"http://127.0.0.1:{s.getsockname()[1]}/hook"
     svc.add_target(N.NotificationTarget(name="hook", kind="webhook",
-                                        url="http://hook.example/"))
+                                        url=refused))
     for _ in range(5):
         assert svc.notify(N.Notification(title="t", message="m")) == 1
     assert svc.failed == 5 and svc._breakers["hook"].state == "open"
     assert svc.notify(N.Notification(title="t", message="m")) == 1
-    assert svc.suppressed == 1 and thttp._shared is None
+    assert svc.suppressed == 1 and svc.session is thttp._shared
+    assert isinstance(svc.session.session, thttp.UrllibSession)
 
 
 # -- event bus, health, circuit breaker ------------------------------------------------
@@ -807,8 +814,9 @@ def test_engine_windows_and_capture(rate, eq, monkeypatch):
     rewire the live streams alike. With JAX's ``StreamingResampler`` in
     the port's engine, everything is equal bit for bit. With the port's
     own, a window that was resampled may differ from JAX's by one int16
-    step at no more than 1e-3 of its samples (its resampler rounds its
-    float32 sums differently: ``audio/resampler.py``, held to the
+    step at no more than 1e-3 of its samples: the contract of the
+    resampler's accepted divergence (it rounds its float32 sums
+    differently: ``audio/resampler.py``, held to the
     resampler's float64 definition in ``tests/test_torch_aux.py``); every
     other window, and everything else, is equal."""
     rng = np.random.default_rng(5)
@@ -1492,25 +1500,15 @@ REFUSALS = {
     "github": (_webserver_with(github_client_id="id"), "item 10", None),
     "cloudflare": (_webserver_with(cloudflare_bypass_enabled=True),
                    "item 10", None),
-    "mqtt": (lambda s: setattr(s.mqtt, "enabled", True), "item 8",
-             "_reconfigure_mqtt"),
-    "birdweather": (lambda s: (setattr(s.birdweather, "enabled", True),
-                               setattr(s.birdweather, "station_token", "x")),
-                    "item 8", "_reconfigure_birdweather"),
-    "weather": (lambda s: setattr(s.weather, "provider", "yrno"), "item 8",
-                "_reconfigure_weather"),
-    "backup": (lambda s: setattr(s.backup, "enabled", True), "item 8", None),
-    "mysql": (lambda s: setattr(s.database, "type", "mysql"), "item 8",
-              None),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_unported_subsystem_refused(name, tmp_path, monkeypatch, tiny_v24):
-    """Each subsystem the port does not have yet raises
-    ``NotImplementedError`` naming its ROADMAP item from ``setup``, and,
-    where JAX reconfigures it live, from its ``_reconfigure_*`` handler
-    on a running configuration."""
+    """Each subsystem the port does not have yet (the HTTPS and logins of
+    item 10) raises ``NotImplementedError`` naming its ROADMAP item from
+    ``setup``, and, where JAX reconfigures it live, from its
+    ``_reconfigure_*`` handler on a running configuration."""
     enable, item, handler = REFUSALS[name]
     _patch_models(T, monkeypatch, tiny_v24)
     s = _app_settings(T, tmp_path)
@@ -1526,6 +1524,109 @@ def test_unported_subsystem_refused(name, tmp_path, monkeypatch, tiny_v24):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         getattr(app, handler)()
     app.datastore.close()
+
+
+def _mysql_on(port: int):
+    def enable(s):
+        d = s.database
+        d.type, d.host, d.port = "mysql", "127.0.0.1", port
+        d.user, d.password, d.name = "bird", "sekret", ""
+    return enable
+
+
+def _built(app, name: str):
+    """What `app` built for the integration `name`: its class and the
+    settings it took, comparable across the packages."""
+    if name == "mqtt":
+        m = app.mqtt
+        return m and (type(m).__name__, m.host, m.port, m.client_id,
+                      m.username, m.password, m.keepalive, m.tls)
+    if name == "birdweather":
+        b = app.birdweather
+        return b and (type(b).__name__, dataclasses.asdict(b.config),
+                      type(b.breaker).__name__)
+    if name == "weather":
+        w = app.weather_poller
+        return w and (type(w).__name__, type(w.provider).__name__,
+                      sorted((k, v) for k, v in vars(w.provider).items()
+                             if k != "session"), w.interval,
+                      w.datastore is app.datastore)
+    if name == "backup":
+        b = app.backup
+        return b and (type(b).__name__, dataclasses.asdict(b.config),
+                      b.db_path, type(b.target).__name__,
+                      str(getattr(b.target, "dir", "")))
+    ds = app.datastore
+    return (type(ds).__name__, ds.path.split("@")[1].split(":")[0],
+            ds.count_detections())
+
+
+INTEGRATIONS = {
+    "mqtt": (lambda s: (setattr(s.mqtt, "enabled", True),
+                        setattr(s.mqtt, "port", 1),
+                        setattr(s.mqtt, "username", "u")),
+             "_reconfigure_mqtt"),
+    "birdweather": (lambda s: (setattr(s.birdweather, "enabled", True),
+                               setattr(s.birdweather, "station_token", "x")),
+                    "_reconfigure_birdweather"),
+    "weather": (lambda s: (setattr(s.weather, "provider", "openweather"),
+                           setattr(s.weather, "openweather_api_key", "k"),
+                           setattr(s.weather, "poll_interval_hours", 2.0)),
+                "_reconfigure_weather"),
+    "backup": (lambda s: (setattr(s.backup, "enabled", True),
+                          setattr(s.backup, "passphrase", "pw"),
+                          setattr(s.backup, "keep", 3)), None),
+    "mysql": (None, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(INTEGRATIONS))
+def test_integration_built_as_jax(name, tmp_path, monkeypatch, tiny_v24):
+    """Each integration of ROADMAP item 8 is built by ``setup`` as JAX's
+    app builds it, and, where JAX reconfigures it live, by its
+    ``_reconfigure_*`` handler on a running configuration (nothing is
+    started: ``_started`` is off). MySQL against the port's test server,
+    which both packages' datastores use."""
+    from birdnet_go_tpu_torch.diag.mysql_server import MySQLServer
+
+    enable, handler = INTEGRATIONS[name]
+    server = None
+    if name == "mysql":
+        server = MySQLServer(password="sekret")
+        server.start()
+        enable = _mysql_on(server.port)
+    built = {}
+    try:
+        for P in (J, T):
+            _patch_models(P, monkeypatch, tiny_v24)
+            d = _dir(tmp_path, P)
+            s = _app_settings(P, d)
+            s.backup.target_dir = str(tmp_path / "backups")
+            s.database.path = str(tmp_path / "app.db")
+            enable(s)
+            app = (P.app.Application(s) if P is J
+                   else P.app.Application(s, device="cpu"))
+            app.setup()
+            rec = [_built(app, name)]
+            app.datastore.close()
+            if handler is not None:
+                live = _app_settings(P, d / "live")
+                live.database.path = str(tmp_path / "live.db")
+                app = (P.app.Application(live) if P is J
+                       else P.app.Application(live, device="cpu"))
+                app.setup()
+                rec.append(_built(app, name))
+                enable(app.settings)
+                getattr(app, handler)()
+                rec.append(_built(app, name))
+                app.datastore.close()
+            built[P.app.__name__] = rec
+    finally:
+        if server is not None:
+            server.stop()
+    assert built[T.app.__name__] == built[J.app.__name__]
+    rec = built[T.app.__name__]
+    assert rec[0] and (handler is None or (rec[1] is None and rec[2]))
 
 
 @pytest.mark.parametrize("name", ["webserver", "imageprovider"])

@@ -230,13 +230,14 @@ def _resample_float64(x, in_rate, out_rate, n_out):
                                    (48000, 24000), (48000, 48000)])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_streaming_resampler_equal_jax(rates, seed):
-    """Chunked ``process`` then ``flush``: every chunk as long as JAX's
-    and equal to it to float32 rounding, as their concatenation is to the
-    whole-stream resample's (1e-6 of the largest sample, the bound JAX's
-    own chunks keep against its whole stream). The port sums only the
-    taps that meet input samples (the filter's polyphase form), where
-    JAX's product runs over the zero-stuffed signal, so the float32 sums
-    round differently (``audio/resampler.py``). So each chunk is also
+    """The contract of the resampler's accepted divergence
+    (``audio/resampler.py``). Chunked ``process`` then ``flush``: every
+    chunk as long as JAX's and equal to it to float32 rounding, as their
+    concatenation is to the whole-stream resample's (1e-6 of the largest
+    sample, the bound JAX's own chunks keep against its whole stream).
+    The port sums only the taps that meet input samples (the filter's
+    polyphase form), where JAX's product runs over the zero-stuffed
+    signal, so the float32 sums round differently. So each chunk is also
     held to the resampler's definition in float64
     (``_resample_float64``): no further from it than JAX's chunk is, plus
     one float32 epsilon of the largest input sample, where a wrong tap,

@@ -753,34 +753,36 @@ def test_manager_verifies_sha256(tmp_path):
 
 def test_manager_downloads_through_urllib_without_a_session(tmp_path,
                                                             monkeypatch):
-    """Without a session the download goes through ``urllib.request``
-    (stubbed here: no test reaches the network), in 1 MiB reads."""
+    """Without a session the download goes through the port's transport
+    (``utils/httpclient.py`` ``UrllibSession`` over ``urllib.request``,
+    a 120 s timeout), here from a loopback server, in 1 MiB reads."""
     import hashlib
-    import io
-    import urllib.request
 
+    from birdnet_go_tpu_torch.diag.fake_services import FakeHttp
     from birdnet_go_tpu_torch.models import catalog as tcatalog
 
     payload = bytes(range(256)) * 5000              # 1.28 MB, two reads
-    calls = []
-
-    class _Urlopen(io.BytesIO):
-        headers = {"Content-Length": str(len(payload))}
-
-        def __init__(self, req, timeout):
-            calls.append((req.full_url, req.get_method(), timeout))
-            super().__init__(payload)
-
-    monkeypatch.setattr(urllib.request, "urlopen", _Urlopen)
-    entry = tcatalog.CatalogEntry(
-        model_id="W", display_name="W", description="",
-        url="https://example/w.tflite",
-        sha256=hashlib.sha256(payload).hexdigest(), file_name="model.tflite")
-    seen = []
-    dest = tcatalog.ModelManager(home=tmp_path).install_from_url(
-        entry, progress=lambda g, t: seen.append(g))
+    srv = FakeHttp("models", [("GET", "/w.tflite",
+                               lambda r: (200, payload))]).start()
+    made = []
+    real = tcatalog.UrllibSession
+    monkeypatch.setattr(tcatalog, "UrllibSession", lambda timeout: (
+        made.append(timeout), real(timeout=timeout))[1])
+    try:
+        entry = tcatalog.CatalogEntry(
+            model_id="W", display_name="W", description="",
+            url=f"http://127.0.0.1:{srv.port}/w.tflite",
+            sha256=hashlib.sha256(payload).hexdigest(),
+            file_name="model.tflite")
+        seen = []
+        dest = tcatalog.ModelManager(home=tmp_path).install_from_url(
+            entry, progress=lambda g, t: seen.append(g))
+    finally:
+        srv.stop()
     assert dest.read_bytes() == payload
-    assert calls == [("https://example/w.tflite", "GET", 120.0)]
+    assert made == [120.0]
+    assert [(r["method"], r["path"]) for r in srv.requests] == [
+        ("GET", "/w.tflite")]
     assert seen == [1 << 20, len(payload)]
 
 

@@ -10,7 +10,8 @@ train step; and int8 and meshes: ``int_mm`` exact at the shapes
 the ``act_int8`` step against the CPU, and ``ShardedClassifier`` on meshes
 that list the card more than once; the soak on the card, its aux planes
 (spectrogram index and sound levels against the CPU, a kitchen-sink leg)
-and its RTSP leg; the realtime app serving on the card; and a crash leg
+and its RTSP leg; the realtime app serving on the card, with MQTT and
+MySQL on against the loopback fakes; and a crash leg
 on the card (its victim SIGKILLed, recovered, restarted), with the crash
 leg and ``support`` refusing or naming no device with the card hidden.
 
@@ -927,6 +928,66 @@ def test_app_serves_on_card(dev, tmp_path):
     assert st.windows_processed > 0 and st.overruns == 0
     assert app.device_loop.windows_dropped == 0
     assert melspec_fused.launches == st.batches_dispatched + 1
+
+
+def test_app_with_mqtt_and_mysql_on_card(dev, tmp_path):
+    """The realtime app on the card with MQTT and MySQL on, against the
+    fake services of ``diag/fake_services.py`` in this process: the
+    full-width v2.4 at batch 64 over four tone sources for 8 s, every
+    approval saved to MySQL once (the server's rows) and published on the
+    topic once (the broker's subscriber), the Home Assistant configs
+    retained, the mel kernel launched once a batch and a warm-up, and
+    ``stop()`` within 15 s."""
+    import time
+
+    from birdnet_go_tpu_torch.app import Application
+    from birdnet_go_tpu_torch.config.settings import ModelSettings, Settings
+    from birdnet_go_tpu_torch.diag.fake_services import Services
+    from birdnet_go_tpu_torch.integrations.mqtt import ha_discovery_payloads
+
+    services = Services(tmp_path / "services").start()
+    ports = services.ports()
+    try:
+        s = Settings()
+        s.models = [ModelSettings(model_id="BirdNET_V2.4", threshold=0.0)]
+        s.database.type, s.database.host = "mysql", "127.0.0.1"
+        s.database.port, s.database.name = ports["mysql"], ""
+        s.database.user = ports["mysql_user"]
+        s.database.password = ports["mysql_password"]
+        s.mqtt.enabled, s.mqtt.host, s.mqtt.port = True, "127.0.0.1", \
+            ports["mqtt"]
+        s.mqtt.topic = ports["topic"]
+        s.export.enabled = False
+        s.webserver.enabled = s.imageprovider.enabled = False
+        s.realtime.interval_seconds = 0.0
+        s.realtime.max_batch = 64
+        s.realtime.sources = [{"type": "tone", "id": f"t{k}",
+                               "freq": 1000.0 + 700.0 * k}
+                              for k in range(4)]
+        app = Application(s)
+        app.setup()
+        approved = []
+        on_approved = app.processor.on_approved
+        app.processor.on_approved = lambda d, item: (
+            approved.append(d), on_approved(d, item))[1]
+        melspec_fused.launches = 0
+        app.start()
+        time.sleep(8.0)
+        t0 = time.monotonic()
+        app.stop()
+        assert time.monotonic() - t0 < 15.0
+        st = app.device_loop.batchers["BirdNET_V2.4"].stats
+        assert st.windows_processed > 0 and st.overruns == 0
+        assert melspec_fused.launches == st.batches_dispatched + 1
+        time.sleep(0.5)
+        rows = [i for i, _ in services.mysql.committed]
+        dets = [t for t, _, _ in services.received
+                if t == f"{ports['topic']}/detections"]
+        assert len(approved) == len(rows) == len(dets) > 0
+        assert sorted(services.broker.retained) == sorted(
+            ha_discovery_payloads(ports["topic"]))
+    finally:
+        services.stop()
 
 
 def test_crash_leg_on_card(dev, tmp_path):

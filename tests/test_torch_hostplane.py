@@ -391,10 +391,24 @@ def _port_modules() -> list[str]:
 
 
 # the JAX package and what the card's machine lacks: JAX, and the yaml,
-# aiohttp, orbax, optax, httpx, Pillow and cryptography the JAX host
-# modules import
-_BLOCKED = ("jax", "jaxlib", "birdnet_go_tpu", "yaml", "aiohttp", "orbax",
-            "optax", "httpx", "PIL", "cryptography")
+# aiohttp, orbax, optax, httpx and Pillow the JAX host modules import; no
+# port module imports any of them (yaml only through importlib where a
+# config is read, and JSON where it is missing: _IMPORTLIB_ALLOWED)
+_NEVER = ("jax", "jaxlib", "birdnet_go_tpu", "yaml", "aiohttp", "orbax",
+          "optax", "httpx", "PIL")
+# cryptography is on the card's machine: the port imports it where JAX
+# does, inside the functions of MySQL's RSA full auth and of backup
+# encryption (_FUNCTION_IMPORTS), never when a module loads
+_BLOCKED = _NEVER + ("cryptography",)
+_FUNCTION_IMPORTS = {
+    "cryptography": {"birdnet_go_tpu_torch/datastore/mysql_wire.py",
+                     "birdnet_go_tpu_torch/utils/backup.py"}}
+# (module, files) the port may name to importlib.import_module
+# (and chip_smoke.py's phase 15 reports whether Pillow imports on the
+# machine)
+_IMPORTLIB_ALLOWED = {"yaml": {"birdnet_go_tpu_torch/config/settings.py",
+                               "birdnet_go_tpu_torch/cli/main.py"},
+                      "PIL": {"chip_smoke.py"}}
 
 _GUARDED_IMPORT = """
 import importlib, sys
@@ -502,6 +516,15 @@ def test_port_imports_with_jax_and_jax_package_blocked():
             "birdnet_go_tpu_torch.audio.rtsp",
             "birdnet_go_tpu_torch.audio.capture",
             "birdnet_go_tpu_torch.audio.ffmpeg",
+            "birdnet_go_tpu_torch.integrations.mqtt",
+            "birdnet_go_tpu_torch.integrations.birdweather",
+            "birdnet_go_tpu_torch.integrations.weather",
+            "birdnet_go_tpu_torch.integrations.ebird",
+            "birdnet_go_tpu_torch.datastore.mysql",
+            "birdnet_go_tpu_torch.datastore.mysql_wire",
+            "birdnet_go_tpu_torch.utils.backup",
+            "birdnet_go_tpu_torch.diag.mysql_server",
+            "birdnet_go_tpu_torch.diag.fake_services",
             "birdnet_go_tpu_torch.version"} <= set(mods)
     res = subprocess.run([sys.executable, "-c",
                           _GUARDED_IMPORT % (_BLOCKED, mods)],
@@ -510,24 +533,93 @@ def test_port_imports_with_jax_and_jax_package_blocked():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
-def _imported_names(path: Path) -> list[str]:
-    names = []
-    for node in ast.walk(ast.parse(path.read_text())):
+def _imports(path: Path) -> list[tuple[str, bool]]:
+    """Each module `path` imports, and whether the import sits inside a
+    function."""
+    out = []
+
+    def visit(node, in_function: bool) -> None:
         if isinstance(node, ast.Import):
-            names += [a.name for a in node.names]
+            out.extend((a.name, in_function) for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names.append(node.module or "")
-    return names
+            out.append((node.module or "", in_function))
+        inner = in_function or isinstance(
+            node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+        for child in ast.iter_child_nodes(node):
+            visit(child, inner)
+
+    visit(ast.parse(path.read_text()), False)
+    return out
+
+
+def _imported_names(path: Path) -> list[str]:
+    return [name for name, _ in _imports(path)]
 
 
 @pytest.mark.parametrize("where", ["chip_smoke.py", "birdnet_go_tpu_torch"])
 def test_no_import_of_the_jax_package(where):
+    """No import of what ``_NEVER`` names; ``cryptography`` only inside a
+    function of the files ``_FUNCTION_IMPORTS`` allows."""
     path = REPO / where
     files = [path] if path.is_file() else sorted(path.rglob("*.py"))
     assert files
     for f in files:
-        for name in _imported_names(f):
-            assert name.split(".")[0] not in _BLOCKED, (f, name)
+        rel = f.relative_to(REPO).as_posix()
+        for name, in_function in _imports(f):
+            top = name.split(".")[0]
+            assert top not in _NEVER, (f, name)
+            if top in _FUNCTION_IMPORTS:
+                assert in_function and rel in _FUNCTION_IMPORTS[top], \
+                    (f, name)
+
+
+def test_cryptography_imports_sit_in_their_functions():
+    """The imports ``_FUNCTION_IMPORTS`` allows are there (MySQL's RSA
+    full auth, backup encryption and decryption), each inside a
+    function."""
+    found = {}
+    for rel in _FUNCTION_IMPORTS["cryptography"]:
+        found[rel] = [fn for name, fn in _imports(REPO / rel)
+                      if name.split(".")[0] == "cryptography"]
+    assert all(found.values()) and all(all(v) for v in found.values()), \
+        found
+
+
+def _import_module_calls(path: Path) -> list[tuple[str, int]]:
+    """The first argument of each ``import_module(...)`` call in `path`
+    (``?`` where it is not a string literal), with its line."""
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else \
+                getattr(fn, "id", "")
+            if name == "import_module" and node.args:
+                arg = node.args[0]
+                out.append((arg.value if isinstance(arg, ast.Constant)
+                            else "?", node.lineno))
+    return out
+
+
+@pytest.mark.parametrize("where", ["chip_smoke.py", "birdnet_go_tpu_torch"])
+def test_no_import_module_of_a_blocked_name(where):
+    """No ``importlib.import_module`` of a name of ``_BLOCKED`` (the AST
+    check above sees no such import): yaml only where a config is read
+    (``_IMPORTLIB_ALLOWED``), and the names a call takes from a variable
+    are the port's own modules."""
+    path = REPO / where
+    files = [path] if path.is_file() else sorted(path.rglob("*.py"))
+    for f in files:
+        rel = f.relative_to(REPO).as_posix()
+        for name, line in _import_module_calls(f):
+            if name == "?":
+                src = f.read_text().splitlines()[line - 1]
+                assert "birdnet_go_tpu_torch" in src or "f\"" in src, \
+                    (rel, line, src)
+                continue
+            top = name.split(".")[0]
+            if top in _BLOCKED:
+                assert rel in _IMPORTLIB_ALLOWED.get(top, ()), (rel, name)
 
 
 def test_only_the_bridge_imports_both_packages():

@@ -482,15 +482,49 @@ def test_db_doctor_matches_jax(tmp_path, capsys):
     assert missing[0] == 2 and "database not found" in missing[1]
 
 
-def test_db_doctor_refuses_mysql(tmp_path, capsys):
-    """``database.type: mysql`` without ``--db``: JAX's doctor connects to
-    MySQL; the port has no MySQL datastore yet and raises, naming its
-    ROADMAP item. With ``--db`` the SQLite file is doctored."""
+def test_db_doctor_on_mysql_as_jax(tmp_path, capsys):
+    """``database.type: mysql`` without ``--db``: each package's doctor
+    connects to MySQL (the port's test server, caching_sha2 with RSA full
+    auth) and finds, fixes and then clears an orphaned result row, with
+    JAX's output and exit codes. With ``--db`` the SQLite file is
+    doctored."""
+    from birdnet_go_tpu_torch.diag.mysql_server import MySQLServer
+
+    def case(P):
+        srv = MySQLServer(password="pw", plugin="caching_sha2_password",
+                          sha2_full_auth=True)
+        srv.start()
+        try:
+            cfg = _dir(tmp_path, P) / "cfg.json"
+            cfg.write_text(json.dumps({"database": {
+                "type": "mysql", "host": "127.0.0.1", "port": srv.port,
+                "user": "doctor", "password": "pw", "name": ""}}))
+            mysql = importlib.import_module(
+                f"{P.app.__name__[:-4]}.datastore.mysql")
+            ds = mysql.MySQLDatastore(port=srv.port, user="doctor",
+                                      password="pw", database="")
+            ds.insert_detection(_detection(P, "Parus major", "Great Tit"))
+            with srv._lock:
+                srv.db.execute("INSERT INTO results (detection_id,"
+                               " result_rank, scientific_name, common_name,"
+                               " confidence) VALUES (99, 1, 'x', 'x', 0.5)")
+                srv.db.commit()
+            ds.close()
+            runs = []
+            for extra in ([], ["--fix"], []):
+                rc, out, _ = _cli(P, ["db", "doctor", "--config", str(cfg),
+                                      *extra], capsys)
+                runs.append((rc, json.loads(out)))
+            return runs, srv.full_auths
+        finally:
+            srv.stop()
+
+    runs, auths = _both(case)
+    assert [rc for rc, _ in runs] == [1, 0, 0] and auths == 1
+    assert runs[0][1]["orphans"] == {"results": 1}
+    assert runs[2][1]["healthy"] and runs[2][1]["detections"] == 1
     cfg = tmp_path / "cfg.json"
     cfg.write_text(json.dumps({"database": {"type": "mysql"}}))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 8"):
-        T.cli.main(["db", "doctor", "--config", str(cfg)])
     db = tmp_path / "x.db"
     T.sqlite.Datastore(db).close()
     rc, out, _ = _cli(T, ["db", "doctor", "--config", str(cfg), "--db",

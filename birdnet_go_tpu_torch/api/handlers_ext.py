@@ -12,10 +12,9 @@ imports nothing of the JAX package; ``tests/test_torch_api.py`` holds it to
 the original. Where it differs:
 
 - the routes of ``UNPORTED_ROUTES`` need a module the port does not have
-  yet (the BirdNET-Pi and BirdNET-Go importers, the TLS certificate
-  manager, the terminal): each answers 501 with ``{"error": <the refusal
-  naming its ROADMAP.md item>}`` where JAX's handler would reach that
-  module;
+  yet (the TLS certificate manager, the terminal): each answers 501 with
+  ``{"error": <the refusal naming its ROADMAP.md item>}`` where JAX's
+  handler would reach that module;
 - spectrograms render on the app's device, on a CUDA stream of their
   own, and a clip is decoded in the app's codec workers (``_render_png``,
   ``h_audio_process``): the Python FLAC decoder on a thread of the app's
@@ -37,7 +36,7 @@ from pathlib import Path
 from typing import Any
 
 from birdnet_go_tpu_torch.api import web
-from birdnet_go_tpu_torch.utils.unported import IMPORTERS, LOGINS, refuse
+from birdnet_go_tpu_torch.utils.unported import LOGINS, refuse
 
 log = logging.getLogger("birdnet_tpu.api")
 
@@ -47,15 +46,6 @@ log = logging.getLogger("birdnet_tpu.api")
 UNPORTED_ROUTES = {
     ("GET", "/system/ws"): ("the terminal (WebSocket and pty shell)",
                             LOGINS),
-    ("POST", "/imports/birdnet-pi"): ("the BirdNET-Pi importer", IMPORTERS),
-    ("POST", "/imports/birdnet-go"): ("the BirdNET-Go database import",
-                                      IMPORTERS),
-    ("GET", "/imports/jobs"): ("the BirdNET-Pi import jobs", IMPORTERS),
-    ("GET", "/imports/jobs/{id}"): ("the BirdNET-Pi import jobs",
-                                    IMPORTERS),
-    ("POST", "/imports/jobs/{id}/cancel"): ("the BirdNET-Pi import jobs",
-                                            IMPORTERS),
-    ("POST", "/imports/validate"): ("the BirdNET-Pi importer", IMPORTERS),
     ("GET", "/tls/certificate"): ("TLS certificate management", LOGINS),
     ("POST", "/tls/certificate"): ("TLS certificate management", LOGINS),
     ("DELETE", "/tls/certificate"): ("TLS certificate management", LOGINS),
@@ -1193,6 +1183,16 @@ class ExtendedHandlers:
 
     # -- imports -----------------------------------------------------------------------------------
 
+    # -- imports -----------------------------------------------------------------------------------
+
+    @property
+    def _import_mgr(self):
+        if getattr(self, "_import_mgr_obj", None) is None:
+            from birdnet_go_tpu_torch.utils.imports import ImportJobManager
+
+            self._import_mgr_obj = ImportJobManager(self.ctx.datastore)
+        return self._import_mgr_obj
+
     # -- live migration (reference internal/datastore/v2/migration) ---------
 
     async def h_migration_status(self, request):
@@ -1253,21 +1253,45 @@ class ExtendedHandlers:
         return _json(worker.status())
 
     async def h_import_birdnet_go(self, request):
-        """Migrate a reference BirdNET-Go SQLite database in place
-        (POST /imports/birdnet-go {path}): 501."""
-        return await self._refused(request)
+        """Migrate a reference BirdNET-Go SQLite database in place:
+        detections + results + reviews + comments + locks
+        (POST /imports/birdnet-go {path})."""
+        from birdnet_go_tpu_torch.utils.imports import import_birdnet_go_db
+
+        body = await request.json()
+        path = body.get("path", "")
+        if not Path(path).is_file():
+            return _json({"error": f"no such file: {path}"}, status=400)
+        try:
+            res = await asyncio.get_event_loop().run_in_executor(
+                None, import_birdnet_go_db, self.ctx.datastore, path)
+        except ValueError as e:
+            return _json({"error": str(e)}, status=400)
+        return _json({"scanned": res.scanned, "imported": res.imported,
+                      "skipped": res.skipped, "errors": res.errors})
 
     async def h_import_start(self, request):
-        return await self._refused(request)
+        body = await request.json()
+        path = body.get("path", "")
+        if not Path(path).is_file():
+            return _json({"error": f"no such file: {path}"}, status=400)
+        job = self._import_mgr.submit(
+            path, min_confidence=float(body.get("min_confidence", 0.0)))
+        return _json({"job": job.as_dict()}, status=202)
 
     async def h_import_jobs(self, request):
-        return await self._refused(request)
+        return _json({"jobs": self._import_mgr.list()})
 
     async def h_import_job(self, request):
-        return await self._refused(request)
+        job = self._import_mgr.get(int(request.match_info["id"]))
+        if job is None:
+            return _json({"error": "not found"}, status=404)
+        return _json(job.as_dict())
 
     async def h_import_cancel(self, request):
-        return await self._refused(request)
+        if not self._import_mgr.cancel(int(request.match_info["id"])):
+            return _json({"error": "not found"}, status=404)
+        return _json({"cancelled": True})
 
     # -- model install -------------------------------------------------------------------------------
 
@@ -1919,5 +1943,24 @@ class ExtendedHandlers:
 
     async def h_import_validate(self, request):
         """Parse a BirdNET-Pi export without inserting anything
-        (import/validate): 501."""
-        return await self._refused(request)
+        (import/validate)."""
+        from birdnet_go_tpu_torch.utils.imports import parse_birdnet_pi_log
+
+        body = await request.json()
+        path = body.get("path", "")
+        if not path or not Path(path).is_file():
+            return _json({"valid": False, "error": "file not found"},
+                         status=400)
+
+        def _validate():
+            try:
+                rows = parse_birdnet_pi_log(path)
+                return {"valid": True, "detections": len(rows),
+                        "species": len({d.species.scientific
+                                        for d in rows})}
+            except Exception as e:  # noqa: BLE001
+                return {"valid": False, "error": str(e)}
+
+        out = await asyncio.get_event_loop().run_in_executor(None,
+                                                             _validate)
+        return _json(out, status=200 if out["valid"] else 422)

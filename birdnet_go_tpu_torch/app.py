@@ -44,7 +44,8 @@ and raises without one. Where they differ from JAX:
   closed while they tick or launch, so that the source threads do not
   take the GIL at each eager op and ring poll of theirs
   (``audio/engine.py``); a warm-up, at start or at a runtime load, runs
-  beside the sources as JAX's does.
+  beside the sources as JAX's does, and holds the gate open: a tick
+  waits for it instead of closing the gate beside it.
 """
 
 from __future__ import annotations

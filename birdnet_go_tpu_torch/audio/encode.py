@@ -1,21 +1,23 @@
-"""Clip encoding front end: native WAV and FLAC, ffmpeg for the lossy formats.
+"""Clip encoding front end: native WAV/FLAC/Opus/MP3/AAC.
 
 Reference: internal/conf/native_encoders.go + audiocore/aac/opus — the
 reference ships native Go encoders (go-opus→libopus, pure-Go AAC-LC)
-behind a feature gate with FFmpeg as default. WAV and FLAC (real
-fixed-predictor compression) are pure-native, and ffmpeg encodes Opus,
-MP3 and AAC when its binary exists. Every lossy path ultimately falls
-back to native FLAC so a clip is never lost to a missing encoder.
+behind a feature gate with FFmpeg as default. Here Opus (.opus, RFC 7845
+Ogg), MP3, and AAC-LC (.m4a via audio.aacenc's own MP4 muxer) run through
+dlopen'd system codecs in csrc/codecs.cpp — preferred over FFmpeg
+because they need no subprocess — WAV and FLAC (real fixed-predictor
+compression) are pure-native, and ffmpeg remains only as a last-resort
+fallback when a codec library is missing but the binary exists. Every
+lossy path ultimately falls back to native FLAC so a clip is never lost
+to a missing encoder.
 
-A copy of ``birdnet_go_tpu/audio/encode.py`` for the port, without the
-native codecs. The JAX package encodes Opus, MP3 and AAC through
-``native/codecs.cpp`` (``audio/opusogg.py``, ``audio/aacenc.py``); the
-port's native build leaves that file out, because the card's machine has
-no FFmpeg headers, so ``_native_codec_available`` reports every native
-codec missing and a lossy format takes the JAX function's path for a host
-without them: ffmpeg where its binary exists, else FLAC.
-``load_clip_audio`` refuses ``.m4a``, which needs the native AAC decoder.
-``tests/test_torch_aux.py`` holds the module to the original.
+A copy of ``birdnet_go_tpu/audio/encode.py`` for the port, which imports
+nothing of the JAX package; its Opus, MP3 and AAC run through the port's
+codec library (``audio/opusogg.py``, ``audio/aacenc.py``,
+``csrc/codecs.cpp``), and a codec library missing at run time takes the
+JAX function's path for a host without it: ffmpeg where its binary
+exists, else FLAC. ``tests/test_torch_aux.py`` and
+``tests/test_torch_codecs.py`` hold the module to the original.
 """
 
 from __future__ import annotations
@@ -36,16 +38,6 @@ _FFMPEG_FORMATS = {
     "mp3": ([".mp3"], ["-c:a", "libmp3lame", "-b:a", "128k"]),
 }
 
-# Opus only accepts these input rates; other rates (e.g. the 256 kHz bat
-# clips) keep FLAC/ffmpeg so no ultrasonic content is resampled away (the
-# JAX package keeps the constant beside its codec, audio/opusogg.py)
-OPUS_RATES = (8000, 12000, 16000, 24000, 48000)
-
-# rates with an AAC sampling-frequency index (ISO 14496-3 §1.6.3.4; the
-# keys of audio/aacenc.py's _FREQ_INDEX in the JAX package)
-AAC_RATES = frozenset((96000, 88200, 64000, 48000, 44100, 32000, 24000,
-                       22050, 16000, 12000, 11025, 8000, 7350))
-
 # injectable for tests; None → shutil.which resolved at call time so
 # patches of shutil.which (and PATH changes) take effect
 _which = None
@@ -57,9 +49,23 @@ def ffmpeg_available() -> bool:
 
 
 def _native_codec_available(fmt: str) -> bool:
-    """Whether the native codec for `fmt` is loaded: never in the port,
-    whose native build has no ``codecs.cpp`` (ROADMAP.md queue 1)."""
+    from birdnet_go_tpu_torch.audio import opusogg
+
+    if fmt == "opus":
+        return opusogg.opus_available()
+    if fmt == "mp3":
+        return opusogg.mp3_available()
+    if fmt == "aac":
+        from birdnet_go_tpu_torch.audio import aacenc
+
+        return aacenc.available()
     return False
+
+
+# Opus only accepts these input rates; other rates (e.g. the 256 kHz bat
+# clips) keep FLAC/ffmpeg so no ultrasonic content is resampled away.
+# Single source of truth lives beside the codec (audio.opusogg).
+from birdnet_go_tpu_torch.audio.opusogg import OPUS_RATES as _OPUS_RATES  # noqa: E402
 
 
 def supported_formats() -> list[str]:
@@ -83,14 +89,16 @@ def resolve_format(fmt: str, sample_rate: int = 48000) -> tuple[str, str]:
         return "flac", ".flac"
     if fmt in _FFMPEG_FORMATS:
         if fmt == "opus":
-            rate_ok = sample_rate in OPUS_RATES
+            rate_ok = sample_rate in _OPUS_RATES
         elif fmt == "aac":
+            from birdnet_go_tpu_torch.audio.aacenc import supported_rate
+
             # 256 kHz bat clips exceed every AAC sampling index — keep
             # them lossless rather than resampling ultrasonics away.
             # This gates the FFMPEG path too: ffmpeg's AAC encoder
             # rejects 256 kHz at encode time, which would leave a DB row
             # pointing at a clip that was never written.
-            if sample_rate not in AAC_RATES:
+            if not supported_rate(sample_rate):
                 return "flac", ".flac"
             rate_ok = True
         else:
@@ -114,10 +122,13 @@ def load_clip_audio(path: str | Path) -> tuple[np.ndarray, int]:
         pcm, rate = decode_flac(path.read_bytes())
         return pcm.astype(np.float32) / 32768.0, rate
     if path.suffix.lower() == ".m4a":
-        raise NotImplementedError(
-            f"{path.name}: decoding .m4a needs the native AAC codec "
-            "(native/codecs.cpp), which the port does not build "
-            "(ROADMAP.md queue 1, the native codecs)")
+        from birdnet_go_tpu_torch.audio import aacenc
+
+        packets, asc, rate, priming = aacenc.read_m4a(path)
+        pcm = aacenc.decode_aac(packets, asc, rate)
+        # trim the encoder priming the edit list declares so the decoded
+        # timeline aligns with the detection window (FLAC/WAV parity)
+        return pcm[priming:].astype(np.float32) / 32768.0, rate
     from birdnet_go_tpu_torch.audio.wav import read_wav
 
     samples, info = read_wav(path)
@@ -150,13 +161,34 @@ def encode_clip(pcm_i16: np.ndarray, sample_rate: int, out_path: str | Path,
 
         return write_flac(out, pcm_i16, sample_rate)
     if fmt in _FFMPEG_FORMATS:
-        if fmt == "aac" and sample_rate not in AAC_RATES:
-            # no AAC sampling index (256 kHz bat) — ffmpeg would
-            # reject it at encode time, so go lossless directly
-            fallback = out.with_suffix(".flac")
-            from birdnet_go_tpu_torch.audio.flac import write_flac
+        from birdnet_go_tpu_torch.audio import opusogg
 
-            return write_flac(fallback, pcm_i16, sample_rate)
+        if fmt == "opus" and sample_rate in _OPUS_RATES \
+                and opusogg.opus_available():
+            if out.suffix.lower() not in (".opus", ".ogg"):
+                out = out.with_suffix(".opus")
+            return opusogg.encode_ogg_opus(pcm_i16, sample_rate, out)
+        if fmt == "mp3" and opusogg.mp3_available():
+            if out.suffix.lower() != ".mp3":
+                out = out.with_suffix(".mp3")
+            return opusogg.encode_mp3(pcm_i16, sample_rate, out)
+        if fmt == "aac":
+            from birdnet_go_tpu_torch.audio import aacenc
+
+            if not aacenc.supported_rate(sample_rate):
+                # no AAC sampling index (256 kHz bat) — ffmpeg would
+                # reject it at encode time, so go lossless directly
+                fallback = out.with_suffix(".flac")
+                from birdnet_go_tpu_torch.audio.flac import write_flac
+
+                return write_flac(fallback, pcm_i16, sample_rate)
+            if aacenc.available():
+                if out.suffix.lower() != ".m4a":
+                    out = out.with_suffix(".m4a")
+                packets, asc, priming = aacenc.encode_aac_with_priming(
+                    pcm_i16, sample_rate)
+                return aacenc.write_m4a(out, packets, asc, sample_rate,
+                                        priming=priming)
         if ffmpeg_available():
             return _ffmpeg_encode(pcm_i16, sample_rate, out, fmt)
         fallback = out.with_suffix(".flac")

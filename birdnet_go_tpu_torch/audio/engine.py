@@ -15,7 +15,8 @@ nothing of the JAX package; ``tests/test_torch_app.py`` holds it to the
 original. Two divergences: the analysis rings are always the native
 library's (``_make_analysis_buffer``), and ``ingest`` passes through the
 engine's ``SourceGate``, which the app's device loop closes for each tick
-and its batchers for each eager step they launch (not for a warm-up).
+and its batchers for each eager step they launch, and which a warm-up
+holds open (no closing overlaps it).
 """
 
 from __future__ import annotations
@@ -62,11 +63,22 @@ class SourceGate:
     polls (ctypes releases the GIL too), so the app's ``DeviceLoop``
     holds the gate closed for a whole tick and its batchers for a launch.
     The sources, not the tick, then take what a busy host withholds: a
-    ``ToneSource`` or ``FileLoopSource`` that falls behind resumes its
-    pace from now, and a live source (``RtspSource``, ``SoundcardSource``)
-    backs up into its socket or its card's ring. A warm-up does not close
-    the gate: its first call's set-up (up to 1.2 s for v3.0 on an NVIDIA
-    H100 80GB HBM3, 700.00 W) would hold every source that long.
+    ``ToneSource`` that falls behind pushes what it owes in one push, a
+    ``FileLoopSource`` resumes its pace from now, and a live source
+    (``RtspSource``, ``SoundcardSource``) backs up into its socket or its
+    card's ring.
+
+    A warm-up holds the gate open instead (``warming()``): its first
+    call's set-up (up to 1.2 s for v3.0 on an NVIDIA H100 80GB HBM3,
+    700.00 W) would hold every source that long, and a tick that closed
+    the gate beside it traded the GIL with it for as long (a 397.8 ms
+    closing beside v3.0's 451.5 ms warm-up on that card). No closing
+    overlaps a running warm-up: ``closed()`` waits until every warm-up
+    of another thread has ended, and ``warming()`` until every closing
+    of another thread has ended; a closing that waits holds off new
+    warm-ups, so a tick waits for at most the warm-ups already running.
+    A thread's own warm-up and closings do not wait on each other, nor
+    does a nested warm-up or closing (either would wait on itself).
 
     ``turn()`` is a source's pass through ``AudioEngine.ingest``; any
     number run at once. ``closed()`` is a tick or a launch: it stops new
@@ -79,6 +91,14 @@ class SourceGate:
         self._cond = threading.Condition()
         self._closings = 0
         self._turns = 0
+        # thread ident -> closings / warm-ups that thread holds
+        self._closers: dict[int, int] = {}
+        self._warmers: dict[int, int] = {}
+        self._closers_waiting = 0
+
+    @staticmethod
+    def _others(held: dict[int, int], me: int) -> bool:
+        return any(n for t, n in held.items() if t != me)
 
     @contextlib.contextmanager
     def turn(self):
@@ -95,16 +115,47 @@ class SourceGate:
 
     @contextlib.contextmanager
     def closed(self):
+        me = threading.get_ident()
         with self._cond:
+            if not self._closers.get(me):
+                # a nested closing passes: warm-ups already wait on it
+                self._closers_waiting += 1
+                self._cond.wait_for(
+                    lambda: not self._others(self._warmers, me))
+                self._closers_waiting -= 1
             self._closings += 1
+            self._closers[me] = self._closers.get(me, 0) + 1
             self._cond.wait_for(lambda: not self._turns)
         try:
             yield
         finally:
             with self._cond:
                 self._closings -= 1
-                if not self._closings:
-                    self._cond.notify_all()
+                self._closers[me] -= 1
+                if not self._closers[me]:
+                    del self._closers[me]
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def warming(self):
+        """Held by a warm-up while it runs: the gate stays open, and no
+        other thread's closing begins until it ends."""
+        me = threading.get_ident()
+        with self._cond:
+            self._cond.wait_for(
+                lambda: self._warmers.get(me) or (
+                    not self._others(self._closers, me)
+                    and (not self._closers_waiting
+                         or self._closers.get(me))))
+            self._warmers[me] = self._warmers.get(me, 0) + 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._warmers[me] -= 1
+                if not self._warmers[me]:
+                    del self._warmers[me]
+                self._cond.notify_all()
 
 
 @dataclasses.dataclass

@@ -1,9 +1,13 @@
-"""HLS live-audio muxer: fMP4 segments carrying FLAC.
+"""HLS live-audio muxer: fMP4 segments carrying AAC-LC (FLAC fallback).
 
 Reference: internal/audiocore/hlsmux (hlsmux.go, segment.go, playlist.go,
 codec_aac.go) — live audio → fMP4 segments + rolling playlist for browser
-streaming. Segments carry RFC 9639 FLAC-in-ISO-BMFF ('fLaC' sample
-entry + 'dfLa' FLACSpecificBox; each MP4 sample = one FLAC frame).
+streaming. Segments carry AAC-LC (mp4a + esds, via the native encoder in
+audio.aacenc — what stock Safari/Chrome MSE plays) through ONE persistent
+stream encoder so segment joins are sample-exact. Hosts without an AAC
+encoder, and the 256 kHz bat capture (no AAC sampling index), fall back
+to RFC 9639 FLAC-in-ISO-BMFF ('fLaC' sample entry + 'dfLa'
+FLACSpecificBox; each MP4 sample = one FLAC frame).
 
 Layout served per source:
   playlist.m3u8   rolling live playlist (#EXT-X-MAP → init.mp4)
@@ -13,12 +17,10 @@ Layout served per source:
 Sessions auto-expire without heartbeats (audio_hls.go start/stop/heartbeat
 contract).
 
-A copy of ``birdnet_go_tpu/audio/hlsmux.py`` for the port, with FLAC its
-only codec: the AAC segments need the native encoder of
-``native/codecs.cpp``, which the port does not build (ROADMAP.md queue 1),
-so a session picks FLAC, as the JAX one does on a host without the
-encoder, and ``codec="aac"`` raises. ``tests/test_torch_aux.py`` holds the
-module to the original.
+A copy of ``birdnet_go_tpu/audio/hlsmux.py`` for the port, which imports
+nothing of the JAX package; its AAC segments come from the port's codec
+library (``audio/aacenc.py``). ``tests/test_torch_aux.py`` and
+``tests/test_torch_codecs.py`` hold the module to the original.
 """
 
 from __future__ import annotations
@@ -30,11 +32,9 @@ import threading
 import time
 from collections import OrderedDict
 
-from birdnet_go_tpu_torch.audio.flac import (
-    _BLOCK,
-    encode_flac_frames,
-    streaminfo_block,
-)
+import numpy as np
+
+from birdnet_go_tpu_torch.audio.flac import _BLOCK, encode_flac_frames, streaminfo_block
 
 log = logging.getLogger("birdnet_tpu.hls")
 
@@ -54,40 +54,38 @@ def full_box(kind: bytes, version: int, flags: int, payload: bytes) -> bytes:
                + struct.pack(">I", flags)[1:] + payload)
 
 
-def _check_codec(codec: str) -> None:
-    if codec != "flac":
-        raise NotImplementedError(
-            f"HLS codec {codec!r}: the port muxes FLAC only; AAC needs the "
-            "native encoder of native/codecs.cpp (ROADMAP.md queue 1, the "
-            "native codecs)")
-
-
 def init_segment(sample_rate: int, codec: str = "flac",
                  asc: bytes = b"") -> bytes:
-    """ftyp + moov for a single mono audio track (track_ID 1): an RFC 9639
-    fLaC-in-ISO-BMFF sample entry. `codec` must be "flac" and `asc` is
-    unused (the JAX function's AAC entry carries the encoder's
-    AudioSpecificConfig there)."""
-    _check_codec(codec)
+    """ftyp + moov for a single mono audio track (track_ID 1).
+
+    codec "aac": mp4a + esds sample entry carrying the encoder's
+    AudioSpecificConfig — what stock Safari/Chrome MSE plays (reference
+    hlsmux/codec_aac.go). codec "flac": RFC 9639 fLaC-in-ISO-BMFF
+    fallback for hosts without an AAC encoder."""
     ftyp = box(b"ftyp", b"iso5" + struct.pack(">I", 512) + b"iso6mp41")
 
-    # sample description: fLaC sample entry + dfLa (STREAMINFO)
-    streaminfo = streaminfo_block(sample_rate, 0)
-    dfla = full_box(b"dfLa", 0, 0,
-                    bytes([0x80, 0, 0, len(streaminfo)]) + streaminfo)
-    # SampleEntry rate is 16.16 fixed point — rates ≥ 65536 Hz (the
-    # bat 256 kHz capture) can't be represented; per ISO/IEC 14496-12
-    # the authoritative rate is the mdhd timescale, so clamp the
-    # entry field.
-    entry_rate = min(sample_rate, 0xFFFF)
-    sample_entry = box(
-        b"fLaC",
-        b"\x00" * 6 + struct.pack(">H", 1)      # data ref idx
-        + b"\x00" * 8                            # reserved
-        + struct.pack(">HH", 1, 16)              # ch, bits
-        + b"\x00" * 4
-        + struct.pack(">I", entry_rate << 16)    # rate 16.16
-        + dfla)
+    if codec == "aac":
+        from birdnet_go_tpu_torch.audio.aacenc import mp4a_entry
+
+        sample_entry = mp4a_entry(asc, sample_rate)
+    else:
+        # sample description: fLaC sample entry + dfLa (STREAMINFO)
+        streaminfo = streaminfo_block(sample_rate, 0)
+        dfla = full_box(b"dfLa", 0, 0,
+                        bytes([0x80, 0, 0, len(streaminfo)]) + streaminfo)
+        # SampleEntry rate is 16.16 fixed point — rates ≥ 65536 Hz (the
+        # bat 256 kHz capture) can't be represented; per ISO/IEC 14496-12
+        # the authoritative rate is the mdhd timescale, so clamp the
+        # entry field.
+        entry_rate = min(sample_rate, 0xFFFF)
+        sample_entry = box(
+            b"fLaC",
+            b"\x00" * 6 + struct.pack(">H", 1)      # data ref idx
+            + b"\x00" * 8                            # reserved
+            + struct.pack(">HH", 1, 16)              # ch, bits
+            + b"\x00" * 4
+            + struct.pack(">I", entry_rate << 16)    # rate 16.16
+            + dfla)
     stsd = full_box(b"stsd", 0, 0, struct.pack(">I", 1) + sample_entry)
     stts = full_box(b"stts", 0, 0, struct.pack(">I", 0))
     stsc = full_box(b"stsc", 0, 0, struct.pack(">I", 0))
@@ -168,8 +166,7 @@ class _Segment:
 
 
 class HlsSession:
-    """One live source → rolling fMP4/FLAC segments (`codec` None or
-    "flac")."""
+    """One live source → rolling fMP4/FLAC segments."""
 
     def __init__(self, source_id: str, capture_buffer,
                  segment_seconds: float = SEGMENT_SECONDS,
@@ -178,12 +175,25 @@ class HlsSession:
         self.capture = capture_buffer
         self.segment_seconds = segment_seconds
         self.sample_rate = capture_buffer.sample_rate
-        # codec auto-select: FLAC, the JAX session's choice where the
-        # native AAC encoder is missing, as it always is in the port
-        codec = codec or "flac"
-        _check_codec(codec)
+        # codec auto-select: AAC when the native encoder exists and the
+        # rate has an AAC sampling index (the 256 kHz bat capture keeps
+        # lossless FLAC); explicit codec= overrides for tests
+        self._aac = None
+        if codec is None:
+            from birdnet_go_tpu_torch.audio import aacenc
+
+            codec = ("aac" if aacenc.available()
+                     and aacenc.supported_rate(self.sample_rate)
+                     else "flac")
         self.codec = codec
-        self.init = init_segment(self.sample_rate)
+        if codec == "aac":
+            from birdnet_go_tpu_torch.audio.aacenc import AacStreamEncoder
+
+            self._aac = AacStreamEncoder(self.sample_rate, 1, 96000)
+            self.init = init_segment(self.sample_rate, "aac",
+                                     self._aac.asc)
+        else:
+            self.init = init_segment(self.sample_rate)
         self._segments: "OrderedDict[int, _Segment]" = OrderedDict()
         self._seq = 0
         self._frame_no = 0
@@ -203,16 +213,28 @@ class HlsSession:
         end = start + self.segment_seconds
         pcm = self.capture.read_segment(start, end)
         self._next_start = end
-        frames = encode_flac_frames(pcm, self.sample_rate,
-                                    first_frame_number=self._frame_no)
-        if not frames:
-            return False
-        durations = []
-        remaining = len(pcm)
-        for _ in frames:
-            durations.append(min(_BLOCK, remaining))
-            remaining -= durations[-1]
-        consumed = len(pcm)
+        if self._aac is not None:
+            # persistent encoder: partial 1024-sample frames carry over,
+            # so consecutive segments join sample-exactly (no per-segment
+            # encoder reset / priming click)
+            from birdnet_go_tpu_torch.audio.aacenc import AAC_FRAME_SAMPLES
+
+            frames = self._aac.feed(pcm)
+            if not frames:
+                return False
+            durations = [AAC_FRAME_SAMPLES] * len(frames)
+            consumed = len(frames) * AAC_FRAME_SAMPLES
+        else:
+            frames = encode_flac_frames(pcm, self.sample_rate,
+                                        first_frame_number=self._frame_no)
+            if not frames:
+                return False
+            durations = []
+            remaining = len(pcm)
+            for _ in frames:
+                durations.append(min(_BLOCK, remaining))
+                remaining -= durations[-1]
+            consumed = len(pcm)
         seg = media_segment(self._seq + 1, self._decode_time, frames,
                             durations)
         with self._lock:

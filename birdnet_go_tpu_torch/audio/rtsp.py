@@ -16,14 +16,9 @@ A copy of ``birdnet_go_tpu/audio/rtsp.py`` for the port, which imports
 nothing of the JAX package; ``tests/test_torch_sources.py`` holds it to the
 original (the SDP parser, the payload decoder bit for bit, both clients
 against one ``RtspLoadServer``, TEARDOWN, backoff, the stream kept on a
-reconnect and rebuilt on a rate change). Three divergences:
+reconnect and rebuilt on a rate change, an MPEG4-GENERIC track through
+the port's AAC decoder). Two divergences:
 
-- ``AacDepacketizer`` only refuses. The port's native library is built
-  without ``codecs.cpp`` (``native/lib.py``), so the AAC decoder is never
-  there and an MPEG4-GENERIC track raises the ``ValueError`` that JAX
-  raises when its decoder is missing
-  (``test_aac_track_refused_as_jax_without_the_decoder``); the decoder
-  comes with ROADMAP.md queue 1 item 9.
 - ``_run_once`` starts the RTP stream with what arrived in the same read
   as PLAY's reply. JAX's passes on what arrived with SETUP's (nothing)
   and drops it: on a busy host, where the reply and the first packets
@@ -113,14 +108,90 @@ def decode_payload(codec: str, payload: bytes, channels: int) -> np.ndarray:
 
 
 class AacDepacketizer:
-    """RFC 3640 MPEG4-GENERIC (AAC-hbr) RTP depacketizer + decoder: JAX's
-    decodes each access unit through the native libavcodec decoder of
-    ``codecs.cpp``, which the port's native build leaves out, so this
-    raises as JAX's does where that decoder is missing."""
+    """RFC 3640 MPEG4-GENERIC (AAC-hbr) RTP depacketizer + decoder.
+
+    Cameras commonly ship AAC audio; the reference leans on FFmpeg for
+    this (stream.go media handling) — here the AU-headers section is
+    parsed natively and each access unit decodes through ONE persistent
+    libavcodec decoder (AAC's MDCT overlap-add means per-AU decoder
+    instances would click at every frame boundary). fmtp keys honored:
+    config (AudioSpecificConfig hex), sizeLength (13), indexLength (3),
+    indexDeltaLength (3)."""
 
     def __init__(self, rate: int, channels: int, fmtp: dict[str, str]):
-        raise ValueError("native AAC decoder unavailable for "
-                         "MPEG4-GENERIC stream")
+        from birdnet_go_tpu_torch.native import lib as native
+
+        nlib = native._load_codecs()
+        if nlib is None or not hasattr(nlib, "bn_aac_decoder_create") \
+                or not nlib.bn_aac_available():
+            raise ValueError("native AAC decoder unavailable for "
+                             "MPEG4-GENERIC stream")
+        self._lib = nlib
+        self.channels = max(1, channels)
+        self.size_len = int(fmtp.get("sizelength", 13))
+        self.index_len = int(fmtp.get("indexlength", 3))
+        self.index_delta_len = int(fmtp.get("indexdeltalength", 3))
+        asc = bytes.fromhex(fmtp.get("config", ""))
+        self._h = nlib.bn_aac_decoder_create(asc, len(asc), rate,
+                                             self.channels)
+        if not self._h:
+            raise ValueError("AAC decoder init failed (bad config?)")
+        self._out = np.zeros(8192 * self.channels, np.int16)
+        self._out_ptr = native._i16_ptr(self._out)   # hot path: once
+
+    def decode(self, payload: bytes) -> np.ndarray:
+        """One RTP payload → mono int16 (possibly several AUs)."""
+        if len(payload) < 2:
+            return np.empty(0, np.int16)
+        hdr_bits = int.from_bytes(payload[:2], "big")
+        n_hdr_bytes = (hdr_bits + 7) // 8
+        bits = int.from_bytes(payload[2:2 + n_hdr_bytes], "big")
+        sizes = []
+        consumed = 0
+        first = True
+        while True:
+            # each AU header is sizeLength + (indexLength for the FIRST
+            # AU, indexDeltaLength for the rest) bits — using a fixed
+            # stride would drop the final AU whenever the two differ
+            step = self.size_len \
+                + (self.index_len if first else self.index_delta_len)
+            if consumed + step > hdr_bits:
+                break
+            shift = n_hdr_bytes * 8 - consumed - self.size_len
+            sizes.append((bits >> shift) & ((1 << self.size_len) - 1))
+            consumed += step
+            first = False
+        data = payload[2 + n_hdr_bytes:]
+        pcm_parts = []
+        off = 0
+        for sz in sizes:
+            au = data[off:off + sz]
+            off += sz
+            if not au:
+                break
+            n = self._lib.bn_aac_decoder_decode(
+                self._h, au, len(au), self._out_ptr,
+                len(self._out) // self.channels)
+            if n > 0:
+                pcm = self._out[:n * self.channels]
+                if self.channels > 1:
+                    pcm = pcm.reshape(n, self.channels).mean(axis=1) \
+                        .astype(np.int16)
+                pcm_parts.append(pcm.copy())
+        if not pcm_parts:
+            return np.empty(0, np.int16)
+        return np.concatenate(pcm_parts)
+
+    def close(self) -> None:
+        if getattr(self, "_h", None):
+            self._lib.bn_aac_decoder_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 _STATIC_PT = {0: ("PCMU", 8000, 1), 8: ("PCMA", 8000, 1),
@@ -342,9 +413,10 @@ class RtspSource:
         """'$'-framed interleaved RTP → decode → engine.ingest, once for
         every whole packet read so far, before the next read waits."""
         channels = audio["channels"]
+        aac = None
         if self.codec in ("MPEG4-GENERIC", "AAC"):
-            # raises: the port's native build has no AAC decoder
-            AacDepacketizer(audio["rate"], channels, audio.get("fmtp", {}))
+            aac = AacDepacketizer(audio["rate"], channels,
+                                  audio.get("fmtp", {}))
         pending: list[np.ndarray] = []
         sizes = [0, 0]                      # packets, payload bytes pending
 
@@ -423,7 +495,8 @@ class RtspSource:
                         payload = payload[:-pad]
                 if not payload:
                     continue
-                pcm = decode_payload(self.codec, payload, channels)
+                pcm = (aac.decode(payload) if aac is not None
+                       else decode_payload(self.codec, payload, channels))
                 if len(pcm):
                     pending.append(pcm)
                     sizes[0] += 1

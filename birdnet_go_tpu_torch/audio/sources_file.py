@@ -8,9 +8,11 @@ pushing chunks into the AudioEngine like a capture callback would.
 A copy of ``birdnet_go_tpu/audio/sources_file.py`` for the port, which
 imports nothing of the JAX package; ``tests/test_torch_app.py`` holds it
 to the original. One divergence: a ``ToneSource`` that falls behind its
-pace resumes it from now, as ``FileLoopSource`` does; JAX's pushes its
-backlog back to back, and 48 such threads at once starve the device
-loop's thread of the GIL for seconds.
+pace pushes the chunks it owes in one push, and keeps its pace; JAX's
+pushes them back to back, a push a chunk, and 48 such threads at once
+starve the device loop's thread of the GIL for seconds. Neither drops
+the audio a stall held back, so the tone's capture buffer keeps up with
+the wall clock (a live HLS segment ends where the wall clock does).
 """
 
 from __future__ import annotations
@@ -147,12 +149,11 @@ class ToneSource:
         chunk_wall = self.chunk / self.rate / self.speed
         next_t = time.monotonic()
         while not self._stop.is_set():
-            self.push_seconds(self.chunk / self.rate)
-            next_t += chunk_wall
+            # the chunks due by now: one, or those a stall held back too,
+            # in one push rather than back to back
+            due = 1 + max(0, int((time.monotonic() - next_t) / chunk_wall))
+            self.push_seconds(due * self.chunk / self.rate)
+            next_t += due * chunk_wall
             delay = next_t - time.monotonic()
             if delay > 0:
                 self._stop.wait(delay)
-            else:
-                # fell behind: resume the pace from now, as FileLoopSource
-                # does, rather than push the backlog back to back
-                next_t = time.monotonic()

@@ -1,7 +1,7 @@
 """Command line of the PyTorch port: analyze / benchmark / rangefilter /
-train / model / verify-artifact / soak / serve / recover / migrate /
-support / db / auth / notify / gen-schema (ports of those commands of
-``birdnet_go_tpu/cli/main.py``).
+train / import / model / verify-artifact / soak / serve / recover /
+migrate / support / db / auth / notify / gen-schema (ports of those
+commands of ``birdnet_go_tpu/cli/main.py``).
 
     python -m birdnet_go_tpu_torch analyze recording.wav
     python -m birdnet_go_tpu_torch analyze recordings/ --device cpu
@@ -13,6 +13,7 @@ support / db / auth / notify / gen-schema (ports of those commands of
     python -m birdnet_go_tpu_torch serve --config app.json
     python -m birdnet_go_tpu_torch recover --db birds.db --clips-dir clips
     python -m birdnet_go_tpu_torch db doctor --db birds.db [--fix]
+    python -m birdnet_go_tpu_torch import BirdDB.txt --database birds.db
 
 Global flags mirror the reference's persistent flags (cmd/root.go:86-106):
 threshold, sensitivity, overlap, locale, latitude/longitude. Output lines
@@ -26,8 +27,9 @@ with its API (``api/``) where ``webserver.enabled`` is on, as by default;
 ``--host`` and ``--port`` apply as in JAX. It probes the card in a bounded
 child process first (``utils/backendprobe.py``), which raises rather than
 fall back to the CPU; its ``--config`` is YAML, or JSON where yaml is
-missing. The host commands ``recover``, ``migrate``, ``support``, ``db``,
-``auth``, ``notify`` and ``gen-schema`` use no device (``db doctor``
+missing. The host commands ``import``, ``recover``, ``migrate``,
+``support``, ``db``, ``auth``, ``notify`` and ``gen-schema`` use no
+device (``db doctor``
 connects to MySQL where ``database.type`` is ``mysql``); ``support``'s
 ``system.json`` lists the CUDA cards torch sees, and none without one;
 ``auth reset`` rewrites a config as JAX's does, in YAML, or in JSON
@@ -165,6 +167,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stratified validation fraction (0 disables)")
     common_model_flags(t)
 
+    imp = sub.add_parser("import", help="import BirdNET-Pi detections")
+    imp.add_argument("log", help="path to BirdDB.txt / detections CSV")
+    imp.add_argument("--database", default="data/birdnet.db")
+    imp.add_argument("--min-confidence", type=float, default=0.0)
+
     mdl = sub.add_parser("model", help="model gallery: list/install/remove")
     mdl.add_argument("action", choices=["list", "install", "remove"])
     mdl.add_argument("model_id", nargs="?")
@@ -282,7 +289,7 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     return {"analyze": _cmd_analyze, "benchmark": _cmd_benchmark,
             "rangefilter": _cmd_rangefilter, "train": _cmd_train,
-            "model": _cmd_model,
+            "import": _cmd_import, "model": _cmd_model,
             "verify-artifact": _cmd_verify_artifact,
             "soak": soak.run, "serve": _cmd_serve,
             "migrate": _cmd_migrate, "support": _cmd_support,
@@ -601,6 +608,18 @@ def _cmd_recover(args) -> int:
     ok = (ledger["integrity"] == "ok"
           and ledger["duplicate_detections"] == 0)
     return 0 if ok else 1
+
+
+def _cmd_import(args) -> int:
+    from birdnet_go_tpu_torch.datastore.sqlite import Datastore
+    from birdnet_go_tpu_torch.utils.imports import import_birdnet_pi
+
+    ds = Datastore(args.database)
+    res = import_birdnet_pi(ds, args.log,
+                            min_confidence=args.min_confidence)
+    print(f"scanned {res.scanned}, imported {res.imported}, "
+          f"skipped {res.skipped}, errors {res.errors}")
+    return 0 if res.errors == 0 else 1
 
 
 def _cmd_migrate(args) -> int:

@@ -1,6 +1,7 @@
 """ctypes bindings to the native host data plane (the repository's
-``native/*.cpp``), built on first use into ``build/torch_native/``; a failed
-build raises. See ``native/lib.py``."""
+``native/*.cpp``) and to the port's codec library (``csrc/codecs.cpp``),
+each built on first use into ``build/torch_native/``; a failed build
+raises. See ``native/lib.py``."""
 
 from birdnet_go_tpu_torch.native.lib import (
     AlsaCapture,
@@ -9,6 +10,8 @@ from birdnet_go_tpu_torch.native.lib import (
     alsa_available,
     alsa_list_devices,
     available,
+    avcodec_version,
+    build_codecs,
     build_native,
     fill_provider,
     set_malloc_arena_max,
@@ -18,6 +21,8 @@ __all__ = [
     "available",
     "alsa_available",
     "alsa_list_devices",
+    "avcodec_version",
+    "build_codecs",
     "build_native",
     "fill_provider",
     "NativeAnalysisBuffer",

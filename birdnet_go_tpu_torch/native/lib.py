@@ -1,23 +1,29 @@
 """ctypes loader + wrappers for libbirdnet_host.so, the native host data
-plane: a copy of ``birdnet_go_tpu/native/lib.py``, so that the port imports
-nothing of the JAX package.
+plane, and for the port's codec library: a copy of
+``birdnet_go_tpu/native/lib.py``, so that the port imports nothing of the
+JAX package.
 
-The library is built from the repository's ``native/*.cpp``, unchanged, by
-``make -C native BUILD_DIR=build/torch_native`` at the root of the
-checkout (``build_native`` says which source it leaves out and which
-header it adds). The first ``_load`` in a process runs make, which
-rebuilds only when a source is newer than the library, under a file lock
-that keeps concurrent processes from writing the library at once. The port
-has its own build directory and never shares ``build/libbirdnet_host.so``
-with the JAX loader. Four things differ from the original: a failed build
-or load raises, so nothing quietly drops to the Python buffers; the codec
-bindings are gone with ``codecs.cpp``; ``StreamFarm.collect`` checks its
-buffers before it passes their pointers; and ``NativeAnalysisBuffer.read``
-allocates a window only when one is ready (the app's loop polls every
-ring every tick). ``fill_provider`` adapts a
-farm to ``DeviceLoop.add_fill_provider``. ``tests/test_torch_native.py``
-holds the ring and the farm to the JAX package's and to the port's
-``AnalysisBuffer``.
+The host library is built from the repository's ``native/*.cpp``,
+unchanged, by ``make -C native BUILD_DIR=build/torch_native`` at the root
+of the checkout (``build_native`` says which source it leaves out and which
+header it adds). The codec library, ``libbirdnet_codecs.so`` beside it, is
+built from the port's own ``csrc/codecs.cpp`` by the compiler alone
+(``build_codecs``: g++ with ``-ldl`` and no codec header; Opus, MP3 and AAC
+are dlopen'd at run time). The first ``_load`` or ``_load_codecs`` in a
+process builds its library, which is rebuilt only when its source is newer,
+under a file lock that keeps concurrent processes from writing it at once.
+The port has its own build directory and never shares
+``build/libbirdnet_host.so`` with the JAX loader. Four things differ from
+the original: a failed build or load raises, so nothing quietly drops to
+the Python buffers (a codec library missing at run time is another matter:
+its ``*_available()`` is false, as in JAX); the codec bindings live on the
+codec library; ``StreamFarm.collect`` checks its buffers before it passes
+their pointers; and ``NativeAnalysisBuffer.read`` allocates a window only
+when one is ready (the app's loop polls every ring every tick).
+``fill_provider`` adapts a farm to ``DeviceLoop.add_fill_provider``.
+``tests/test_torch_native.py`` holds the ring and the farm to the JAX
+package's and to the port's ``AnalysisBuffer``;
+``tests/test_torch_codecs.py`` holds the codecs to JAX's.
 """
 
 from __future__ import annotations
@@ -43,8 +49,12 @@ _SRC_DIR = _REPO_ROOT / "native"
 # (see build_native)
 _SOURCES = ("birdnet_host.cpp", "stream_farm.cpp", "rtsp_plane.cpp")
 
+_CODECS_SRC = Path(__file__).resolve().parents[1] / "csrc" / "codecs.cpp"
+_CODECS_PATH = BUILD_DIR / "libbirdnet_codecs.so"
+
 _lib = None
 _lib_lock = threading.Lock()
+_codecs = None
 
 
 def build_native() -> Path:
@@ -53,10 +63,9 @@ def build_native() -> Path:
 
     Two settings go to make on its command line; the Makefile and the
     sources stay as they are:
-    - ``SRCS``: every source but ``codecs.cpp``. Its Opus, MP3 and AAC
-      encoders serve the app's clip export, which the port does not have,
-      and it needs FFmpeg's headers to compile, which a machine with only
-      a compiler lacks.
+    - ``SRCS``: every source but ``codecs.cpp``, which needs FFmpeg's
+      headers to compile, which a machine with only a compiler lacks; the
+      port's codecs are its own library (``build_codecs``).
     - ``CXX``: the compiler (``$CXX``, else g++) with ``-include
       system_error``. The sources catch ``std::system_error`` without
       including its header, and newer libstdc++ headers (GCC 13 and later)
@@ -78,6 +87,105 @@ def build_native() -> Path:
         raise RuntimeError(f"native build failed ({res.returncode}):\n"
                            f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
     return _LIB_PATH
+
+
+def build_codecs() -> Path:
+    """Compile ``csrc/codecs.cpp`` into BUILD_DIR's codec library with
+    ``$CXX`` (else g++) and ``-ldl``, when the library is missing or older
+    than its source; returns its path. It includes no codec header, so it
+    builds wherever a C++17 compiler does. Raises RuntimeError when the
+    compiler fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cxx = (os.environ.get("CXX") or "g++").split()
+    with open(BUILD_DIR / "codecs.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if _CODECS_PATH.is_file() and (_CODECS_PATH.stat().st_mtime
+                                           >= _CODECS_SRC.stat().st_mtime):
+                return _CODECS_PATH
+            tmp = _CODECS_PATH.with_name(f"{_CODECS_PATH.name}.{os.getpid()}")
+            try:
+                res = subprocess.run(
+                    cxx + ["-O2", "-fPIC", "-std=c++17", "-Wall", "-Wextra",
+                           "-fvisibility=hidden", "-pthread", "-shared",
+                           str(_CODECS_SRC), "-o", str(tmp), "-ldl",
+                           "-pthread"],
+                    capture_output=True, text=True, timeout=300)
+            except (OSError, subprocess.TimeoutExpired) as e:
+                raise RuntimeError(f"codec build could not run: {e}") from e
+            if res.returncode != 0 or not tmp.is_file():
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"codec build failed ({res.returncode}):"
+                                   f"\n{res.stdout[-2000:]}"
+                                   f"{res.stderr[-2000:]}")
+            tmp.replace(_CODECS_PATH)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return _CODECS_PATH
+
+
+def _load_codecs():
+    """The codec library, built on first use (``build_codecs``) and bound;
+    raises if it cannot be built or loaded. Whether libopus, libmp3lame
+    and libavcodec are there is asked of it (``bn_*_available``)."""
+    global _codecs
+    with _lib_lock:
+        if _codecs is not None:
+            return _codecs
+        lib = ctypes.CDLL(str(build_codecs()))
+        i16p, c_int, i64, i32p = (ctypes.POINTER(ctypes.c_int16),
+                                  ctypes.c_int, ctypes.c_int64,
+                                  ctypes.POINTER(ctypes.c_int32))
+        lib.bn_opus_available.restype = c_int
+        lib.bn_opus_encode.restype = i64
+        lib.bn_opus_encode.argtypes = [i16p, i64, c_int, c_int, c_int,
+                                       ctypes.c_char_p, i64, i32p, i32p]
+        lib.bn_opus_decode.restype = i64
+        lib.bn_opus_decode.argtypes = [ctypes.c_char_p, i64, c_int, c_int,
+                                       i16p, i64]
+        lib.bn_opus_stream_create.restype = ctypes.c_void_p
+        lib.bn_opus_stream_create.argtypes = [c_int, c_int, c_int, i32p]
+        lib.bn_opus_stream_encode.restype = i64
+        lib.bn_opus_stream_encode.argtypes = [
+            ctypes.c_void_p, i16p, i64, ctypes.c_char_p, i64, i32p]
+        lib.bn_opus_stream_destroy.argtypes = [ctypes.c_void_p]
+        lib.bn_mp3_available.restype = c_int
+        lib.bn_mp3_encode.restype = i64
+        lib.bn_mp3_encode.argtypes = [i16p, i64, c_int, c_int, c_int,
+                                      ctypes.c_char_p, i64]
+        lib.bn_avcodec_version.restype = ctypes.c_uint
+        lib.bn_aac_available.restype = c_int
+        lib.bn_aac_stream_create.restype = ctypes.c_void_p
+        lib.bn_aac_stream_create.argtypes = [
+            c_int, c_int, c_int, ctypes.c_char_p, ctypes.c_int32, i32p]
+        lib.bn_aac_stream_encode.restype = i64
+        lib.bn_aac_stream_encode.argtypes = [
+            ctypes.c_void_p, i16p, i64, ctypes.c_char_p, i64, i32p]
+        lib.bn_aac_stream_flush.restype = i64
+        lib.bn_aac_stream_flush.argtypes = [ctypes.c_void_p,
+                                            ctypes.c_char_p, i64, i32p]
+        lib.bn_aac_stream_destroy.argtypes = [ctypes.c_void_p]
+        lib.bn_aac_stream_delay.restype = ctypes.c_int32
+        lib.bn_aac_stream_delay.argtypes = [ctypes.c_void_p]
+        lib.bn_aac_decode.restype = i64
+        lib.bn_aac_decode.argtypes = [
+            ctypes.c_char_p, i64, ctypes.c_char_p, ctypes.c_int32, c_int,
+            c_int, i16p, i64]
+        lib.bn_aac_decoder_create.restype = ctypes.c_void_p
+        lib.bn_aac_decoder_create.argtypes = [ctypes.c_char_p,
+                                              ctypes.c_int32, c_int, c_int]
+        lib.bn_aac_decoder_decode.restype = i64
+        lib.bn_aac_decoder_decode.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, i64, i16p, i64]
+        lib.bn_aac_decoder_destroy.argtypes = [ctypes.c_void_p]
+        _codecs = lib
+        return _codecs
+
+
+def avcodec_version() -> int:
+    """``avcodec_version()`` of the libavcodec the codec library found
+    (major << 16 | minor << 8 | micro), or 0 without one."""
+    return int(_load_codecs().bn_avcodec_version())
 
 
 def _load():

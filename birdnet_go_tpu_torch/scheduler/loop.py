@@ -25,9 +25,10 @@ dispatch→result latency exceeds ClipLength/2; overruns are counted.
 Given an ``AudioEngine``'s ``SourceGate``, the ``DeviceLoop`` holds it
 closed for the whole of each tick and a ``TorchModelBatcher`` while it
 launches a step, so that the source threads wait on a lock and not on the
-GIL meanwhile. A warm-up holds no gate: it includes the first call's
-set-up, up to 1.2 s for v3.0 on an NVIDIA H100 80GB HBM3 (700.00 W), and
-a live source (RTSP, a sound card) cannot hold its audio that long.
+GIL meanwhile. A warm-up holds the gate open (``SourceGate.warming``):
+it includes the first call's set-up, up to 1.2 s for v3.0 on an NVIDIA
+H100 80GB HBM3 (700.00 W), and a live source (RTSP, a sound card) cannot
+hold its audio that long; a tick waits for it to end.
 """
 
 from __future__ import annotations
@@ -373,12 +374,15 @@ class TorchModelBatcher(HostBatcher):
     def warmup(self) -> float:
         """Run one step ahead of live traffic; returns its seconds."""
         t0 = time.monotonic()
-        # no gate: the first call's set-up would hold every source off
-        # (as JAX's load does, this runs beside them)
-        self._step(self._to_device(self._staged), self.sensitivity,
-                   self.top_k, self.classifier._range_mask)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        # the gate held open: the first call's set-up would hold every
+        # source off, and a tick that closed it meanwhile would trade the
+        # GIL with it (the tick waits instead; ``SourceGate``)
+        with (self.gate.warming() if self.gate is not None
+              else contextlib.nullcontext()):
+            self._step(self._to_device(self._staged), self.sensitivity,
+                       self.top_k, self.classifier._range_mask)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         dt = time.monotonic() - t0
         log.info("%s warmed up: batch %d in %.1fs", self.spec.model_id,
                  self.max_batch, dt)

@@ -4,8 +4,6 @@ such a subsystem on (``Application._unported``), and the API answers it
 with 501 on a route that needs one (``api/handlers_ext.py``,
 ``UNPORTED_ROUTES``)."""
 
-IMPORTERS = ("ROADMAP.md queue 1 item 9 (the native codecs and the "
-             "BirdNET-Pi importers)")
 LOGINS = ("ROADMAP.md queue 1 item 10 (the terminal, TLS, and the OIDC, "
           "GitHub and Cloudflare logins)")
 

@@ -968,9 +968,12 @@ def test_file_response_ranges_and_conditionals(pair):
 
 def test_unported_routes_answer_501_with_their_item(pair):
     """Every route of ``UNPORTED_ROUTES`` answers 501 naming its ROADMAP
-    item (9 or 10: the integrations of item 8 are served)."""
+    item (10: the integrations of item 8 are served, and the importers
+    of item 9, whose ``imports/*`` routes answer as JAX's in
+    ``tests/test_torch_imports.py``)."""
     from birdnet_go_tpu_torch.api.handlers_ext import UNPORTED_ROUTES
 
+    assert not [r for _, r in UNPORTED_ROUTES if r.startswith("/imports")]
     side = pair["torch"]
     for (method, route), (what, item) in sorted(UNPORTED_ROUTES.items()):
         path = V2 + route.replace("{id}", "1")
@@ -979,7 +982,7 @@ def test_unported_routes_answer_501_with_their_item(pair):
         err = json.loads(b)["error"]
         assert item in err and what in err and "ROADMAP.md queue 1 " \
             "item " in err, err
-        assert "item 8" not in err, err
+        assert "item 8" not in err and "item 9" not in err, err
 
 
 class _Ran:
@@ -1281,11 +1284,13 @@ def test_stop_returns_with_sse_clients_connected(tiny_v24, tmp_path,  # noqa: F8
 
 def test_hls_routes(pair):
     """HLS through both servers: start a session on a source, its
-    playlist, its init segment, a heartbeat, stop. The port's init
-    segment is JAX's FLAC one byte for byte (JAX muxes AAC where its
-    native codecs are built, as here; the port muxes FLAC, as JAX does
-    without them)."""
+    playlist, its init segment, a heartbeat, stop. The init segments are
+    equal byte for byte: AAC where both packages' codec libraries have
+    it, as here; the port's FLAC one where only JAX's has it (as JAX
+    muxes without it)."""
+    from birdnet_go_tpu.audio import aacenc as jaac
     from birdnet_go_tpu.audio.hlsmux import init_segment
+    from birdnet_go_tpu_torch.audio import aacenc as taac
 
     inits = {}
     for name, side in pair.items():
@@ -1301,32 +1306,134 @@ def test_hls_routes(pair):
         assert c.call("POST", f"{V2}/audio/hls/tone0/heartbeat")[0] == 200
         st, _, b = c.call("POST", f"{V2}/audio/hls/tone0/stop")
         assert (st, json.loads(b)) == (200, {"stopped": True})
-    assert inits["torch"] == init_segment(48000, "flac")
+    if taac.available() == jaac.available():
+        assert inits["torch"] == inits["jax"]
+    else:
+        assert inits["torch"] == init_segment(48000, "flac")
+    assert (b"mp4a" in inits["torch"]) == taac.available()
+
+
+def _dechunk(head: bytes, body: bytes) -> bytes:
+    """The payload of a response body read so far: its chunks joined
+    where the head says ``Transfer-Encoding: chunked`` (a chunk cut off
+    at the end is left out)."""
+    if b"chunked" not in head.lower():
+        return body
+    out, off = b"", 0
+    while True:
+        eol = body.find(b"\r\n", off)
+        if eol < 0:
+            return out
+        size = int(body[off:eol].split(b";")[0], 16)
+        if size == 0 or eol + 2 + size > len(body):
+            return out
+        out += body[eol + 2:eol + 2 + size]
+        off = eol + 2 + size + 2
+
+
+def _live(side, query: str, pages: int = 3) -> tuple[bytes, bytes]:
+    """The head and the payload read first of ``audio/live/tone0`` +
+    `query`: through the WAV header, or through `pages` Ogg pages."""
+    s = socket.create_connection(("127.0.0.1", side.client.port))
+    s.sendall(f"GET {V2}/audio/live/tone0{query} HTTP/1.1\r\nHost: x\r\n"
+              f"Cookie: {side.client.cookie}\r\n\r\n".encode())
+    s.settimeout(10)
+    data = b""
+    try:
+        while True:
+            head, _, body = data.partition(b"\r\n\r\n")
+            payload = _dechunk(head, body)
+            if b"WAVE" in payload or payload.count(b"OggS") > pages:
+                return head, payload
+            chunk = s.recv(4096)
+            assert chunk and len(data) < 1 << 20, (query, data[:300])
+            data += chunk
+    finally:
+        s.close()
+
+
+def _pages(blob: bytes) -> bytes:
+    """The whole Ogg pages at the start of `blob` (their CRCs checked)."""
+    from birdnet_go_tpu_torch.audio.opusogg import parse_ogg_pages
+
+    off = 0
+    while off + 27 <= len(blob):
+        nsegs = blob[off + 26]
+        end = off + 27 + nsegs + sum(blob[off + 27:off + 27 + nsegs])
+        if end > len(blob):
+            break
+        off = end
+    parse_ogg_pages(blob[:off])
+    return blob[:off]
 
 
 def test_live_audio_serves_wav(pair):
-    """``audio/live/{source}``: a WAV stream, its header as JAX's; the
-    port's also for ``format=opus`` (it has no Opus encoder; JAX falls
-    back to WAV where libopus is missing, and serves Opus here)."""
+    """``audio/live/{source}``: a WAV stream, its header as JAX's; with
+    ``format=opus`` an Ogg Opus stream where the package's codec library
+    has libopus, else WAV, in both, whose header pages are JAX's byte for
+    byte where both have it (the audio pages are
+    ``test_live_audio_opus_equal_jax``'s)."""
+    from birdnet_go_tpu.audio import opusogg as jopus
+    from birdnet_go_tpu_torch.audio import opusogg as topus
+
     heads = {}
     for name, side in pair.items():
-        for q in ("", "?format=opus")[:2 if name == "torch" else 1]:
-            s = socket.create_connection(("127.0.0.1", side.client.port))
-            s.sendall(f"GET {V2}/audio/live/tone0{q} HTTP/1.1\r\nHost: x\r\n"
-                      f"Cookie: {side.client.cookie}\r\n\r\n".encode())
-            s.settimeout(10)
-            data = b""
-            while b"WAVE" not in data:
-                chunk = s.recv(4096)
-                assert chunk and len(data) < 65536, (name, q, data[:300])
-                data += chunk
-            s.close()
-            head, _, body = data.partition(b"\r\n\r\n")
-            assert b"audio/wav" in head, head
-            heads[name, q] = body[body.index(b"RIFF"):body.index(b"RIFF")
-                                  + 12]
-    assert heads["torch", "?format=opus"] == heads["torch", ""]
+        for q in ("", "?format=opus"):
+            head, payload = _live(side, q)
+            kind = b"audio/ogg" if payload.startswith(b"OggS") \
+                else b"audio/wav"
+            assert kind in head, head
+            heads[name, q] = (kind, payload[:12] if kind == b"audio/wav"
+                              else topus.parse_ogg_pages(
+                                  _pages(payload))[:2])
     assert heads["torch", ""] == heads["jax", ""]
+    assert heads["torch", ""][0] == b"audio/wav"
+    assert heads["torch", "?format=opus"][0] == (
+        b"audio/ogg" if topus.opus_available() else b"audio/wav")
+    if topus.opus_available() == jopus.opus_available():
+        assert heads["torch", "?format=opus"] == heads["jax", "?format=opus"]
+
+
+class _Chunks:
+    """A capture buffer whose every ``read_segment`` returns the next
+    0.25 s of a seeded tone over noise, whatever the span asked for."""
+
+    def __init__(self, rate: int = 48000):
+        rng = np.random.default_rng(11)
+        t = np.arange(rate * 4) / rate
+        self.pcm = np.clip(9000 * np.sin(2 * np.pi * 1500 * t)
+                           + 600 * rng.standard_normal(len(t)),
+                           -32768, 32767).astype(np.int16)
+        self.sample_rate, self.k = rate, 0
+
+    def read_segment(self, a: float, b: float) -> np.ndarray:
+        n = self.sample_rate // 4
+        out = self.pcm[self.k * n % len(self.pcm):][:n]
+        self.k += 1
+        return out
+
+
+def test_live_audio_opus_equal_jax(pair, monkeypatch):
+    """``audio/live/{source}?format=opus``: the port's bytes are JAX's
+    handler's, header and audio pages, for the same PCM (each server's
+    capture buffer handing out the same chunks in turn), where both
+    codec libraries have libopus."""
+    from birdnet_go_tpu.audio import opusogg as jopus
+    from birdnet_go_tpu_torch.audio import opusogg as topus
+
+    if not (jopus.opus_available() and topus.opus_available()):
+        pytest.skip("libopus is missing from a package's codec library")
+    streams = {}
+    for name, side in pair.items():
+        monkeypatch.setattr(side.app.engine, "capture_buffer",
+                            lambda sid, cb=_Chunks(): cb)
+        head, payload = _live(side, "?format=opus", pages=8)
+        assert b"audio/ogg" in head, head
+        streams[name] = _pages(payload)
+    t, j = (topus.parse_ogg_pages(streams[k]) for k in ("torch", "jax"))
+    n = min(len(t), len(j))
+    assert n >= 6 and t[:n] == j[:n]
+    assert t[0]["packets"][0][:8] == b"OpusHead"
 
 
 # -- the SPA, auth reset, the helper modules ------------------------------------------------

@@ -37,6 +37,7 @@ image service built in ``setup``, and ``load_settings`` reading JSON
 where yaml is missing.
 """
 
+import contextlib
 import copy
 import dataclasses
 import datetime
@@ -731,16 +732,19 @@ def test_tone_source_pcm(rate, pulse):
 class _Pacer:
     """A fake clock for a source's pacing loop: ``wait`` advances it and
     the engine's ingest costs `push_s` of it; the clock jumps `lag_s` at
-    the second push, as a stalled host would."""
+    the second push, as a stalled host would. Records each push's samples
+    and the clock when it began."""
 
     def __init__(self, push_s: float, lag_s: float, pushes: int):
         self.t, self.push_s, self.lag_s = 100.0, push_s, lag_s
         self.pushes, self.limit, self.waits = 0, pushes, []
+        self.pushed = []
 
     def monotonic(self):
         return self.t
 
     def ingest(self, source_id, pcm, timestamp=None):
+        self.pushed.append((self.t, len(pcm)))
         self.pushes += 1
         self.t += self.push_s + (self.lag_s if self.pushes == 2 else 0.0)
 
@@ -754,9 +758,11 @@ class _Pacer:
 
 def test_tone_source_does_not_burst_after_a_stall(monkeypatch):
     """The port's divergence: a ``ToneSource`` 1 s behind its pace (a
-    stalled host) resumes it from now; JAX's pushes the backlog back to
-    back, ten 0.1 s chunks without a wait."""
-    waits = {}
+    stalled host) pushes the ten 0.1 s chunks it owes in one push, then
+    keeps its pace; JAX's pushes them back to back, ten pushes without a
+    wait. Neither drops audio: by the last push both have pushed what
+    the clock says is due, one chunk ahead of it."""
+    pacers = {}
     for P in (J, T):
         pacer = _Pacer(push_s=0.001, lag_s=1.0, pushes=16)
         monkeypatch.setattr(P.sources_file, "time", types.SimpleNamespace(
@@ -764,12 +770,19 @@ def test_tone_source_does_not_burst_after_a_stall(monkeypatch):
         src = P.sources_file.ToneSource(pacer, source_id="t")
         src._stop = pacer
         src._run()
-        waits[P.app.__name__] = pacer.waits
+        pacers[P.app.__name__] = pacer
+    jax, port = pacers["birdnet_go_tpu.app"], pacers["birdnet_go_tpu_torch.app"]
     # JAX: after the stall, ten pushes without a wait (the backlog)
-    assert len(waits["birdnet_go_tpu.app"]) == 16 - 10
-    # the port: one push late, then the pace again (a wait every push)
-    assert len(waits["birdnet_go_tpu_torch.app"]) == 16 - 1
-    assert waits["birdnet_go_tpu_torch.app"][1:] == [0.099] * 14
+    assert len(jax.waits) == 16 - 10
+    # the port: the backlog in the third push, then a wait every push
+    assert [n for _, n in port.pushed[:4]] == [4800, 4800, 48000, 4800]
+    assert len(port.waits) == 16 - 1
+    assert port.waits[2:] == [0.099] * 13
+    # no audio dropped: each has pushed through the clock plus one chunk
+    for pacer in (jax, port):
+        t_last, _ = pacer.pushed[-1]
+        pushed_s = sum(n for _, n in pacer.pushed) / 48000
+        assert abs(pushed_s - (t_last - 100.0) - 0.1) < 0.01, pacer.pushed
 
 
 @pytest.mark.parametrize("loop", [True, False])
@@ -1031,6 +1044,104 @@ def test_a_source_ingests_while_a_warmup_runs(tmp_path, monkeypatch,
         src.join(10)
         assert done.is_set() and not step.is_alive()
     assert gate._closings == 0 and gate._turns == 0
+    app.datastore.close()
+
+
+
+def test_no_gate_closing_overlaps_a_warmup(tmp_path, monkeypatch,
+                                           tiny_v24):
+    """Repair of phase 18's stall (a tick closed the gate for 397.8 ms
+    beside v3.0's warm-up and traded the GIL with it): a 0.3 s warm-up
+    on one thread and ticks on the device loop's own thread. No closing
+    of the gate, measured from inside it, meets the warm-up's hold; a
+    source ingests throughout; and a warm-up on the loop's own thread,
+    between two ticks and inside one, ends (no deadlock)."""
+    _patch_models(T, monkeypatch, tiny_v24)
+    app = T.app.Application(_app_settings(T, tmp_path), device="cpu")
+    app.setup()
+    gate, loop = app.engine.gate, app.device_loop
+    b = loop.batchers["BirdNET_V2.4"]
+    real_step = b._step
+
+    def slow_step(*a):
+        time.sleep(0.3)
+        return real_step(*a)
+
+    b._step = slow_step
+    closings, holds = [], []
+    real_closed, real_warming = gate.closed, gate.warming
+
+    @contextlib.contextmanager
+    def closed():
+        with real_closed():
+            a = time.monotonic()
+            yield
+            closings.append((threading.get_ident(), a, time.monotonic()))
+
+    @contextlib.contextmanager
+    def warming():
+        with real_warming():
+            a = time.monotonic()
+            yield
+            holds.append((threading.get_ident(), a, time.monotonic()))
+
+    gate.closed, gate.warming = closed, warming
+    turns, stop = [], threading.Event()
+
+    def source():
+        while not stop.is_set():
+            with gate.turn():
+                turns.append(time.monotonic())
+            time.sleep(0.005)
+
+    def ticks():
+        while not stop.is_set():
+            loop.run_tick()
+            time.sleep(0.01)
+
+    threads = [threading.Thread(target=f) for f in (source, ticks)]
+    for th in threads:
+        th.start()
+    try:
+        _wait(lambda: len(closings) > 3)
+        warm = threading.Thread(target=b.warmup)
+        warm.start()
+        warm.join(10)
+        assert not warm.is_alive(), "the warm-up never ended"
+        _wait(lambda: closings and closings[-1][1] > holds[-1][2])
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(10)
+    assert not any(th.is_alive() for th in threads), "a deadlock"
+    (_, h0, h1), = holds
+    assert h1 - h0 >= 0.3
+    assert not [c for c in closings if c[1] < h1 and c[2] > h0], closings
+    # sources ingested throughout the hold: no gap of 0.1 s
+    inside = [h0] + [t for t in turns if h0 < t < h1] + [h1]
+    assert max(y - x for x, y in zip(inside, inside[1:])) < 0.1, inside
+
+    # a warm-up on the loop's own thread, between ticks and inside one
+    done = []
+    collect = loop._providers[0]
+
+    def warm_in_tick():
+        if not done:
+            done.append(b.warmup())
+        return collect()
+
+    loop._providers[0] = warm_in_tick
+
+    def on_loop_thread():
+        b.warmup()
+        loop.run_tick()
+
+    th = threading.Thread(target=on_loop_thread)
+    th.start()
+    th.join(10)
+    assert not th.is_alive() and len(done) == 1, "a deadlock"
+    assert gate._closings == 0 and gate._turns == 0
+    assert not gate._closers and not gate._warmers
     app.datastore.close()
 
 

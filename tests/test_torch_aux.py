@@ -27,11 +27,12 @@ observes; ``_both`` asserts the two records equal. Tolerances:
 - sound levels: the raw band levels within 0.05 dB; the published levels
   are rounded to 0.1 dB, so within one rounding step.
 
-The JAX package encodes Opus, MP3 and AAC through native codecs the port
-does not build; its cases run with those codecs reported missing, the path
-the port always takes. The port's own divergences have tests of their own:
-``.m4a`` decoding and ``codec="aac"`` refused, and ``device="cuda"``
-refused without a card.
+Opus, MP3 and AAC run through each package's codec library (the port's
+``csrc/codecs.cpp``); the cases of the paths without them run with every
+codec reported missing in both (``no_native_codecs``), ``.m4a`` decoding
+and AAC HLS through both where both libraries have AAC, and refused alike
+where neither has. The port's own divergence has a test of its own:
+``device="cuda"`` refused without a card.
 """
 
 import dataclasses
@@ -65,6 +66,7 @@ def _pkg(name: str) -> SimpleNamespace:
         ("flac", "audio.flac"),
         ("encode", "audio.encode"),
         ("hlsmux", "audio.hlsmux"),
+        ("aacenc", "audio.aacenc"),
         ("wav", "audio.wav"),
         ("actions", "analysis.actions"),
         ("results", "analysis.results"),
@@ -116,13 +118,35 @@ def _both(case, *args):
 
 @pytest.fixture
 def no_native_codecs(monkeypatch):
-    """The JAX package's Opus, MP3 and AAC codecs reported missing, as the
-    port's always are."""
-    from birdnet_go_tpu.audio import aacenc, opusogg
+    """Both packages on a host without libopus, libmp3lame and libavcodec
+    (``_without_codecs``)."""
+    _without_codecs(monkeypatch)
 
-    monkeypatch.setattr(opusogg, "opus_available", lambda: False)
-    monkeypatch.setattr(opusogg, "mp3_available", lambda: False)
-    monkeypatch.setattr(aacenc, "available", lambda: False)
+
+def _without_codecs(monkeypatch) -> None:
+    """Each package's codec library reports every codec missing
+    (``_WithoutCodecs``)."""
+    from birdnet_go_tpu.native import lib as jn
+    from birdnet_go_tpu_torch.native import lib as tn
+
+    jlib, tlib = jn._load(), tn._load_codecs()
+    if jlib is not None:
+        monkeypatch.setattr(jn, "_load", lambda: _WithoutCodecs(jlib))
+    monkeypatch.setattr(tn, "_load_codecs", lambda: _WithoutCodecs(tlib))
+
+
+class _WithoutCodecs:
+    """A native library whose codec libraries are missing: every
+    ``bn_*_available`` answers 0, the rest is the library's."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        if name in ("bn_opus_available", "bn_mp3_available",
+                    "bn_aac_available"):
+            return lambda: 0
+        return getattr(self._lib, name)
 
 
 def _pcm(n: int, seed: int, amp: float = 4000.0) -> np.ndarray:
@@ -382,9 +406,36 @@ def test_encode_clip_lossy_paths_equal_jax(tmp_path, monkeypatch,
     assert out[6][:2] == ["wav", "flac"]
 
 
-def test_load_clip_audio_refuses_m4a_in_the_port(tmp_path):
-    with pytest.raises(NotImplementedError, match="native codecs"):
-        T.encode.load_clip_audio(tmp_path / "x.m4a")
+def _m4a(P, d):
+    """A 1 s tone over noise encoded to .m4a by ``encode_clip`` and
+    loaded by ``load_clip_audio``: the file's bytes and the samples."""
+    pcm = _pcm(48000, 9)
+    out = P.encode.encode_clip(pcm, 48000, d / "c.m4a", fmt="aac")
+    return out.name, out.read_bytes(), P.encode.load_clip_audio(out)
+
+
+def test_load_clip_audio_refuses_m4a_in_the_port(tmp_path, monkeypatch):
+    """``load_clip_audio`` decodes an .m4a as JAX's does, where both codec
+    libraries have AAC: the same file, the same samples, the clip's
+    length once the priming is trimmed. On a host without libavcodec both
+    refuse it alike (JAX's behaviour there)."""
+    from birdnet_go_tpu.audio import aacenc as jaac
+    from birdnet_go_tpu_torch.audio import aacenc as taac
+
+    if jaac.available() and taac.available():
+        name, _, (samples, rate) = _both(
+            lambda P: _m4a(P, _dir(tmp_path, P)))
+        assert name == "c.m4a" and rate == 48000
+        assert 48000 <= len(samples) < 48000 + 1024
+    src = T.aacenc.write_m4a(tmp_path / "x.m4a", [b"\x21\x00" * 9] * 3,
+                             b"\x11\x88", 48000, priming=1024)
+    _without_codecs(monkeypatch)
+    errors = []
+    for P in (J, T):
+        with pytest.raises(RuntimeError) as e:
+            P.encode.load_clip_audio(src)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] == "native AAC decoder unavailable"
 
 
 # -- SaveAudioAction ----------------------------------------------------------
@@ -524,12 +575,38 @@ def test_hls_manager_sessions_and_expiry_equal_jax(no_native_codecs):
                                    False, None, True, False]
 
 
-def test_hls_refuses_aac_in_the_port():
-    cb = T.buffers.CaptureBuffer(48000, capacity_seconds=1)
-    with pytest.raises(NotImplementedError, match="native codecs"):
-        T.hlsmux.HlsSession("s", cb, codec="aac")
-    with pytest.raises(NotImplementedError, match="native codecs"):
-        T.hlsmux.init_segment(48000, "aac")
+def _hls_aac(P, t0):
+    """An AAC session over 12 s of a tone over noise: its init segment and
+    its first four segments."""
+    cb = P.buffers.CaptureBuffer(48000, capacity_seconds=30)
+    cb.write(_pcm(48000 * 12, 10), timestamp=t0)
+    s = P.hlsmux.HlsSession("s1", cb, segment_seconds=2.0, codec="aac")
+    ticks = [s.tick(t0 + 4 + i * 2) for i in range(4)]
+    return [s.codec, s.init, ticks, [s.segment(i) for i in range(1, 5)],
+            s.playlist(), P.hlsmux.init_segment(48000, "aac", s._aac.asc)]
+
+
+def test_hls_refuses_aac_in_the_port(monkeypatch):
+    """AAC HLS as JAX's, where both codec libraries have AAC: the same
+    init segment (mp4a + esds) and segments, byte for byte. On a host
+    without libavcodec both refuse an AAC session alike (JAX's behaviour
+    there), and the auto-selected codec is FLAC."""
+    from birdnet_go_tpu.audio import aacenc as jaac
+    from birdnet_go_tpu_torch.audio import aacenc as taac
+
+    if jaac.available() and taac.available():
+        rec = _both(_hls_aac, time.time() - 12)
+        assert rec[0] == "aac" and b"mp4a" in rec[1] and all(rec[2])
+    _without_codecs(monkeypatch)
+    errors = []
+    for P in (J, T):
+        cb = P.buffers.CaptureBuffer(48000, capacity_seconds=1)
+        with pytest.raises(RuntimeError) as e:
+            P.hlsmux.HlsSession("s", cb, codec="aac")
+        errors.append(str(e.value))
+        assert P.hlsmux.HlsSession("s", cb).codec == "flac"
+    assert errors[0] == errors[1] == "native AAC encoder unavailable"
+    _both(lambda P: P.hlsmux.init_segment(48000, "aac", b"\x11\x88"))
 
 
 # -- migration ----------------------------------------------------------------

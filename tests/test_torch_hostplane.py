@@ -525,6 +525,10 @@ def test_port_imports_with_jax_and_jax_package_blocked():
             "birdnet_go_tpu_torch.utils.backup",
             "birdnet_go_tpu_torch.diag.mysql_server",
             "birdnet_go_tpu_torch.diag.fake_services",
+            "birdnet_go_tpu_torch.audio.opusogg",
+            "birdnet_go_tpu_torch.audio.aacenc",
+            "birdnet_go_tpu_torch.native.lib",
+            "birdnet_go_tpu_torch.diag.import_data",
             "birdnet_go_tpu_torch.version"} <= set(mods)
     res = subprocess.run([sys.executable, "-c",
                           _GUARDED_IMPORT % (_BLOCKED, mods)],

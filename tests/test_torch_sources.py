@@ -22,10 +22,10 @@ load server session (whose waveform and phase follow from its seed and
 its session count). Also through both: TEARDOWN on stop, backoff against
 a port that closes every connection, the engine stream kept on a
 reconnect at the same rate and rebuilt on a rate change, a response
-closed mid-body, and an MPEG4-GENERIC track refused (the port's native
-build has no AAC decoder; JAX's raises the same where its decoder is
-missing). The port's two divergences have tests of their own: a read's
-packets ingested at once, and the RTP read along with PLAY's reply kept
+closed mid-body, and an MPEG4-GENERIC track refused alike where the
+AAC decoder is missing (``tests/test_torch_codecs.py`` decodes one). The
+port's two divergences have tests of their own: a read's packets
+ingested at once, and the RTP read along with PLAY's reply kept
 (JAX's drops it; where that struck, the JAX side of a sample comparison
 is run again, ``_both_sessions``).
 """
@@ -165,12 +165,14 @@ def test_g711_tables_and_refusal_as_jax():
 
 
 def test_aac_track_refused_as_jax_without_the_decoder(monkeypatch):
-    """The port's native library has no AAC decoder (``codecs.cpp`` is
-    left out of its build); JAX's depacketizer raises the same where its
-    decoder is missing."""
+    """On a host without libavcodec both depacketizers raise the same
+    ``ValueError`` (the decoding of an AAC track where both codec
+    libraries have it is ``tests/test_torch_codecs.py``'s)."""
     import birdnet_go_tpu.native.lib as jlib
+    import birdnet_go_tpu_torch.native.lib as tlib
 
     monkeypatch.setattr(jlib, "_load", lambda: None)
+    monkeypatch.setattr(tlib, "_load_codecs", lambda: None)
     errors = []
     for P in (J, T):
         with pytest.raises(ValueError) as e:

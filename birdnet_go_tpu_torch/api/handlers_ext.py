@@ -11,10 +11,6 @@ A copy of ``birdnet_go_tpu/api/handlers_ext.py`` for the port, which
 imports nothing of the JAX package; ``tests/test_torch_api.py`` holds it to
 the original. Where it differs:
 
-- the routes of ``UNPORTED_ROUTES`` need a module the port does not have
-  yet (the TLS certificate manager, the terminal): each answers 501 with
-  ``{"error": <the refusal naming its ROADMAP.md item>}`` where JAX's
-  handler would reach that module;
 - spectrograms render on the app's device, on a CUDA stream of their
   own, and a clip is decoded in the app's codec workers (``_render_png``,
   ``h_audio_process``): the Python FLAC decoder on a thread of the app's
@@ -36,24 +32,8 @@ from pathlib import Path
 from typing import Any
 
 from birdnet_go_tpu_torch.api import web
-from birdnet_go_tpu_torch.utils.unported import LOGINS, refuse
 
 log = logging.getLogger("birdnet_tpu.api")
-
-# (method, route under /api/v2) -> (what, ROADMAP.md item): the routes
-# whose handlers need a module the port does not have yet; ``_refused``
-# answers them 501 with the refusal that names the item
-UNPORTED_ROUTES = {
-    ("GET", "/system/ws"): ("the terminal (WebSocket and pty shell)",
-                            LOGINS),
-    ("GET", "/tls/certificate"): ("TLS certificate management", LOGINS),
-    ("POST", "/tls/certificate"): ("TLS certificate management", LOGINS),
-    ("DELETE", "/tls/certificate"): ("TLS certificate management", LOGINS),
-    ("POST", "/tls/certificate/generate"): ("TLS certificate management",
-                                            LOGINS),
-    ("GET", "/tls/certificate/download"): ("TLS certificate management",
-                                           LOGINS),
-}
 
 
 def _json(data: Any, status: int = 200) -> web.Response:
@@ -254,16 +234,6 @@ class ExtendedHandlers:
         # imports validation + POST-form support bundle
         r.add_post(f"{v2}/imports/validate", self.h_import_validate)
         r.add_post(f"{v2}/support/generate", self.h_support_dump)
-        # the terminal (JAX's TerminalHandlers register it first)
-        r.add_get(f"{v2}/system/ws", self._refused)
-
-    async def _refused(self, request):
-        """501 with the refusal naming the ROADMAP item of the request's
-        route (``UNPORTED_ROUTES``)."""
-        route = request.match_info.route.resource.canonical
-        method = "GET" if request.method == "HEAD" else request.method
-        what, item = UNPORTED_ROUTES[(method, route.removeprefix("/api/v2"))]
-        return _json({"error": str(refuse(what, item))}, status=501)
 
     # -- shared SSE pump -----------------------------------------------------------
 
@@ -1614,22 +1584,91 @@ class ExtendedHandlers:
                 self.ctx.control.send(sig)
         return _json({"updated": updated, "warnings": warnings})
 
-    # -- TLS certificate management (internal/api/v2/tls/tls.go): 501 --------------
+    # -- TLS certificate management (internal/api/v2/tls/tls.go) -------------------------
+
+    @property
+    def _tls_mgr(self):
+        from birdnet_go_tpu_torch.utils.tlscert import TLSManager
+
+        return TLSManager(self.ctx.settings.webserver.tls_dir)
+
+    def _tls_restart_note(self):
+        """Certificate writes take effect on the next server start
+        (tls.go reasonTLSCertRestart → restart banner)."""
+        reasons = getattr(self.ctx, "restart_required", None)
+        if reasons is not None and "tlsCertificate" not in reasons:
+            reasons.append("tlsCertificate")
+        try:
+            from birdnet_go_tpu_torch.integrations.notification import Notification
+
+            self.ctx.notification_inbox.add(Notification(
+                title="Restart required",
+                message="TLS certificate changed — restart the web server"
+                        " for it to take effect",
+                priority="high", payload={"reason": "tlsCertificate"}))
+        except Exception:
+            pass
 
     async def h_tls_get(self, request):
-        return await self._refused(request)
+        info = self._tls_mgr.info()
+        if info.get("installed"):
+            info["mode"] = "enabled" \
+                if self.ctx.settings.webserver.tls_enabled else "installed"
+        return _json(info)
 
     async def h_tls_upload(self, request):
-        return await self._refused(request)
+        from birdnet_go_tpu_torch.utils.tlscert import validate_key_pair
+
+        body = await request.json()
+        cert = (body.get("certificate") or "").strip()
+        key = (body.get("privateKey") or "").strip()
+        if not cert or not key:
+            return _json({"error": "certificate and private key are"
+                          " required"}, status=400)
+        try:
+            validate_key_pair(cert, key)
+            self._tls_mgr.save(cert, key)
+        except ValueError as e:
+            return _json({"error": str(e)}, status=400)
+        self._tls_restart_note()
+        return _json({"installed": True, "restartRequired": True})
 
     async def h_tls_delete(self, request):
-        return await self._refused(request)
+        if not self._tls_mgr.delete():
+            return _json({"error": "no certificate installed"}, status=404)
+        self._tls_restart_note()
+        return _json({"deleted": True, "restartRequired": True})
 
     async def h_tls_generate(self, request):
-        return await self._refused(request)
+        from birdnet_go_tpu_torch.utils.tlscert import (
+            collect_sans,
+            generate_self_signed,
+            parse_validity,
+        )
+
+        body = await request.json() if request.can_read_body else {}
+        try:
+            validity = parse_validity(body.get("validity"))
+        except ValueError as e:
+            return _json({"error": str(e)}, status=400)
+        ws = self.ctx.settings.webserver
+        cert, key = generate_self_signed(
+            validity=validity, sans=collect_sans(ws.host, ws.base_url))
+        self._tls_mgr.save(cert, key)
+        self._tls_restart_note()
+        info = self._tls_mgr.info()
+        info["restartRequired"] = True
+        return _json(info)
 
     async def h_tls_download(self, request):
-        return await self._refused(request)
+        mgr = self._tls_mgr
+        if not mgr.exists():
+            return _json({"error": "no certificate installed"}, status=404)
+        return web.Response(
+            body=mgr.cert_path().read_bytes(),
+            content_type="application/x-pem-file",
+            headers={"Content-Disposition":
+                     'attachment; filename="cert.pem"'})
 
     # -- on-demand clip + processing (media.go clip extraction / ProcessAudioByID) --------
 

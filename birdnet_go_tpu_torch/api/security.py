@@ -23,11 +23,9 @@ token persistence.
 
 A copy of ``birdnet_go_tpu/api/security.py`` for the port, which imports
 nothing of the JAX package; ``tests/test_torch_api.py`` holds it to the
-original. The OIDC, GitHub and Cloudflare logins are not ported
-(``ROADMAP.md`` queue 1 item 10, and the app refuses the settings that
-configure them): their routes stay registered and answer as JAX's do
-where the login is not configured, and a configured one raises
-``NotImplementedError`` naming the item.
+original, and ``tests/test_torch_logins.py`` its OIDC, GitHub and
+Cloudflare logins (``api/oidc.py``, ``api/github_auth.py``,
+``api/cloudflare.py``, the port's copies, over its ``HttpClient``).
 """
 
 from __future__ import annotations
@@ -42,7 +40,6 @@ from pathlib import Path
 
 from birdnet_go_tpu_torch.api import web
 from birdnet_go_tpu_torch.api.auth import is_local_address
-from birdnet_go_tpu_torch.utils.unported import LOGINS, refuse
 
 log = logging.getLogger("birdnet_tpu.security")
 
@@ -199,14 +196,38 @@ def security_middleware(manager: SecurityManager,
     """Authn + CSRF middleware. When no credential is configured at all the
     server stays open (reference: security disabled ⇒ binary authz allows)."""
     ws = manager.settings.webserver
-    if getattr(ws, "cloudflare_bypass_enabled", False):
-        raise refuse("the Cloudflare Access bypass "
-                     "(webserver.cloudflare_bypass_enabled)", LOGINS)
+    cf_verifier = None
+    if getattr(ws, "cloudflare_bypass_enabled", False) \
+            and getattr(ws, "cloudflare_team_domain", ""):
+        from birdnet_go_tpu_torch.api.cloudflare import (
+            CloudflareAccessVerifier,
+        )
+
+        cf_verifier = CloudflareAccessVerifier(
+            ws.cloudflare_team_domain,
+            audience=getattr(ws, "cloudflare_audience", ""))
 
     @web.middleware
     async def middleware(request, handler):
         if not manager.enabled or _is_public(request.path):
             return await handler(request)
+
+        # Cloudflare Access bypass: a tunnel-delivered request whose JWT
+        # validates (team JWKS, issuer, expiry, optional audience) is
+        # trusted (doc/wiki/security.md)
+        if cf_verifier is not None:
+            from birdnet_go_tpu_torch.api.cloudflare import JWT_HEADER
+
+            cf_token = request.headers.get(JWT_HEADER)
+            if cf_token:
+                import asyncio as _aio
+
+                # verification may fetch the JWKS (blocking httpx) — keep
+                # it off the event loop like the OIDC/GitHub callbacks
+                claims = await _aio.get_event_loop().run_in_executor(
+                    None, cf_verifier.verify, cf_token)
+                if claims is not None:
+                    return await handler(request)
 
         # direct local connections may bypass (never when proxied)
         proxied = ("X-Forwarded-For" in request.headers
@@ -354,46 +375,130 @@ class AuthHandlers:
 
     # -- GitHub social auth (reference: goth GitHub provider) ---------------------
 
+    _github = None
+
     def _github_client(self):
-        """None where GitHub login is not configured; a configured one
-        raises (JAX builds its client here)."""
+        if self._github is not None:
+            return self._github
         ws = self.ctx.settings.webserver
         if not getattr(ws, "github_client_id", "") \
                 or not getattr(ws, "github_client_secret", None):
             return None
-        raise refuse("GitHub login (webserver.github_client_id)", LOGINS)
+        from birdnet_go_tpu_torch.api.github_auth import GithubClient
+
+        base = getattr(ws, "base_url", "") or ""
+        redirect = (base.rstrip("/")
+                    + "/api/v2/auth/github/callback") if base \
+            else f"http://{ws.host}:{ws.port}/api/v2/auth/github/callback"
+        self._github = GithubClient(
+            ws.github_client_id, ws.github_client_secret, redirect,
+            allowed=getattr(ws, "github_allowed", []))
+        return self._github
 
     async def h_github_login(self, request):
-        if self._github_client() is None:
+        client = self._github_client()
+        if client is None:
             return web.json_response({"error": "GitHub auth not configured"},
                                      status=404)
+        _, url = client.begin()
+        raise web.HTTPFound(url)
 
     async def h_github_callback(self, request):
-        if self._github_client() is None or self.security is None:
+        client = self._github_client()
+        sec = self.security
+        if client is None or sec is None:
             return web.json_response({"error": "GitHub auth not configured"},
                                      status=404)
+        if err := request.query.get("error"):
+            return web.json_response({"error": f"provider: {err}"},
+                                     status=401)
+        import asyncio as _aio
+
+        from birdnet_go_tpu_torch.api.github_auth import GithubAuthError
+
+        try:
+            who = await _aio.get_event_loop().run_in_executor(
+                None, client.complete, request.query.get("state", ""),
+                request.query.get("code", ""))
+        except GithubAuthError as e:
+            return web.json_response({"error": str(e)}, status=401)
+        sid, _csrf = sec.create_session()
+        log.info("GitHub login: %s", who.get("email") or who.get("login"))
+        resp = web.HTTPFound("/")
+        resp.set_cookie(SESSION_COOKIE, sid, httponly=True,
+                        samesite="Lax",
+                        max_age=int(sec.settings.webserver.session_hours
+                                    * 3600))
+        raise resp
 
     # -- OIDC / SSO (reference: social + OIDC login) ------------------------------
 
+    _oidc = None
+
     def _oidc_client(self):
-        """None where OIDC login is not configured; a configured one
-        raises (JAX builds its relying-party client here)."""
+        """Lazy relying-party client from webserver.oidc_* settings."""
+        if self._oidc is not None:
+            return self._oidc
         ws = self.ctx.settings.webserver
-        if not getattr(ws, "oidc_issuer", ""):
+        issuer = getattr(ws, "oidc_issuer", "")
+        if not issuer:
             return None
-        raise refuse("OIDC login (webserver.oidc_issuer)", LOGINS)
+        from birdnet_go_tpu_torch.api.oidc import OidcClient
+
+        base = (ws.base_url.rstrip("/")
+                or f"http://{ws.host}:{ws.port}")
+        self._oidc = OidcClient(
+            issuer=issuer,
+            client_id=getattr(ws, "oidc_client_id", ""),
+            client_secret=getattr(ws, "oidc_client_secret", "") or "",
+            redirect_uri=f"{base}/api/v2/auth/oidc/callback",
+            allowed=getattr(ws, "oidc_allowed", []) or [])
+        return self._oidc
 
     async def h_oidc_login(self, request):
         """Kick off the authorization-code flow: 302 to the provider."""
-        if self._oidc_client() is None:
+        client = self._oidc_client()
+        if client is None:
             return web.json_response({"error": "OIDC not configured"},
                                      status=404)
+        import asyncio as _aio
+
+        try:
+            _, url = await _aio.get_event_loop().run_in_executor(
+                None, client.begin)
+        except Exception as e:
+            return web.json_response({"error": str(e)}, status=502)
+        raise web.HTTPFound(url)
 
     async def h_oidc_callback(self, request):
         """Provider redirect target: verify + allowlist → session cookie."""
-        if self._oidc_client() is None or self.security is None:
+        client = self._oidc_client()
+        sec = self.security
+        if client is None or sec is None:
             return web.json_response({"error": "OIDC not configured"},
                                      status=404)
+        state = request.query.get("state", "")
+        code = request.query.get("code", "")
+        if err := request.query.get("error"):
+            return web.json_response({"error": f"provider: {err}"},
+                                     status=401)
+        import asyncio as _aio
+
+        from birdnet_go_tpu_torch.api.oidc import OidcError
+
+        try:
+            claims = await _aio.get_event_loop().run_in_executor(
+                None, client.complete, state, code)
+        except OidcError as e:
+            return web.json_response({"error": str(e)}, status=401)
+        sid, _csrf = sec.create_session()
+        log.info("OIDC login: %s", claims.get("email") or claims.get("sub"))
+        resp = web.HTTPFound("/")
+        resp.set_cookie(SESSION_COOKIE, sid, httponly=True,
+                        samesite="Lax",
+                        max_age=int(sec.settings.webserver.session_hours
+                                    * 3600))
+        raise resp
 
     async def h_auth_login(self, request):
         sec = self.security

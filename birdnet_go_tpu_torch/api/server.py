@@ -17,12 +17,9 @@ under aiohttp's names, where JAX's serves on aiohttp. Where it differs:
   JAX lists ``jax.devices()``;
 - ``system/inference`` names the port's backend, ``torch-<device type>``
   (``torch-cuda``), where JAX names ``jax-tpu``;
-- ``_ssl_context`` refuses ``webserver.tls_enabled`` (TLS is queue 1
-  item 10, and the app refuses the setting before it gets here), and the
-  ACME challenge route answers 404 to every token, as JAX's does to a
-  token it does not hold;
-- the terminal's ``system/ws`` is a route of ``UNPORTED_ROUTES``
-  (``api/handlers_ext.py``), which answer 501 naming their item;
+- ``_ssl_context`` builds JAX's HTTPS (ACME or a self-signed pair, with
+  JAX's two fall-backs) over ``utils/acme.py`` and ``utils/tlscert.py``,
+  the port's copies, whose ACME client speaks over ``UrllibSession``;
 - ``port`` is the port bound once ``start`` returns, which port 0
   leaves to the OS, and ``stop`` ends open streams at once (JAX's
   waits for them until its thread's join times out).
@@ -55,7 +52,7 @@ from birdnet_go_tpu_torch.api.security import (
     security_middleware,
 )
 from birdnet_go_tpu_torch.api.sse import SseBroadcaster, format_sse
-from birdnet_go_tpu_torch.utils.unported import LOGINS, refuse
+from birdnet_go_tpu_torch.api.terminal import TerminalHandlers
 from birdnet_go_tpu_torch.version import __version__
 
 log = logging.getLogger("birdnet_tpu.api")
@@ -98,7 +95,7 @@ def _scrub_secrets(obj):
     return obj
 
 
-class ApiServer(ExtendedHandlers, AuthHandlers):
+class ApiServer(ExtendedHandlers, AuthHandlers, TerminalHandlers):
     """HTTP server bound to an Application (birdnet_go_tpu_torch.app)."""
 
     def __init__(self, app_ctx: Any, host: str = "0.0.0.0", port: int = 8080):
@@ -155,13 +152,45 @@ class ApiServer(ExtendedHandlers, AuthHandlers):
         loop.close()
 
     def _ssl_context(self):
-        """None: HTTPS is not ported (JAX serves it when
-        webserver.tls_enabled, with ACME or a self-signed pair), so the
-        setting raises ``NotImplementedError`` naming its ROADMAP item."""
+        """HTTPS when webserver.tls_enabled: ACME (Let's Encrypt) when
+        tls_mode == "acme" (reference AutoTLS, server.go:601-633), else
+        the installed certificate or an auto-generated self-signed pair
+        (internal/tls generate.go)."""
         ws = self.ctx.settings.webserver
-        if getattr(ws, "tls_enabled", False):
-            raise refuse("HTTPS (webserver.tls_enabled)", LOGINS)
-        return None
+        if not getattr(ws, "tls_enabled", False):
+            return None
+        if getattr(ws, "tls_mode", "self-signed") == "acme" \
+                and getattr(ws, "acme_domain", ""):
+            import ssl
+
+            from birdnet_go_tpu_torch.utils.acme import (
+                GLOBAL_RESPONDER,
+                LETS_ENCRYPT,
+                AutoTlsManager,
+            )
+
+            try:
+                mgr = AutoTlsManager(
+                    ws.tls_dir, ws.acme_domain,
+                    directory_url=getattr(ws, "acme_directory", "")
+                    or LETS_ENCRYPT,
+                    contact=getattr(ws, "acme_contact", "") or None)
+                cert, key = mgr.ensure(GLOBAL_RESPONDER)
+                ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+                ctx.load_cert_chain(cert, key)
+                return ctx
+            except Exception:
+                log.exception("ACME setup failed — falling back to "
+                              "self-signed")
+        from birdnet_go_tpu_torch.utils.tlscert import TLSManager
+
+        mgr = TLSManager(ws.tls_dir)
+        try:
+            mgr.ensure_self_signed(host=ws.host, base_url=ws.base_url)
+            return mgr.ssl_context()
+        except Exception:
+            log.exception("TLS setup failed — serving plain HTTP")
+            return None
 
     # -- app/routes ----------------------------------------------------------------
 
@@ -182,6 +211,7 @@ class ApiServer(ExtendedHandlers, AuthHandlers):
         r = app.router
         v2 = "/api/v2"
         self.register_auth_routes(r, v2)
+        self.register_terminal_routes(r, v2)
         # Extended groups FIRST: static segments like /detections/new must
         # register before the dynamic /detections/{id} below.
         self.register_ext_routes(r, v2)
@@ -308,10 +338,13 @@ class ApiServer(ExtendedHandlers, AuthHandlers):
         })
 
     async def h_acme_challenge(self, request):
-        """404 to every token: ACME is not ported (queue 1 item 10), so
-        the port holds no challenge, and JAX's answer to a token it does
-        not hold is this one."""
-        return web.Response(status=404, text="no such challenge")
+        from birdnet_go_tpu_torch.utils.acme import GLOBAL_RESPONDER
+
+        key_auth = GLOBAL_RESPONDER.get(request.match_info["token"])
+        if key_auth is None:
+            return web.Response(status=404, text="no such challenge")
+        return web.Response(text=key_auth,
+                            content_type="application/octet-stream")
 
     async def h_ping(self, request):
         return _json({"pong": True, "time": _dt.datetime.now().isoformat()})

@@ -33,24 +33,46 @@ holds every point against the JAX package's aiohttp server):
   ``middleware`` decorator;
 - an unhandled exception answers 500 and is logged; the connection
   serves on. Keep-alive, with an idle timeout;
-- ``AppRunner`` and ``TCPSite``: ``cleanup()`` stops listening, lets
-  the handlers send what they hold for a tenth of a second, then ends
-  every open connection, streams included, so that it returns while an
-  SSE client is still connected (aiohttp waits for such handlers up to
-  its shutdown timeout). ``TCPSite.port`` is the port bound, which port 0 leaves to
-  the OS.
+- ``WebSocketResponse``, ``WSMsgType``, ``WSMessage`` and
+  ``WSCloseCode`` (RFC 6455, as aiohttp's server speaks it): the
+  handshake in ``prepare`` (``Upgrade: websocket``, ``Connection:
+  upgrade``, ``Sec-WebSocket-Version`` 13, 8 or 7 and a 16-byte key,
+  answered 101 with ``Sec-WebSocket-Accept``; a request without one of
+  them gets aiohttp's 400 and its text); frames with 7, 16 and 64-bit
+  lengths, continuations reassembled, a ping answered with a pong,
+  control frames of at most 125 bytes, text that must be UTF-8 (else
+  1007), messages under ``max_msg_size`` (4 MiB, else 1009), the close
+  handshake with its code; ``send_str``, ``send_bytes``, ``close``,
+  ``closed``, ``receive`` and ``async for msg in ws``. Once ``prepare``
+  returns, the connection belongs to the socket: no further request is
+  parsed on it. Where it differs from aiohttp: a client frame that is
+  not masked closes the socket with 1002, as RFC 6455 §5.1 requires
+  (aiohttp reads it); no extension is negotiated (aiohttp offers
+  permessage-deflate to a client that asks), no heartbeat;
+- ``AppRunner`` and ``TCPSite``: ``cleanup()`` stops listening, sends
+  every open WebSocket a close frame with 1001 (going away), lets the
+  handlers send what they hold for a tenth of a second, then ends every
+  open connection, streams and sockets included, so that it returns
+  while an SSE or WebSocket client is still connected (aiohttp waits for
+  such handlers up to its shutdown timeout). ``TCPSite.port`` is the
+  port bound, which port 0 leaves to the OS; with an ``ssl_context`` it
+  serves HTTPS.
 
-Not offered: WebSockets, chunked request bodies (400), multipart bodies
-(``post()`` reads url-encoded forms and answers an empty form otherwise),
-and more than one request at a time per connection.
+Not offered: chunked request bodies (400), multipart bodies (``post()``
+reads url-encoded forms and answers an empty form otherwise), and more
+than one request at a time per connection.
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
+import binascii
 import datetime
 import email.utils
+import enum
 import functools
+import hashlib
 import http
 import http.cookies
 import json
@@ -58,11 +80,13 @@ import logging
 import mimetypes
 import os
 import re
+import struct
 import sys
 import urllib.parse
+from collections import deque
 from collections.abc import MutableMapping
 from pathlib import Path
-from typing import Any
+from typing import Any, NamedTuple
 
 log = logging.getLogger("birdnet_tpu.api.web")
 
@@ -557,6 +581,528 @@ class FileResponse(StreamResponse):
         await StreamResponse.prepare(self, request)
 
 
+# -- WebSockets (RFC 6455) ------------------------------------------------------------
+
+WS_KEY = b"258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+WS_MAX_MSG_SIZE = 4 * 1024 * 1024      # aiohttp's default max_msg_size
+_WS_QUEUE_LIMIT = 2 * 2 ** 16          # buffered bytes before reading pauses
+
+
+class WSCloseCode(enum.IntEnum):
+    OK = 1000
+    GOING_AWAY = 1001
+    PROTOCOL_ERROR = 1002
+    UNSUPPORTED_DATA = 1003
+    ABNORMAL_CLOSURE = 1006
+    INVALID_TEXT = 1007
+    POLICY_VIOLATION = 1008
+    MESSAGE_TOO_BIG = 1009
+    MANDATORY_EXTENSION = 1010
+    INTERNAL_ERROR = 1011
+    SERVICE_RESTART = 1012
+    TRY_AGAIN_LATER = 1013
+    BAD_GATEWAY = 1014
+
+
+_ALLOWED_CLOSE_CODES = {int(c) for c in WSCloseCode}
+
+
+class WSMsgType(enum.IntEnum):
+    CONTINUATION = 0x0
+    TEXT = 0x1
+    BINARY = 0x2
+    PING = 0x9
+    PONG = 0xA
+    CLOSE = 0x8
+    # aiohttp's own types
+    CLOSING = 0x100
+    CLOSED = 0x101
+    ERROR = 0x102
+
+
+class WSMessage(NamedTuple):
+    type: WSMsgType
+    data: Any
+    extra: Any
+
+
+WS_CLOSED_MESSAGE = WSMessage(WSMsgType.CLOSED, None, None)
+WS_CLOSING_MESSAGE = WSMessage(WSMsgType.CLOSING, None, None)
+
+
+class WebSocketError(Exception):
+    """A protocol error: its close code and reason."""
+
+    def __init__(self, code: int, message: str):
+        self.code = code
+        super().__init__(code, message)
+
+    def __str__(self) -> str:
+        return self.args[1]
+
+
+def _unmask(data: bytes, mask: bytes) -> bytes:
+    n = len(data)
+    if not n:
+        return data
+    key = (mask * (n // 4 + 1))[:n]
+    return (int.from_bytes(data, "little")
+            ^ int.from_bytes(key, "little")).to_bytes(n, "little")
+
+
+def _frame(opcode: int, payload: bytes) -> bytes:
+    """A server frame (FIN set, not masked)."""
+    n = len(payload)
+    if n < 126:
+        head = struct.pack("!BB", 0x80 | opcode, n)
+    elif n < 65536:
+        head = struct.pack("!BBH", 0x80 | opcode, 126, n)
+    else:
+        head = struct.pack("!BBQ", 0x80 | opcode, 127, n)
+    return head + payload
+
+
+class _WSQueue:
+    """The messages the frame reader has parsed, for ``receive``; the
+    reader waits while more than ``_WS_QUEUE_LIMIT`` bytes are buffered
+    (aiohttp pauses its transport's reading)."""
+
+    def __init__(self):
+        self._buf: deque = deque()
+        self._size = 0
+        self._eof = False
+        self._exc: BaseException | None = None
+        self._ready = asyncio.Event()
+        self._room = asyncio.Event()
+        self._room.set()
+
+    def feed(self, msg: WSMessage, size: int) -> None:
+        self._buf.append((msg, size))
+        self._size += size
+        if self._size > _WS_QUEUE_LIMIT:
+            self._room.clear()
+        self._ready.set()
+
+    def feed_eof(self) -> None:
+        self._eof = True
+        self._ready.set()
+
+    def set_exception(self, exc: BaseException) -> None:
+        self._eof = True
+        self._exc = exc
+        self._ready.set()
+
+    async def wait_room(self) -> None:
+        await self._room.wait()
+
+    async def read(self) -> WSMessage:
+        while not self._buf and not self._eof:
+            self._ready.clear()
+            await self._ready.wait()
+        if self._buf:
+            msg, size = self._buf.popleft()
+            self._size -= size
+            if self._size <= _WS_QUEUE_LIMIT:
+                self._room.set()
+            return msg
+        if self._exc is not None:
+            raise self._exc
+        raise EOFError
+
+
+class WebSocketResponse(StreamResponse):
+    """The server side of a WebSocket, as aiohttp's (see the module's
+    docstring): ``prepare`` answers the handshake, then the handler
+    ``receive``s (or iterates) and sends; a reader task parses the
+    client's frames into a queue."""
+
+    def __init__(self, *, timeout: float = 10.0,
+                 max_msg_size: int = WS_MAX_MSG_SIZE):
+        super().__init__(status=101)
+        self._closes = True                # the connection ends with it
+        self._timeout = timeout
+        self._max_msg_size = max_msg_size
+        self._queue: _WSQueue | None = None
+        self._reader_task: asyncio.Task | None = None
+        self._closed = False
+        self._closing = False
+        self._writer_closing = False
+        self._close_code: int | None = None
+        self._close_wait: asyncio.Future | None = None
+        self._waiting = False
+        self._conn_lost = 0
+        self._eof_sent = False
+        self._partial = bytearray()
+        self._opcode: int | None = None
+
+    # the handshake ----------------------------------------------------------------
+
+    def _handshake(self, request: Request) -> dict:
+        """aiohttp's checks, in its order, with its texts (no
+        sub-protocol is offered)."""
+        h = request.headers
+        if h.get("Upgrade", "").lower().strip() != "websocket":
+            raise HTTPBadRequest(
+                text=f"No WebSocket UPGRADE hdr: {h.get('Upgrade')}\n Can "
+                     f"\"Upgrade\" only to \"WebSocket\".")
+        if "upgrade" not in h.get("Connection", "").lower():
+            raise HTTPBadRequest(
+                text=f"No CONNECTION upgrade hdr: {h.get('Connection')}")
+        version = h.get("Sec-WebSocket-Version", "")
+        if version not in ("13", "8", "7"):
+            raise HTTPBadRequest(text=f"Unsupported version: {version}")
+        key = h.get("Sec-WebSocket-Key")
+        try:
+            if not key or len(base64.b64decode(key)) != 16:
+                raise HTTPBadRequest(text=f"Handshake error: {key!r}")
+        except binascii.Error:
+            raise HTTPBadRequest(text=f"Handshake error: {key!r}") from None
+        return {"Upgrade": "websocket", "Connection": "upgrade",
+                "Sec-WebSocket-Accept": accept_key(key)}
+
+    def _head(self, request: Request) -> bytes:
+        h = self._headers
+        h.setdefault("Date", email.utils.formatdate(usegmt=True))
+        h.setdefault("Server", _SERVER)
+        lines = [f"HTTP/1.1 {self._status} {self._reason}"]
+        lines += [f"{k}: {v}" for k, v in h.items()]
+        return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
+
+    async def prepare(self, request: Request) -> None:
+        if self._req is not None:
+            return
+        self._headers.update(self._handshake(request))
+        await StreamResponse.prepare(self, request)
+        self._queue = _WSQueue()
+        self._reader_task = asyncio.get_running_loop().create_task(
+            self._read_frames())
+        runner = request._runner
+        if runner is not None:
+            runner._websockets.add(self)
+
+    # state ------------------------------------------------------------------------
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    @property
+    def close_code(self) -> int | None:
+        return self._close_code
+
+    # the client's frames -------------------------------------------------------------
+
+    async def _read_frames(self) -> None:
+        r, q = self._req._reader, self._queue
+        try:
+            while True:
+                await q.wait_room()
+                b0, b1 = await r.readexactly(2)
+                fin, opcode = b0 >> 7, b0 & 0x0F
+                if b0 & 0x70:
+                    raise WebSocketError(
+                        WSCloseCode.PROTOCOL_ERROR,
+                        "Received frame with non-zero reserved bits")
+                if opcode > 0x7 and not fin:
+                    raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                                         "Received fragmented control frame")
+                length = b1 & 0x7F
+                if opcode > 0x7 and length > 125:
+                    raise WebSocketError(
+                        WSCloseCode.PROTOCOL_ERROR,
+                        "Control frame payload cannot be larger than 125 "
+                        "bytes")
+                if length == 126:
+                    length = struct.unpack("!H", await r.readexactly(2))[0]
+                elif length == 127:
+                    length = struct.unpack("!Q", await r.readexactly(8))[0]
+                if not b1 & 0x80:
+                    raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                                         "Received unmasked frame")
+                mask = await r.readexactly(4)
+                if opcode <= 0x2 and self._max_msg_size \
+                        and len(self._partial) + length >= self._max_msg_size:
+                    # aiohttp reads the frame, then refuses it: drop it
+                    # as it arrives instead of holding it
+                    if length > 2 * self._max_msg_size:
+                        raise WebSocketError(
+                            WSCloseCode.MESSAGE_TOO_BIG,
+                            f"Message size {len(self._partial) + length} "
+                            f"exceeds limit {self._max_msg_size}")
+                    await _discard_exactly(r, length)
+                    raise WebSocketError(
+                        WSCloseCode.MESSAGE_TOO_BIG,
+                        f"Message size {len(self._partial) + length} "
+                        f"exceeds limit {self._max_msg_size}")
+                payload = _unmask(await r.readexactly(length), mask)
+                self._handle_frame(bool(fin), opcode, payload)
+        except WebSocketError as e:
+            q.set_exception(e)
+        except (asyncio.IncompleteReadError, ConnectionError, OSError):
+            q.feed_eof()
+        except asyncio.CancelledError:
+            q.set_exception(ConnectionResetError("Connection lost"))
+            raise
+
+    def _handle_frame(self, fin: bool, opcode: int, payload: bytes) -> None:
+        q = self._queue
+        if opcode in (WSMsgType.TEXT, WSMsgType.BINARY,
+                      WSMsgType.CONTINUATION):
+            if opcode == WSMsgType.CONTINUATION and self._opcode is None:
+                raise WebSocketError(
+                    WSCloseCode.PROTOCOL_ERROR,
+                    "Continuation frame for non started message")
+            if not fin:
+                if opcode != WSMsgType.CONTINUATION:
+                    self._opcode = opcode
+                self._partial += payload
+                return
+            if opcode == WSMsgType.CONTINUATION:
+                opcode, self._opcode = self._opcode, None
+            elif self._partial:
+                raise WebSocketError(
+                    WSCloseCode.PROTOCOL_ERROR,
+                    f"The opcode in non-fin frame is expected to be zero, "
+                    f"got {opcode!r}")
+            data = bytes(self._partial) + payload
+            self._partial.clear()
+            if opcode == WSMsgType.TEXT:
+                try:
+                    text = data.decode("utf-8")
+                except UnicodeDecodeError as e:
+                    raise WebSocketError(WSCloseCode.INVALID_TEXT,
+                                         "Invalid UTF-8 text message") from e
+                q.feed(WSMessage(WSMsgType.TEXT, text, ""), len(data))
+            else:
+                q.feed(WSMessage(WSMsgType.BINARY, data, ""), len(data))
+        elif opcode == WSMsgType.CLOSE:
+            if len(payload) >= 2:
+                code = struct.unpack("!H", payload[:2])[0]
+                if code < 3000 and code not in _ALLOWED_CLOSE_CODES:
+                    raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                                         f"Invalid close code: {code}")
+                try:
+                    reason = payload[2:].decode("utf-8")
+                except UnicodeDecodeError as e:
+                    raise WebSocketError(WSCloseCode.INVALID_TEXT,
+                                         "Invalid UTF-8 text message") from e
+                q.feed(WSMessage(WSMsgType.CLOSE, code, reason), 0)
+            elif payload:
+                raise WebSocketError(
+                    WSCloseCode.PROTOCOL_ERROR,
+                    f"Invalid close frame: {fin} {opcode} {payload!r}")
+            else:
+                q.feed(WSMessage(WSMsgType.CLOSE, 0, ""), 0)
+        elif opcode == WSMsgType.PING:
+            q.feed(WSMessage(WSMsgType.PING, payload, ""), len(payload))
+        elif opcode == WSMsgType.PONG:
+            q.feed(WSMessage(WSMsgType.PONG, payload, ""), len(payload))
+        else:
+            raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                                 f"Unexpected opcode={opcode!r}")
+
+    # sending -------------------------------------------------------------------------
+
+    def _write_frame(self, opcode: int, payload: bytes) -> None:
+        if self._req is None:
+            raise RuntimeError("Call .prepare() first")
+        if self._writer_closing and opcode != WSMsgType.CLOSE:
+            raise ConnectionResetError("Cannot write to closing transport")
+        tr = self._req._writer.transport
+        if tr is None or tr.is_closing():
+            raise ConnectionResetError("Cannot write to closing transport")
+        self._req._writer.write(_frame(opcode, payload))
+
+    async def _send(self, opcode: int, payload: bytes) -> None:
+        self._write_frame(opcode, payload)
+        await self._req._writer.drain()
+
+    async def send_str(self, data: str) -> None:
+        if not isinstance(data, str):
+            raise TypeError(f"data argument must be str ({type(data)!r})")
+        await self._send(WSMsgType.TEXT, data.encode("utf-8"))
+
+    async def send_bytes(self, data: bytes) -> None:
+        if not isinstance(data, (bytes, bytearray, memoryview)):
+            raise TypeError(f"data argument must be byte-ish "
+                            f"({type(data)!r})")
+        await self._send(WSMsgType.BINARY, bytes(data))
+
+    async def pong(self, message: bytes = b"") -> None:
+        await self._send(WSMsgType.PONG, message)
+
+    async def write(self, data: bytes) -> None:
+        raise RuntimeError("Cannot call .write() for websocket")
+
+    async def write_eof(self, data: bytes = b"") -> None:
+        if self._eof_sent:
+            return
+        if self._req is None:
+            raise RuntimeError("Response has not been started")
+        await self.close()
+        self._eof_sent = True
+
+    # closing -------------------------------------------------------------------------
+
+    def _close_transport(self) -> None:
+        if self._req is not None and self._req._writer.transport is not None:
+            self._req._writer.transport.close()
+
+    def _write_close(self, code: int, message: bytes = b"") -> None:
+        if isinstance(message, str):
+            message = message.encode()
+        try:
+            self._write_frame(WSMsgType.CLOSE,
+                              struct.pack("!H", code) + message)
+        finally:
+            self._writer_closing = True
+
+    async def close(self, *, code: int = WSCloseCode.OK,
+                    message: bytes = b"", drain: bool = True) -> bool:
+        """Send a close frame, then wait up to `timeout` for the client's
+        (a ``receive`` in progress returns CLOSING first), and close the
+        transport, as aiohttp's ``close``."""
+        if self._req is None:
+            raise RuntimeError("Call .prepare() first")
+        if self._closed:
+            return False
+        self._closed = True
+        try:
+            self._write_close(code, message)
+            if drain:
+                await self._req._writer.drain()
+        except (asyncio.CancelledError, asyncio.TimeoutError):
+            self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+            self._close_transport()
+            raise
+        except Exception:
+            self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+            self._close_transport()
+            return True
+        if self._waiting:
+            self._close_wait = asyncio.get_running_loop().create_future()
+            self._queue.feed(WS_CLOSING_MESSAGE, 0)
+            await self._close_wait
+        if self._closing:
+            self._close_transport()
+            return True
+        try:
+            async with asyncio.timeout(self._timeout):
+                while True:
+                    msg = await self._queue.read()
+                    if msg.type is WSMsgType.CLOSE:
+                        self._close_code = msg.data
+                        self._close_transport()
+                        return True
+        except asyncio.CancelledError:
+            self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+            self._close_transport()
+            raise
+        except Exception:            # the reader's error, or its end
+            self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+            self._close_transport()
+            return True
+
+    def _going_away(self) -> None:
+        """Shutdown: a close frame with 1001, the handler then cancelled
+        by ``AppRunner.cleanup``."""
+        if self._closed or self._req is None:
+            return
+        self._closed = True
+        self._close_code = WSCloseCode.GOING_AWAY
+        try:
+            self._write_close(WSCloseCode.GOING_AWAY)
+        except ConnectionError:
+            pass
+
+    def _abort(self) -> None:
+        if self._reader_task is not None:
+            self._reader_task.cancel()
+
+    # receiving -------------------------------------------------------------------------
+
+    async def receive(self, timeout: float | None = None) -> WSMessage:
+        if self._queue is None:
+            raise RuntimeError("Call .prepare() first")
+        while True:
+            if self._waiting:
+                raise RuntimeError(
+                    "Concurrent call to receive() is not allowed")
+            if self._closed:
+                self._conn_lost += 1
+                if self._conn_lost >= 5:
+                    raise RuntimeError("WebSocket connection is closed.")
+                return WS_CLOSED_MESSAGE
+            if self._closing:
+                return WS_CLOSING_MESSAGE
+            try:
+                self._waiting = True
+                try:
+                    if timeout:
+                        async with asyncio.timeout(timeout):
+                            msg = await self._queue.read()
+                    else:
+                        msg = await self._queue.read()
+                finally:
+                    self._waiting = False
+                    if self._close_wait is not None \
+                            and not self._close_wait.done():
+                        self._close_wait.set_result(None)
+            except asyncio.TimeoutError:
+                raise
+            except EOFError:
+                self._close_code = WSCloseCode.OK
+                await self.close()
+                return WSMessage(WSMsgType.CLOSED, None, None)
+            except WebSocketError as exc:
+                self._close_code = exc.code
+                await self.close(code=exc.code)
+                return WSMessage(WSMsgType.ERROR, exc, None)
+            except Exception as exc:
+                self._closing = True
+                self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+                await self.close()
+                return WSMessage(WSMsgType.ERROR, exc, None)
+            if msg.type is WSMsgType.CLOSE:
+                self._closing = True
+                self._close_code = msg.data
+                if not self._closed:
+                    await self.close(drain=False)
+            elif msg.type is WSMsgType.CLOSING:
+                self._closing = True
+                self._close_code = WSCloseCode.OK
+            elif msg.type is WSMsgType.PING:
+                await self.pong(msg.data)
+                continue
+            elif msg.type is WSMsgType.PONG:
+                continue
+            return msg
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self) -> WSMessage:
+        msg = await self.receive()
+        if msg.type in (WSMsgType.CLOSE, WSMsgType.CLOSING,
+                        WSMsgType.CLOSED):
+            raise StopAsyncIteration
+        return msg
+
+
+def accept_key(key: str) -> str:
+    """``Sec-WebSocket-Accept`` for a client's ``Sec-WebSocket-Key``."""
+    return base64.b64encode(
+        hashlib.sha1(key.encode() + WS_KEY).digest()).decode()
+
+
+async def _discard_exactly(reader: asyncio.StreamReader, n: int) -> None:
+    while n > 0:
+        chunk = await reader.read(min(n, 65536))
+        if not chunk:
+            raise asyncio.IncompleteReadError(b"", n)
+        n -= len(chunk)
+
+
 # -- routing ---------------------------------------------------------------------------
 
 _ROUTE_RE = re.compile(r"(\{[_a-zA-Z][^{}]*(?:\{[^{}]*\}[^{}]*)*\})")
@@ -766,6 +1312,7 @@ class Request:
         self._body: bytes | None = None
         self._length = 0
         self._body_read = False
+        self._runner: AppRunner | None = None
 
     @property
     def host(self) -> str:
@@ -832,20 +1379,27 @@ class AppRunner:
         self.keepalive_timeout = keepalive_timeout
         self._sites: list[TCPSite] = []
         self._conns: set[asyncio.Task] = set()
+        self._websockets: set[WebSocketResponse] = set()
         self._closing = False
 
     async def setup(self) -> None:
         self._closing = False
 
     async def cleanup(self) -> None:
-        """Stop listening, let the handlers run for ``SHUTDOWN_GRACE`` (an
-        SSE pump sends the events already queued), then end every
-        connection (open streams included) and wait up to
-        ``SHUTDOWN_TIMEOUT`` for their handlers."""
+        """Stop listening, send each open WebSocket a close frame with
+        1001, let the handlers run for ``SHUTDOWN_GRACE`` (an SSE pump
+        sends the events already queued), then end every connection (open
+        streams and sockets included) and wait up to ``SHUTDOWN_TIMEOUT``
+        for their handlers."""
         for site in list(self._sites):
             await site.stop()
+        for ws in list(self._websockets):
+            ws._going_away()
         await asyncio.sleep(SHUTDOWN_GRACE)
         self._closing = True
+        for ws in list(self._websockets):
+            ws._abort()
+        self._websockets.clear()
         tasks = [t for t in self._conns if not t.done()]
         for t in tasks:
             t.cancel()
@@ -902,6 +1456,7 @@ class AppRunner:
             req = Request(m.group(1), m.group(2),
                           (int(m.group(3)), int(m.group(4))), headers,
                           reader, writer, self.app)
+            req._runner = self
             if "chunked" in headers.get("Transfer-Encoding", "").lower():
                 return None           # no chunked request bodies
             req._length = int(headers.get("Content-Length", "0") or 0)
@@ -964,6 +1519,10 @@ class AppRunner:
             await resp.write_eof()
         except (ConnectionError, RuntimeError):
             return False
+        finally:
+            if isinstance(resp, WebSocketResponse):
+                self._websockets.discard(resp)
+                resp._abort()
         if request._length and not request._body_read \
                 and request._length <= self.app._client_max_size:
             try:                            # an unread body: skip it

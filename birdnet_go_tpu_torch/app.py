@@ -17,11 +17,9 @@ and raises without one. Where they differ from JAX:
   (``ShardedClassifier`` over ``make_mesh()`` when the device is CUDA and
   more than one card is visible), ``TorchModelBatcher`` in the loop, the
   ``PreRenderer`` on `device`;
-- subsystems the port does not have yet raise ``NotImplementedError``
-  naming their ``ROADMAP.md`` item when a setting enables them, from
-  ``setup`` (``refuse``): the API's HTTPS and its OIDC, GitHub and
-  Cloudflare logins. The API (``api/server.py``, on the standard
-  library's ``asyncio``: ``api/web.py``), the image providers, the
+- the API (``api/server.py``, on the standard library's ``asyncio``:
+  ``api/web.py``, with its HTTPS, terminal and OIDC, GitHub and
+  Cloudflare logins), the image providers, the
   integrations (MQTT, BirdWeather, weather, backup and MySQL, whose HTTP
   goes over the standard library's ``urllib``: ``utils/httpclient.py``)
   and the rtsp, http and audio_card sources (``audio/rtsp.py``,
@@ -90,7 +88,6 @@ from birdnet_go_tpu_torch.scheduler.loop import DeviceLoop, TorchModelBatcher
 from birdnet_go_tpu_torch.taxonomy.labels import load_labels
 from birdnet_go_tpu_torch.utils import errors as errors_mod
 from birdnet_go_tpu_torch.utils.blas import set_blas_threads
-from birdnet_go_tpu_torch.utils.unported import LOGINS, refuse
 
 log = logging.getLogger("birdnet_tpu.app")
 
@@ -224,7 +221,6 @@ class Application:
         root_logger = _logging.getLogger()
         if GLOBAL_ERROR_BUFFER not in root_logger.handlers:
             root_logger.addHandler(GLOBAL_ERROR_BUFFER)
-        self._check_ported()
         warnings = s.validate()
         for w in warnings:
             log.warning("config: %s", w)
@@ -944,31 +940,6 @@ class Application:
 
             return ShardedClassifier(model, mesh=self._mesh)
         return TorchClassifier(model, self.device)
-
-    def _unported(self) -> dict[str, str]:
-        """Each subsystem the settings enable that the port does not have
-        yet (``ROADMAP.md`` queue 1 item 10): its name → the message of
-        its ``NotImplementedError``."""
-        ws = self.settings.webserver
-        checks = (
-            ("tls", ws.enabled and ws.tls_enabled,
-             "HTTPS (webserver.tls_enabled)"),
-            ("oidc", ws.enabled and bool(ws.oidc_issuer),
-             "OIDC login (webserver.oidc_issuer)"),
-            ("github", ws.enabled and bool(ws.github_client_id),
-             "GitHub login (webserver.github_client_id)"),
-            ("cloudflare", ws.enabled and ws.cloudflare_bypass_enabled,
-             "the Cloudflare Access bypass "
-             "(webserver.cloudflare_bypass_enabled)"),
-        )
-        return {name: str(refuse(what, LOGINS))
-                for name, enabled, what in checks if enabled}
-
-    def _check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for the first subsystem that the
-        settings enable and the port does not have yet (``_unported``)."""
-        for message in self._unported().values():
-            raise NotImplementedError(message)
 
     # -- runtime model management (orchestrator LoadModel/UnloadModel) --------------
 

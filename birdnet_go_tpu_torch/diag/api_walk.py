@@ -24,29 +24,54 @@ status, test and Home Assistant discovery, the BirdWeather, weather and
 eBird tests, eBird's taxonomy, observations and regional insight, the
 database backup's run, jobs and verification): what phase 20 sends, and
 ``tests/test_torch_api.py`` to both packages' apps on the CPU.
+
+``logins_walk`` is phase 20's second leg over HTTPS (a ``Client`` with an
+``ssl_context``): an OIDC login through the provider to an authenticated
+session, a Cloudflare Access token (and a forged one) on an API route,
+GitHub's redirect and a wrong state, each TLS certificate route once,
+and the terminal over ``wss://`` (``terminal_session``: a resize, a
+marker echoed back and timed, the close, a cross-origin attempt).
 """
 
 from __future__ import annotations
 
 import http.client
 import json
+import os
 import re
 import socket
 import threading
 import time
+import urllib.parse
+import urllib.request
 
 V2 = "/api/v2"
 
 
 class Client:
-    """HTTP/1.1 to the API on ``127.0.0.1:port``, a connection a request;
-    after ``login`` every request carries the session cookie, and every
-    mutation the session's CSRF token."""
+    """HTTP/1.1 to the API on ``127.0.0.1:port`` (HTTPS with an
+    `ssl_context`, whose name check then reads `host`), a connection a
+    request; after ``login`` every request carries the session cookie,
+    and every mutation the session's CSRF token."""
 
     def __init__(self, port: int, password: str | None = None,
-                 host: str = "127.0.0.1"):
+                 host: str = "127.0.0.1", ssl_context=None):
         self.host, self.port, self.password = host, port, password
+        self.ssl_context = ssl_context
         self.cookie = self.csrf = None
+
+    @property
+    def origin(self) -> str:
+        scheme = "https" if self.ssl_context is not None else "http"
+        return f"{scheme}://{self.host}:{self.port}"
+
+    def connection(self, timeout: float = 120.0):
+        if self.ssl_context is not None:
+            return http.client.HTTPSConnection(
+                self.host, self.port, timeout=timeout,
+                context=self.ssl_context)
+        return http.client.HTTPConnection(self.host, self.port,
+                                          timeout=timeout)
 
     def call(self, method: str, path: str, body=None, headers=None,
              timeout: float = 120.0):
@@ -61,7 +86,7 @@ class Client:
             if method not in ("GET", "HEAD"):
                 h["X-CSRF-Token"] = self.csrf
         t0 = time.perf_counter()
-        c = http.client.HTTPConnection(self.host, self.port, timeout=timeout)
+        c = self.connection(timeout)
         try:
             c.request(method, path, body=data, headers=h)
             r = c.getresponse()
@@ -89,6 +114,9 @@ class SseReader(threading.Thread):
         self.events: list[tuple[str, str, float]] = []
         self.ended = threading.Event()
         self._sock = socket.create_connection((client.host, client.port))
+        if client.ssl_context is not None:
+            self._sock = client.ssl_context.wrap_socket(
+                self._sock, server_hostname=client.host)
         cookie = f"Cookie: {client.cookie}\r\n" if client.cookie else ""
         self._sock.sendall(f"GET {path} HTTP/1.1\r\nHost: {client.host}\r\n"
                            f"{cookie}\r\n".encode())
@@ -253,3 +281,211 @@ def route_times(records: list) -> dict:
     return {k: {"n": len(v), "p50": round(float(np.percentile(v, 50)), 2),
                 "p95": round(float(np.percentile(v, 95)), 2),
                 "max": round(max(v), 2)} for k, v in out.items()}
+
+
+# -- phase 20's second leg: HTTPS, the logins, the terminal ------------------------------
+
+def _no_redirect_get(url: str, ssl_context=None, headers=None):
+    """(status, Location) of a GET whose redirect is not followed."""
+    class Stop(urllib.request.HTTPRedirectHandler):
+        def redirect_request(self, *a, **kw):
+            return None
+
+    handlers = [Stop()]
+    if ssl_context is not None:
+        handlers.append(urllib.request.HTTPSHandler(context=ssl_context))
+    opener = urllib.request.build_opener(*handlers)
+    try:
+        with opener.open(urllib.request.Request(url, headers=headers or {}),
+                         timeout=30) as r:
+            return r.status, r.headers.get("Location")
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Location")
+
+
+def oidc_login(client: Client) -> dict:
+    """The browser's OIDC round trip: ``auth/oidc/login`` (302 to the
+    provider), the provider's authorize (302 back with a code), the
+    callback (302 with a session cookie), then ``auth/status`` with that
+    cookie. Its statuses, whether it ended authenticated, and its wall
+    time, ms."""
+    browser = Client(client.port, host=client.host,
+                     ssl_context=client.ssl_context)
+    t0 = time.perf_counter()
+    st1, h1, _, _ = browser.call("GET", f"{V2}/auth/oidc/login")
+    st2, back = _no_redirect_get(h1.get("location", ""))
+    u = urllib.parse.urlsplit(back or "")
+    st3, h3, _, _ = browser.call("GET", f"{u.path}?{u.query}")
+    cookie = (h3.get("set-cookie") or "").split(";", 1)[0]
+    st4, _, b4, _ = browser.call("GET", f"{V2}/auth/status",
+                                 headers={"Cookie": cookie})
+    ms = (time.perf_counter() - t0) * 1e3
+    status = json.loads(b4) if st4 == 200 else {}
+    return {"statuses": [st1, st2, st3, st4], "ms": round(ms, 1),
+            "to_provider": (h1.get("location") or "").split("?")[0],
+            "back_to": f"{u.scheme}://{u.netloc}{u.path}",
+            "authenticated": status.get("authenticated") is True
+            and status.get("method") == "session" and bool(cookie)}
+
+
+def _tampered(token: str) -> str:
+    """`token` with its claims changed and its signature kept."""
+    import base64
+
+    h, p, sig = token.split(".")
+    claims = json.loads(base64.urlsafe_b64decode(p + "=" * (-len(p) % 4)))
+    claims["email"] = "mallory@example.org"
+    p2 = base64.urlsafe_b64encode(json.dumps(claims).encode()).rstrip(
+        b"=").decode()
+    return f"{h}.{p2}.{sig}"
+
+
+def terminal_session(client: Client, *, marker: str = "birdnet",
+                     rounds: int = 5, leave_open: bool = False):
+    """The terminal over ``wss://`` with the session cookie and a matching
+    Origin: a resize to 100x40 (read back by ``stty size``), `rounds`
+    markers echoed back (each timed from send to arrival), then the close
+    handshake, unless `leave_open` (the socket is returned then). Its
+    record: the handshake's status, whether the size was read back, the
+    round trips, ms, and the close code."""
+    from birdnet_go_tpu_torch.diag.ws_client import WsClient
+
+    scheme = "wss" if client.ssl_context is not None else "ws"
+    ws = WsClient(f"{scheme}://{client.host}:{client.port}{V2}/system/ws",
+                  headers={"Cookie": client.cookie, "Origin": client.origin},
+                  ssl_context=client.ssl_context, timeout=30)
+    rec = {"status": ws.status}
+    if ws.status != 101:
+        return rec, None
+    ws.send_text("\x00resize:100x40")
+    ws.send_text("stty size; printf '%s%s\\n' ready 0\n")
+    rec["resized"] = b"40 100" in ws.read_until(b"ready0", 30)
+    rtts = []
+    for k in range(1, rounds + 1):
+        t0 = time.perf_counter()
+        ws.send_text(f"printf '%s%s\\n' {marker} {k}\n")
+        ws.read_until(f"{marker}{k}\r\n".encode(), 30)
+        rtts.append(round((time.perf_counter() - t0) * 1e3, 2))
+    rec["echo_ms"] = rtts
+    if leave_open:
+        return rec, ws
+    rec["close_code"] = ws.close()
+    return rec, None
+
+
+def shell_children() -> set[int]:
+    """This process's children that are not Python (the terminal's shells;
+    the clip encoder's workers are Python), zombies included."""
+    out = set()
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            stat = open(f"/proc/{pid}/stat").read()
+        except OSError:
+            continue
+        name = stat[stat.index("(") + 1:stat.rindex(")")]
+        ppid = int(stat[stat.rindex(")") + 2:].split()[1])
+        if ppid == os.getpid() and not name.startswith("python"):
+            out.add(int(pid))
+    return out
+
+
+def wait_reaped(before: set[int], seconds: float = 5.0) -> list[int]:
+    """The shells born since `before` still there after `seconds`."""
+    deadline = time.monotonic() + seconds
+    while True:
+        left = sorted(shell_children() - before)
+        if not left or time.monotonic() >= deadline:
+            return left
+        time.sleep(0.1)
+
+
+# (route, status) of the TLS certificate routes, in order, as JAX's
+# handlers answer them on an empty tls_dir/webserver
+TLS_ROUTES = (("GET", "tls/certificate", 200),
+              ("POST", "tls/certificate/generate", 200),
+              ("GET", "tls/certificate/download", 200),
+              ("POST", "tls/certificate", 200),
+              ("DELETE", "tls/certificate", 200),
+              ("GET", "tls/certificate", 200))
+
+
+def logins_walk(client: Client, *, cf_mint, github_authorize: str
+                ) -> tuple[list, dict]:
+    """Phase 20's second-leg walk (see the module's docstring), the client
+    logged in by password: `cf_mint()` returns a token the Cloudflare
+    team's key signed. The records (route, status, the status JAX
+    answers, ms) and what each part found."""
+    from birdnet_go_tpu_torch.utils.tlscert import generate_self_signed
+
+    records, found = [], {}
+
+    def rec(route, st, want, ms, t0):
+        records.append({"route": route, "status": st, "want": want,
+                        "ms": ms, "t0": t0, "t1": time.time()})
+
+    t0 = time.time()
+    found["oidc"] = oidc_login(client)
+    rec("OIDC login", found["oidc"]["statuses"], [302, 302, 302, 200],
+        found["oidc"]["ms"], t0)
+    anon = Client(client.port, host=client.host,
+                  ssl_context=client.ssl_context)
+    token = cf_mint()
+    for name, tok, want in (("Cloudflare token", token, 200),
+                            ("Cloudflare forged", _tampered(token), 401)):
+        t0 = time.time()
+        st, _, b, ms = anon.call("GET", f"{V2}/detections?limit=1",
+                                 headers={"Cf-Access-Jwt-Assertion": tok})
+        rec(name, st, want, ms, t0)
+        found[name] = b[:200].decode("utf-8", "replace")
+    t0 = time.time()
+    st, h, _, ms = anon.call("GET", f"{V2}/auth/github/login")
+    loc = h.get("location", "")
+    q = urllib.parse.parse_qs(urllib.parse.urlsplit(loc).query)
+    rec("GitHub login", st, 302, ms, t0)
+    found["github_redirect"] = loc.startswith(github_authorize + "?")         and bool(q.get("state"))
+    t0 = time.time()
+    st, _, b, ms = anon.call("GET", f"{V2}/auth/github/callback?"
+                                    f"state=wrong&code=x")
+    rec("GitHub wrong state", st, 401, ms, t0)
+    found["github_wrong_state"] = json.loads(b)
+    cert, key = generate_self_signed(sans=["localhost", "127.0.0.1"])
+    bodies = {"POST tls/certificate/generate": {"validity": "720h"},
+              "POST tls/certificate": {"certificate": cert,
+                                       "privateKey": key}}
+    for method, route, want in TLS_ROUTES:
+        t0 = time.time()
+        st, h, b, ms = client.call(method, f"{V2}/{route}",
+                                   bodies.get(f"{method} {route}"))
+        rec(f"{method} {route}", st, want, ms, t0)
+        if route.endswith("download"):
+            found["tls_download_pem"] = b.startswith(b"-----BEGIN CERT")
+    t0 = time.time()
+    before = shell_children()
+    found["terminal"], _ = terminal_session(client)
+    found["terminal"]["left"] = wait_reaped(before)
+    rec("terminal", found["terminal"]["status"], 101,
+        sum(found["terminal"].get("echo_ms", [0.0])), t0)
+    t0 = time.time()
+    st, _, b, ms = client.call("GET", f"{V2}/system/ws", headers={
+        "Origin": "https://evil.example", "Upgrade": "websocket",
+        "Connection": "Upgrade", "Sec-WebSocket-Version": "13",
+        "Sec-WebSocket-Key": "dGhlIHNhbXBsZSBub25jZQ=="})
+    rec("terminal cross-origin", st, 403, ms, t0)
+    found["terminal_cross_origin"] = json.loads(b)
+    return records, found
+
+
+def handshake_ms(client: Client, n: int = 20) -> list[float]:
+    """`n` TLS handshakes with the server, each timed, ms."""
+    out = []
+    for _ in range(n):
+        sock = socket.create_connection((client.host, client.port),
+                                        timeout=30)
+        t0 = time.perf_counter()
+        tls = client.ssl_context.wrap_socket(sock,
+                                             server_hostname=client.host)
+        out.append((time.perf_counter() - t0) * 1e3)
+        tls.close()
+    return out

@@ -18,9 +18,12 @@ holds it to the original. The JAX client's session is an
 ``httpx.Client``; the card's machine has no httpx, so the port's is
 ``UrllibSession``, the part of ``httpx.Client`` that the port's callers
 use, on ``urllib.request``: ``get``, ``post``, ``delete``, ``request`` and
-``stream`` with ``params=`` (which replace the URL's own query, as
-httpx's do), ``json=``, ``data=``, ``content=``, ``headers=`` and
-``timeout=``; redirects followed as httpx follows them
+``stream`` (and ``head``) with ``params=`` (which replace the URL's own
+query, as httpx's do), ``json=``, ``data=``, ``content=``, ``headers=``
+and ``timeout=``; the client's ``verify`` as httpx's (``True``: the
+default trust store, which ``SSL_CERT_FILE`` replaces; ``False``: no
+check; a CA file or directory; an ``ssl.SSLContext``); redirects followed
+as httpx follows them
 (a 303, or a 302, becomes a GET without its body, as a POST's 301 does;
 a 307 or 308 is sent again as it was); a ``Response`` with
 ``status_code``, ``headers``, ``content``, ``text``, ``json()`` and
@@ -31,8 +34,9 @@ them as it treats httpx's. It is the port's one transport: the model
 gallery's downloads (``models/catalog.py``) stream through it too.
 Differences that no caller reads: urllib sends ``Accept-Encoding:
 identity`` and ``Connection: close`` (one connection a request, where an
-``httpx.Client`` keeps a pool), and gives up after 10 redirects where
-httpx gives up after 20.
+``httpx.Client`` keeps a pool), gives up after 10 redirects where httpx
+gives up after 20, and with ``verify=True`` trusts the system's store
+where httpx trusts certifi's (both read ``SSL_CERT_FILE`` first).
 """
 
 from __future__ import annotations
@@ -260,8 +264,26 @@ class _HTTPSHandler(urllib.request.HTTPSHandler):
         return req
 
 
-_OPENER = urllib.request.build_opener(_Redirects, _HTTPHandler,
-                                      _HTTPSHandler)
+def _ssl_context(verify):
+    """httpx's ``create_ssl_context`` for `verify` (but the default
+    store: see the module's docstring)."""
+    import os
+    import ssl
+
+    if verify is True:
+        return ssl.create_default_context()
+    if verify is False:
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+        ctx.check_hostname = False
+        ctx.verify_mode = ssl.CERT_NONE
+        return ctx
+    if isinstance(verify, (str, os.PathLike)):
+        if os.path.isdir(verify):
+            return ssl.create_default_context(capath=verify)
+        return ssl.create_default_context(cafile=verify)
+    return verify
+
+
 
 
 def _transport_error(e: BaseException) -> TransportError:
@@ -276,9 +298,11 @@ class UrllibSession:
     ``urllib.request`` (see the module's docstring)."""
 
     def __init__(self, timeout: float = DEFAULT_TIMEOUT,
-                 headers: dict | None = None):
+                 headers: dict | None = None, verify=True):
         self.timeout = timeout
         self.headers = dict(headers or {})
+        self._verify = verify
+        self._opener = None
 
     def _build(self, method: str, url: str, *, params=None, json=None,
                data=None, content=None, headers=None
@@ -312,8 +336,14 @@ class UrllibSession:
                                       method=method)
 
     def _open(self, req: urllib.request.Request, timeout):
+        if self._opener is None:
+            # the context at first use (``SSL_CERT_FILE`` read then, as
+            # httpx reads it when its client is made)
+            self._opener = urllib.request.build_opener(
+                _Redirects, _HTTPHandler,
+                _HTTPSHandler(context=_ssl_context(self._verify)))
         try:
-            return _OPENER.open(
+            return self._opener.open(
                 req, timeout=self.timeout if timeout is None else timeout)
         except urllib.error.HTTPError as e:
             return e                    # a status, not a transport error
@@ -340,6 +370,9 @@ class UrllibSession:
 
     def post(self, url: str, **kw) -> Response:
         return self.request("POST", url, **kw)
+
+    def head(self, url: str, **kw) -> Response:
+        return self.request("HEAD", url, **kw)
 
     def delete(self, url: str, **kw) -> Response:
         return self.request("DELETE", url, **kw)

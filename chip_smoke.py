@@ -232,26 +232,45 @@ Phases, in order; any failure propagates and exits non-zero:
    an MQTT broker with a subscriber recording each message and its
    arrival, ``diag/mysql_server.py`` with caching_sha2 and RSA full auth
    on the first connect, loopback BirdWeather, yr.no and eBird recording
-   their requests) in a process of their own; then, in another
-   (``integrations_leg``, ``build/integrations_smoke/``), the app with
-   its API behind a password, 16 tone and 4 file sources, v2.4 unfused at
-   batch 256, MQTT (retained, Home Assistant discovery), BirdWeather
-   (its client's base URL set after ``setup``), yr.no weather polled at
-   start, sound levels and eBird on; leg 1 serves 20 s on MySQL, leg 2
-   15 s on SQLite with encrypted backups to a local directory; each leg
-   walks ``diag/api_walk.integrations_walk`` once over HTTP (leg 2's
-   backup run is its backup). Gated: every window served, none dropped,
-   v2.4's p95 below 1,500 ms, the mel kernel once a batch and a warm-up,
-   every walked status, ``stop()`` within 15 s, nothing logged at ERROR;
-   leg 1: approvals = the server's rows = MQTT detection messages = SSE
-   events (each = the event tracker's passes), BirdWeather's POSTs = its
-   passes, the Home Assistant configs retained, a sound-level message an
-   interval, an hourly weather row in MySQL; leg 2: the archive verifies
-   with its passphrase, holding the rows committed before the request.
-   Printed: each leg's v2.4 p50/p95/max beside phase 18's, a row's time
-   from approval to commit and a detection's to the MQTT subscriber, the
-   backup's wall time, bytes and the latency during it, and the MQTT and
-   job-queue threads' CPU.
+   their requests, an OIDC provider, an ACME directory and Cloudflare
+   Access's key endpoint over HTTPS, with a CA of their own) in a process
+   of their own; then, in another (``integrations_leg``,
+   ``build/integrations_smoke/``, trusting the fakes' CA through
+   ``SSL_CERT_FILE``), the app with its API behind a password, 16 tone
+   and 4 file sources, v2.4 unfused at batch 256, MQTT (retained, Home
+   Assistant discovery), BirdWeather (its client's base URL set after
+   ``setup``), yr.no weather polled at start, sound levels and eBird on;
+   leg 1 serves 20 s on MySQL over HTTP and obtains an ACME certificate
+   for ``localhost`` while it serves (the directory validates through the
+   app's own challenge route); leg 2 serves 15 s on SQLite with
+   encrypted backups, over HTTPS on that cached certificate
+   (``tls_mode: acme``), with the OIDC, GitHub and Cloudflare logins;
+   each leg walks ``diag/api_walk.integrations_walk`` once (leg 2's
+   backup run is its backup), leg 2 then ``logins_walk`` (an OIDC login,
+   a Cloudflare token and a forged one, GitHub's redirect and a wrong
+   state, each TLS route, the terminal over ``wss://``) and leaves a
+   terminal open across ``stop()``. Gated: every window served, none
+   dropped, v2.4's p95 below 1,500 ms, the mel kernel once a batch and a
+   warm-up, every walked status, ``stop()`` within 15 s, nothing logged
+   at ERROR; leg 1: approvals = the server's rows = MQTT detection
+   messages = SSE events (each = the event tracker's passes),
+   BirdWeather's POSTs = its passes, the Home Assistant configs
+   retained, a sound-level message an interval, an hourly weather row in
+   MySQL, the ACME certificate validated through the app; leg 2: the
+   archive verifies with its passphrase, holding the rows committed
+   before the request; the certificate served is leg 1's (a client that
+   trusts only the fakes' CA verifies it), one ACME order in all, plain
+   HTTP to the port fails, the OIDC login ends authenticated, the
+   Cloudflare token is served and the forged one refused, the terminal
+   reads its size and markers back, closes with 1000, refuses another
+   origin, gets 1001 at ``stop()``, and no shell of it is left after
+   5 s. Printed: each leg's v2.4 p50/p95/max beside phase 18's (and
+   during leg 2's walk), a row's time from approval to commit and a
+   detection's to the MQTT subscriber, the backup's wall time, bytes and
+   the latency during it, the MQTT and job-queue threads' CPU, the TLS
+   handshake and a ping over HTTP and HTTPS (p50, p95), the ACME order's
+   and the OIDC login's wall time, the terminal's echo round trips and
+   ``cryptography``'s version.
 21. the importers and the native codecs (``phase_codecs_imports``):
    what the machine offers (``find_library`` of opus, mp3lame and
    avcodec, ``avcodec_version()``, the port's ``opus_available()``,
@@ -302,7 +321,9 @@ import os
 import re
 import shutil
 import signal
+import socket
 import sqlite3
+import ssl
 import struct
 import subprocess
 import sys
@@ -4780,6 +4801,10 @@ INT_STOP_S = 15.0
 INT_PASSWORD = "chip-smoke"
 INT_PASSPHRASE = "chip-smoke-backup"
 INT_SERVICES_S = 60.0        # the fake services listen within
+INT_DOMAIN = "localhost"     # the ACME certificate's name (leg 2 serves it)
+INT_PINGS = 30               # GET ping, timed, in each leg (HTTP; HTTPS)
+INT_HANDSHAKES = 20          # TLS handshakes timed in leg 2
+INT_REAP_S = 5.0             # a terminal's shell is gone within
 
 
 def _integrations_app(out: Path, ports: dict, mysql: bool):
@@ -4788,8 +4813,10 @@ def _integrations_app(out: Path, ports: dict, mysql: bool):
     filter, sound levels, the API on 127.0.0.1 behind a password; MQTT
     (retained, Home Assistant discovery), BirdWeather, yr.no weather and
     eBird against the fake services of `ports` (``diag/fake_services``);
-    the datastore MySQL (`mysql`) or SQLite with encrypted backups to a
-    local directory. Returns (app, settings, wavs, tones)."""
+    the datastore MySQL (`mysql`) over HTTP, or SQLite with encrypted
+    backups to a local directory over HTTPS (``tls_mode: acme`` on the
+    certificate leg 1 cached) with the OIDC, GitHub and Cloudflare
+    logins. Returns (app, settings, wavs, tones)."""
     from birdnet_go_tpu_torch.app import Application
     from birdnet_go_tpu_torch.config.settings import ModelSettings, Settings
     from birdnet_go_tpu_torch.diag.fake_services import urls
@@ -4816,6 +4843,25 @@ def _integrations_app(out: Path, ports: dict, mysql: bool):
     ws.enabled, ws.host, ws.port = True, "127.0.0.1", 0
     ws.password, ws.allow_local_bypass = INT_PASSWORD, False
     ws.token_file = str(out / "tokens.json")
+    ws.tls_dir = str(out / "tls")
+    if not mysql:
+        # leg 2: HTTPS on the certificate leg 1 obtained (tls_dir/acme),
+        # the OIDC, GitHub and Cloudflare logins; a port chosen now, for
+        # the redirect URIs the logins build from base_url
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ws.port = sock.getsockname()[1]
+        ws.base_url = f"https://{INT_DOMAIN}:{ws.port}"
+        ws.tls_enabled, ws.tls_mode = True, "acme"
+        ws.acme_domain, ws.acme_directory = INT_DOMAIN, to["acme_directory"]
+        ws.oidc_issuer = to["oidc_issuer"]
+        ws.oidc_client_id = ports["oidc_client_id"]
+        ws.oidc_client_secret = ports["oidc_client_secret"]
+        ws.oidc_allowed = ["@" + ports["oidc_email"].split("@")[1]]
+        ws.github_client_id = "chip-smoke-github"
+        ws.github_client_secret = "chip-smoke-github-secret"
+        ws.cloudflare_bypass_enabled = True
+        ws.cloudflare_team_domain = to["cloudflare_team"]
     s.imageprovider.providers = ["avicommons"]   # nothing leaves the host
     s.mqtt.enabled, s.mqtt.host, s.mqtt.port = True, "127.0.0.1", \
         ports["mqtt"]
@@ -4861,12 +4907,19 @@ def _integrations_serve(out: Path, ports: dict, mysql: bool,
     import threading
 
     from birdnet_go_tpu_torch.diag.api_walk import (
+        V2,
         Client,
         SseReader,
+        handshake_ms,
         integrations_walk,
+        logins_walk,
         route_times,
+        shell_children,
+        terminal_session,
+        wait_reaped,
     )
     from birdnet_go_tpu_torch.diag.fake_services import urls
+    from birdnet_go_tpu_torch.utils.httpclient import UrllibSession
 
     t_begin = time.time()
     warmups, warm_spans = [], []
@@ -4951,8 +5004,21 @@ def _integrations_serve(out: Path, ports: dict, mysql: bool,
     start_s = time.monotonic() - t1
     t_start = time.time()
     mqtt_up = app.mqtt.wait_connected(10)
-    client = Client(app.api.port, INT_PASSWORD)
+    acme, tls = {}, {}
+    if mysql:
+        client = Client(app.api.port, INT_PASSWORD)
+        acme = _acme_order(s, ports, app.api.port)
+    else:
+        # a client that trusts the fakes' CA alone, and checks the name
+        tls_ctx = ssl.create_default_context(cafile=ports["ca"])
+        client = Client(app.api.port, INT_PASSWORD, host=INT_DOMAIN,
+                        ssl_context=tls_ctx)
+        tls = {"served_is_acme": _served_certificate(client) == _pem_der(
+                   Path(s.webserver.tls_dir) / "acme" / f"{INT_DOMAIN}.crt"),
+               "plain_http_refused": _plain_http_refused(app.api.port),
+               "handshake_ms": handshake_ms(client, INT_HANDSHAKES)}
     client.login()
+    pings = [client.call("GET", f"{V2}/ping")[3] for _ in range(INT_PINGS)]
     sse = SseReader(client, "/api/v2/detections/stream")
     sse.start()
     backup = {}
@@ -4971,13 +5037,40 @@ def _integrations_serve(out: Path, ports: dict, mysql: bool,
                       bytes=archive.stat().st_size,
                       wall_ms=round(run["ms"], 1), t0=run["t0"],
                       t1=run["t1"])
+    logins, found, span, open_ws = [], {}, None, None
+    if not mysql:
+        def cf_mint() -> str:            # over HTTPS, trusting SSL_CERT_FILE
+            return UrllibSession(timeout=10).post(
+                f"https://{urls(ports)['cloudflare_team']}/mint",
+                json={}).json()["token"]
+
+        span = (time.time(), None)
+        logins, found = logins_walk(
+            client, cf_mint=cf_mint,
+            github_authorize="https://github.com/login/oauth/authorize")
+        span = (span[0], time.time())
+        # a terminal left open across stop()
+        shells = shell_children()
+        found["at_stop"], open_ws = terminal_session(client, rounds=1,
+                                                     leave_open=True)
     time.sleep(max(0.0, t_start + seconds - time.time()))
     t_end = time.time()
     cpu = _thread_cpu_s()
+    api_stop, api_stop_s = app.api.stop, []
+
+    def timed_api_stop():
+        t = time.monotonic()
+        api_stop()
+        api_stop_s.append(round(time.monotonic() - t, 2))
+
+    app.api.stop = timed_api_stop
     t2 = time.monotonic()
     app.stop()
     stop_s = time.monotonic() - t2
     t_stopped = time.time()
+    if open_ws is not None:
+        found["at_stop"]["close_code"] = _close_code_of(open_ws)
+        found["at_stop"]["left"] = wait_reaped(shells, INT_REAP_S)
     sse.ended.wait(10)
     sse.close()
     launches = {k.__name__: k.launches for k in KERNELS}
@@ -4994,10 +5087,13 @@ def _integrations_serve(out: Path, ports: dict, mysql: bool,
                   if backup["t0"] <= e <= backup["t0"] + INT_HOP_S]
         backup["v24_latency_ms_max_during"] = round(max(during or [0.0]), 1)
         backup["windows_during"] = len(during)
+    walk_ms = [(h - e) * 1e3 for e, h in v24
+               if span is not None and span[0] <= e <= span[1]]
     rec = {
         "database": "mysql" if mysql else "sqlite",
         "setup_s": round(setup_s, 2), "start_s": round(start_s, 2),
-        "stop_s": round(stop_s, 2), "served_s": round(t_end - t_start, 1),
+        "stop_s": round(stop_s, 2), "api_stop_s": api_stop_s,
+        "served_s": round(t_end - t_start, 1),
         "t_begin": t_begin, "t_start": t_start, "t_end": t_end,
         "t_stopped": t_stopped,
         "mqtt_connected": mqtt_up,
@@ -5018,6 +5114,11 @@ def _integrations_serve(out: Path, ports: dict, mysql: bool,
         "statuses": [(r["route"], r["status"], r["want"]) for r in records],
         "route_ms": route_times(records),
         "backup": backup,
+        "acme": acme, "tls": tls, "ping_ms": pings,
+        "logins": [(r["route"], r["status"], r["want"]) for r in logins],
+        "logins_ms": {r["route"]: round(r["ms"], 1) for r in logins},
+        "found": found,
+        "walk_latency_ms": _pct(walk_ms) if walk_ms else None,
         "soundlevel_interval_s": s.soundlevel.interval_seconds,
         "thread_cpu_s": {k: v for k, v in cpu.items()
                          if k in ("mqtt", "jobq-", "soundlevel",
@@ -5029,6 +5130,78 @@ def _integrations_serve(out: Path, ports: dict, mysql: bool,
         "threads_left": left,
     }
     return rec, cal
+
+
+def _acme_order(s, ports: dict, port: int) -> dict:
+    """Leg 1's ACME order while it serves: the fake directory told that
+    INT_DOMAIN resolves to this app, then ``AutoTlsManager.ensure`` with
+    ``GLOBAL_RESPONDER``, which the app's own challenge route answers
+    from. The wall time and the certificate cached under
+    ``tls_dir/acme``."""
+    import urllib.request
+
+    from birdnet_go_tpu_torch.diag.fake_services import urls
+    from birdnet_go_tpu_torch.utils.acme import (
+        GLOBAL_RESPONDER,
+        AutoTlsManager,
+    )
+
+    urllib.request.urlopen(urllib.request.Request(
+        f"http://127.0.0.1:{ports['acme']}/dns", method="POST",
+        data=json.dumps({"domain": INT_DOMAIN,
+                         "address": f"127.0.0.1:{port}"}).encode()),
+        timeout=10).close()
+    t0 = time.time()
+    mgr = AutoTlsManager(s.webserver.tls_dir, INT_DOMAIN,
+                         directory_url=urls(ports)["acme_directory"])
+    cert, _ = mgr.ensure(GLOBAL_RESPONDER)
+    t1 = time.time()
+    return {"wall_ms": round((t1 - t0) * 1e3, 1), "cert": str(cert),
+            "days": round(mgr.days_remaining(), 2), "t0": t0, "t1": t1}
+
+
+def _served_certificate(client) -> bytes:
+    """The DER certificate the server presents to `client`'s context."""
+    with socket.create_connection((client.host, client.port),
+                                  timeout=30) as sock:
+        with client.ssl_context.wrap_socket(
+                sock, server_hostname=client.host) as tls:
+            return tls.getpeercert(binary_form=True)
+
+
+def _pem_der(path: Path) -> bytes:
+    """The first certificate of a PEM chain, DER."""
+    text = path.read_text()
+    end = "-----END CERTIFICATE-----"
+    return ssl.PEM_cert_to_DER_cert(text[:text.index(end) + len(end)])
+
+
+def _plain_http_refused(port: int) -> bool:
+    """Whether a plain HTTP request to the TLS port fails."""
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        c.request("GET", "/api/v2/ping")
+        c.getresponse().read()
+        return False
+    except (OSError, http.client.HTTPException):
+        return True
+    finally:
+        c.close()
+
+
+def _close_code_of(ws) -> int | None:
+    """The code of the close frame a socket left open receives, or None."""
+    try:
+        op, data = ws.recv_message(INT_STOP_S)
+        while op != 0x8:
+            op, data = ws.recv_message(INT_STOP_S)
+        return struct.unpack("!H", data[:2])[0] if len(data) >= 2 else None
+    except (OSError, ConnectionError, TimeoutError):
+        return None
+    finally:
+        ws.sock.close()
 
 
 def integrations_leg(record_path: Path, services_path: Path) -> None:
@@ -5058,10 +5231,13 @@ def integrations_leg(record_path: Path, services_path: Path) -> None:
     out = record_path.parent
     leg1, cal = _integrations_serve(out, ports, True, INT_MYSQL_S, None)
     leg2, _ = _integrations_serve(out, ports, False, INT_BACKUP_S, cal)
+    import importlib.metadata
+
     record_path.write_text(json.dumps({
         "card": _run(["nvidia-smi", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"]).splitlines()[0],
         "calibration": cal, "legs": [leg1, leg2],
+        "cryptography": importlib.metadata.version("cryptography"),
         "losses": len(losses), "loss_lines": losses[:10]}, indent=1))
 
 
@@ -5095,10 +5271,13 @@ def phase_integrations(card: str) -> None:
             time.sleep(0.1)
         rec_path = out / "integrations.json"
         t1 = time.monotonic()
+        # the leg trusts the fakes' CA through its environment
+        ca = json.loads(ports_path.read_text())["ca"]
         proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
                                "--integrations-leg", str(rec_path),
                                str(ports_path)], capture_output=True,
-                              text=True, timeout=600, cwd=REPO)
+                              text=True, timeout=600, cwd=REPO,
+                              env={**os.environ, "SSL_CERT_FILE": ca})
         wall = time.monotonic() - t1
         (out / "integrations.log").write_text(proc.stderr)
         if proc.returncode != 0:
@@ -5228,6 +5407,7 @@ def _integrations_gates(rec: dict, ports: dict, got: dict,
           f"{b['rows_before']}) [{card}]")
     print(f"integrations calibration {rec['calibration']}; errors logged "
           f"{rec['losses']} {rec['loss_lines']}")
+    _logins_report(rec, got, phase18)
     for leg in (leg1, leg2):
         m = "BirdNET_V2.4"
         assert leg["produced"].get(m, 0) == leg["served"].get(m, 0) > 0, leg
@@ -5242,6 +5422,7 @@ def _integrations_gates(rec: dict, ports: dict, got: dict,
         assert leg["stop_s"] <= INT_STOP_S and not leg["threads_left"], leg
         assert leg["mqtt_connected"] and leg["sse_status"] == 200, leg
         assert leg["jobqueue"]["failed"] == 0, leg["jobqueue"]
+    _logins_gates(leg1, leg2, got)
     passes = leg1["passes"]
     n = len(leg1["approvals"])
     assert n > 0 and all(i is not None and at is not None
@@ -5270,6 +5451,71 @@ def _integrations_gates(rec: dict, ports: dict, got: dict,
     assert report["database"]["tables"]["detections"] >= \
         b["rows_before"], (report["database"], b)
     assert rec["losses"] == 0, rec["loss_lines"]
+
+
+def _logins_report(rec: dict, got: dict, phase18: dict | None) -> None:
+    """Phase 20's prints of HTTPS, ACME, the logins and the terminal."""
+    card = rec["card"]
+    leg1, leg2 = rec["legs"]
+    tls, found = leg2["tls"], leg2["found"]
+    hs = _pct(tls["handshake_ms"])
+    print(f"integrations TLS: handshake (ms) p50 {hs['p50']}, p95 "
+          f"{hs['p95']} ({INT_HANDSHAKES} handshakes); GET ping (ms) over "
+          f"HTTP p50 {_pct(leg1['ping_ms'])['p50']}, p95 "
+          f"{_pct(leg1['ping_ms'])['p95']}, over HTTPS p50 "
+          f"{_pct(leg2['ping_ms'])['p50']}, p95 "
+          f"{_pct(leg2['ping_ms'])['p95']} ({INT_PINGS} each, a connection "
+          f"a request); cryptography {rec['cryptography']} [{card}]")
+    print(f"integrations ACME: order for {INT_DOMAIN} {leg1['acme']['wall_ms']}"
+          f" ms (validated through the app: "
+          f"{[v['status'] for v in got['acme']['validations']]}), "
+          f"{leg1['acme']['days']} days; orders in all "
+          f"{len(got['acme']['orders'])}; leg 2 served it "
+          f"{tls['served_is_acme']}, plain HTTP refused "
+          f"{tls['plain_http_refused']} [{card}]")
+    term, stop = found["terminal"], found["at_stop"]
+    print(f"integrations logins: OIDC login {found['oidc']['ms']} ms "
+          f"(statuses {found['oidc']['statuses']}, authenticated "
+          f"{found['oidc']['authenticated']}); walk {leg2['logins']}; "
+          f"route ms {leg2['logins_ms']} [{card}]")
+    print(f"integrations terminal: echo round trips (ms) "
+          f"{term.get('echo_ms')}, resized {term.get('resized')}, close "
+          f"{term.get('close_code')}, shells left {term.get('left')}; open "
+          f"across stop(): close {stop.get('close_code')}, shells left "
+          f"{stop.get('left')}, stop {leg2['stop_s']} s (the API's "
+          f"{leg2['api_stop_s']} s; leg 1 {leg1['stop_s']} s, the API's "
+          f"{leg1['api_stop_s']} s) [{card}]")
+    print(f"integrations v2.4 latency during leg 2's walk (ms) "
+          f"{leg2['walk_latency_ms']} (phase 18: {phase18}) [{card}]")
+
+
+def _logins_gates(leg1: dict, leg2: dict, got: dict) -> None:
+    """Phase 20's gates of HTTPS, ACME, the logins and the terminal (see
+    the module's docstring)."""
+    validations = got["acme"]["validations"]
+    assert len(got["acme"]["orders"]) == 1, got["acme"]
+    assert [v["status"] for v in validations] == ["valid"], validations
+    assert Path(leg1["acme"]["cert"]).is_file() and \
+        leg1["acme"]["days"] > 80, leg1["acme"]
+    tls, found = leg2["tls"], leg2["found"]
+    assert tls["served_is_acme"] and tls["plain_http_refused"], tls
+    bad = [r for r in leg2["logins"] if r[1] != r[2]]
+    assert not bad and len(leg2["logins"]) == 13, leg2["logins"]
+    assert found["oidc"]["authenticated"], found["oidc"]
+    assert got["oidc"]["codes_traded"] == 1, got["oidc"]
+    assert found["github_redirect"], found
+    assert found["github_wrong_state"] == {
+        "error": "unknown or expired state"}, found
+    assert found["Cloudflare forged"] == '{"error": "unauthorized"}', found
+    assert found["tls_download_pem"], found
+    term, stop = found["terminal"], found["at_stop"]
+    assert term["status"] == 101 and term["resized"], term
+    assert len(term["echo_ms"]) == 5 and term["close_code"] == 1000, term
+    assert term["left"] == [], term
+    assert found["terminal_cross_origin"] == {
+        "error": "cross-origin terminal access denied"}, found
+    assert stop["status"] == 101 and stop["close_code"] == 1001, stop
+    assert stop["left"] == [], stop
 
 
 CODEC_TONES = 16             # phase 21: the app's tone sources

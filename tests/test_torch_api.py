@@ -18,9 +18,10 @@ only in the two apps' directories, which the comparison names ``<dir>``.
 
 Also here: the behaviours of ``api/web.py`` that the handlers depend on,
 each against aiohttp on the same small app or on the same request to
-both servers; the routes the port cannot serve yet (``UNPORTED_ROUTES``,
-501 naming their ROADMAP item) and those it serves as JAX does without
-the subsystem; ``stop()`` with SSE clients connected; an SSE client
+both servers; the routes it serves as JAX does without the subsystem
+(the terminal, TLS and logins have files of their own:
+``tests/test_torch_terminal.py``, ``test_torch_tls.py``,
+``test_torch_logins.py``); ``stop()`` with SSE clients connected; an SSE client
 receiving the detections ``_run_ticks`` approves; the SPA files byte for
 byte; ``auth reset`` against JAX's command; and the helper modules the
 handlers reach (metrics, sysinfo, insights, speciesdict, the update
@@ -964,25 +965,6 @@ def test_file_response_ranges_and_conditionals(pair):
         assert (st, st2, b2) == (200, 304, b"")
         st3, h3, b3 = side.client.call("HEAD", url)
         assert (st3, b3, h3["content-length"]) == (200, b"", str(len(b)))
-
-
-def test_unported_routes_answer_501_with_their_item(pair):
-    """Every route of ``UNPORTED_ROUTES`` answers 501 naming its ROADMAP
-    item (10: the integrations of item 8 are served, and the importers
-    of item 9, whose ``imports/*`` routes answer as JAX's in
-    ``tests/test_torch_imports.py``)."""
-    from birdnet_go_tpu_torch.api.handlers_ext import UNPORTED_ROUTES
-
-    assert not [r for _, r in UNPORTED_ROUTES if r.startswith("/imports")]
-    side = pair["torch"]
-    for (method, route), (what, item) in sorted(UNPORTED_ROUTES.items()):
-        path = V2 + route.replace("{id}", "1")
-        st, h, b = side.client.call(method, path, body={})
-        assert st == 501, (method, route, b)
-        err = json.loads(b)["error"]
-        assert item in err and what in err and "ROADMAP.md queue 1 " \
-            "item " in err, err
-        assert "item 8" not in err and "item 9" not in err, err
 
 
 class _Ran:

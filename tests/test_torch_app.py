@@ -28,8 +28,7 @@ The port's own behaviour has tests of its own, each stating what JAX does
 instead: runtime load and unload (the port serves what the unloaded model
 already holds), the engine's gate (closed for ticks and launches, open
 for a warm-up), a native RTSP source served by the app, the quiet-hours
-gates on a ``SoundcardSource``, the mesh choice, the refusals of
-unported subsystems, the
+gates on a ``SoundcardSource``, the mesh choice, the
 threshold-persistence stop race (JAX's closure re-reads the attribute),
 the lazy HTTP client of ``NotificationService``, the probe that raises
 rather than degrade, ``serve`` with the API on, the ``ApiServer`` and the
@@ -1595,48 +1594,6 @@ def test_mesh_choice_builds_sharded_classifier(tmp_path, monkeypatch,
     assert app._mesh is None and asked == ["cuda"]
 
 
-def _webserver_with(**kw):
-    """A settings change that turns the webserver on with `kw`."""
-    def enable(s):
-        s.webserver.enabled = True
-        for k, v in kw.items():
-            setattr(s.webserver, k, v)
-    return enable
-
-
-REFUSALS = {
-    "tls": (_webserver_with(tls_enabled=True), "item 10", None),
-    "oidc": (_webserver_with(oidc_issuer="https://id.example"), "item 10",
-             None),
-    "github": (_webserver_with(github_client_id="id"), "item 10", None),
-    "cloudflare": (_webserver_with(cloudflare_bypass_enabled=True),
-                   "item 10", None),
-}
-
-
-@pytest.mark.parametrize("name", sorted(REFUSALS))
-def test_unported_subsystem_refused(name, tmp_path, monkeypatch, tiny_v24):
-    """Each subsystem the port does not have yet (the HTTPS and logins of
-    item 10) raises ``NotImplementedError`` naming its ROADMAP item from
-    ``setup``, and, where JAX reconfigures it live, from its
-    ``_reconfigure_*`` handler on a running configuration."""
-    enable, item, handler = REFUSALS[name]
-    _patch_models(T, monkeypatch, tiny_v24)
-    s = _app_settings(T, tmp_path)
-    enable(s)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-        T.app.Application(s, device="cpu").setup()
-    if handler is None:
-        return
-    app = T.app.Application(_app_settings(T, tmp_path / "live"),
-                            device="cpu")
-    app.setup()
-    enable(app.settings)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-        getattr(app, handler)()
-    app.datastore.close()
-
-
 def _mysql_on(port: int):
     def enable(s):
         d = s.database
@@ -1765,7 +1722,7 @@ def test_setup_builds_the_api_and_the_image_service(name, tmp_path,
         assert isinstance(app.images, ImageProviderService)
         assert [p.name for p in app.images.providers] == ["avicommons"]
         assert app.api is None
-    assert name not in app._unported()
+    assert (app.api is not None) == (name == "webserver")
     app.datastore.close()
 
 

@@ -395,14 +395,21 @@ def _port_modules() -> list[str]:
 # port module imports any of them (yaml only through importlib where a
 # config is read, and JSON where it is missing: _IMPORTLIB_ALLOWED)
 _NEVER = ("jax", "jaxlib", "birdnet_go_tpu", "yaml", "aiohttp", "orbax",
-          "optax", "httpx", "PIL")
+          "optax", "httpx", "PIL", "websockets")
 # cryptography is on the card's machine: the port imports it where JAX
-# does, inside the functions of MySQL's RSA full auth and of backup
-# encryption (_FUNCTION_IMPORTS), never when a module loads
+# does, inside the functions of MySQL's RSA full auth, backup encryption,
+# TLS certificates, ACME and the OIDC and Cloudflare tokens, and of the
+# fake services' CA, identity provider and ACME directory
+# (_FUNCTION_IMPORTS), never when a module loads
 _BLOCKED = _NEVER + ("cryptography",)
 _FUNCTION_IMPORTS = {
     "cryptography": {"birdnet_go_tpu_torch/datastore/mysql_wire.py",
-                     "birdnet_go_tpu_torch/utils/backup.py"}}
+                     "birdnet_go_tpu_torch/utils/backup.py",
+                     "birdnet_go_tpu_torch/utils/tlscert.py",
+                     "birdnet_go_tpu_torch/utils/acme.py",
+                     "birdnet_go_tpu_torch/api/oidc.py",
+                     "birdnet_go_tpu_torch/api/cloudflare.py",
+                     "birdnet_go_tpu_torch/diag/fake_services.py"}}
 # (module, files) the port may name to importlib.import_module
 # (and chip_smoke.py's phase 15 reports whether Pillow imports on the
 # machine)
@@ -509,7 +516,13 @@ def test_port_imports_with_jax_and_jax_package_blocked():
             "birdnet_go_tpu_torch.utils.metrics",
             "birdnet_go_tpu_torch.utils.sysinfo",
             "birdnet_go_tpu_torch.utils.update",
-            "birdnet_go_tpu_torch.utils.unported",
+            "birdnet_go_tpu_torch.api.terminal",
+            "birdnet_go_tpu_torch.api.oidc",
+            "birdnet_go_tpu_torch.api.github_auth",
+            "birdnet_go_tpu_torch.api.cloudflare",
+            "birdnet_go_tpu_torch.utils.tlscert",
+            "birdnet_go_tpu_torch.utils.acme",
+            "birdnet_go_tpu_torch.diag.ws_client",
             "birdnet_go_tpu_torch.analysis.insights",
             "birdnet_go_tpu_torch.taxonomy.speciesdict",
             "birdnet_go_tpu_torch.integrations.imageprovider",
@@ -562,8 +575,10 @@ def _imported_names(path: Path) -> list[str]:
 
 @pytest.mark.parametrize("where", ["chip_smoke.py", "birdnet_go_tpu_torch"])
 def test_no_import_of_the_jax_package(where):
-    """No import of what ``_NEVER`` names; ``cryptography`` only inside a
-    function of the files ``_FUNCTION_IMPORTS`` allows."""
+    """No import of what ``_NEVER`` names (JAX and its package; aiohttp,
+    httpx and websockets, which the port's server, transport and socket
+    stand in for); ``cryptography`` only inside a function of the files
+    ``_FUNCTION_IMPORTS`` allows."""
     path = REPO / where
     files = [path] if path.is_file() else sorted(path.rglob("*.py"))
     assert files
@@ -579,8 +594,8 @@ def test_no_import_of_the_jax_package(where):
 
 def test_cryptography_imports_sit_in_their_functions():
     """The imports ``_FUNCTION_IMPORTS`` allows are there (MySQL's RSA
-    full auth, backup encryption and decryption), each inside a
-    function."""
+    full auth, backup encryption and decryption, TLS, ACME, the OIDC and
+    Cloudflare tokens, the fake services), each inside a function."""
     found = {}
     for rel in _FUNCTION_IMPORTS["cryptography"]:
         found[rel] = [fn for name, fn in _imports(REPO / rel)

@@ -1,0 +1,3 @@
+"""batch_fill.live: ``portbench.readers.batch_fill``."""
+
+from portbench.readers import batch_fill as read  # noqa: F401

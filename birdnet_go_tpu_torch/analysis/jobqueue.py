@@ -32,6 +32,8 @@ import threading
 import time
 from typing import Any, Callable
 
+from birdnet_go_tpu_torch.utils import tracing
+
 log = logging.getLogger("birdnet_tpu.jobqueue")
 
 DEFAULT_CAPACITY = 1000               # jobqueue/queue.go:59
@@ -90,6 +92,8 @@ class Job:
     status: JobStatus = JobStatus.PENDING
     attempts: int = 0
     enqueued_at: float = dataclasses.field(default_factory=time.monotonic)
+    # the spans' clock (utils/tracing.py): job.wait runs from here to start
+    enqueued_ns: int = dataclasses.field(default_factory=time.perf_counter_ns)
     not_before: float = 0.0
     last_error: str | None = None
 
@@ -297,13 +301,17 @@ class JobQueue:
     def _execute(self, job: Job) -> None:
         job.status = JobStatus.RUNNING
         job.attempts += 1
+        tracing.add("job.wait", job.enqueued_ns, time.perf_counter_ns(),
+                    category=job.category)
         try:
-            job.action()
+            with tracing.span("job.run", category=job.category):
+                job.action()
         except Exception as e:  # noqa: BLE001 — actions are arbitrary
             job.last_error = f"{type(e).__name__}: {e}"
             if job.retry.enabled and job.attempts <= job.retry.max_retries:
                 delay = job.retry.delay_for(job.attempts - 1)
                 job.not_before = time.monotonic() + delay
+                job.enqueued_ns = time.perf_counter_ns()
                 job.status = JobStatus.PENDING
                 with self._stats_lock:
                     self.stats.bump(job.category, "retried")

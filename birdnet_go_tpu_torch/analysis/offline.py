@@ -31,6 +31,7 @@ from birdnet_go_tpu_torch.ops.windows import (
     window_hop_samples,
 )
 from birdnet_go_tpu_torch.taxonomy.labels import LabelSet
+from birdnet_go_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -75,9 +76,16 @@ class OfflineAnalyzer:
     def analyze_samples(self, samples: np.ndarray, sample_rate: int
                         ) -> OfflineReport:
         t_start = time.perf_counter()
-        cfg = self.config
-        duration = len(samples) / sample_rate
+        with tracing.span("offline.analyze"):
+            window_results, detections = self._analyze(samples, sample_rate)
+        elapsed = time.perf_counter() - t_start
+        return OfflineReport(detections=detections, windows=window_results,
+                             duration_seconds=len(samples) / sample_rate,
+                             elapsed_seconds=elapsed)
 
+    def _analyze(self, samples: np.ndarray, sample_rate: int
+                 ) -> tuple[list[WindowResult], list[Detection]]:
+        cfg = self.config
         hop = window_hop_samples(self.clip_samples, cfg.overlap,
                                  self.model_rate,
                                  clip_seconds=self.clip_seconds)
@@ -93,22 +101,20 @@ class OfflineAnalyzer:
                 chunk = F.pad(chunk, (0, 0, 0, b - chunk.shape[0]))
             vals, idx = self.classifier.predict_topk(
                 chunk, sensitivity=cfg.sensitivity, k=cfg.top_k)
-            for j in range(min(b, n_win - start)):
-                w = start + j
-                begin = w * hop / self.model_rate
-                end = begin + self.clip_seconds
-                wr = WindowResult(
-                    window_index=w, begin_seconds=begin, end_seconds=end,
-                    model_id=self.classifier.model_id,
-                    indices=[int(i) for i in idx[j]],
-                    confidences=[float(v) for v in vals[j]])
-                window_results.append(wr)
-                detections.extend(self._detections_for(wr))
-
-        elapsed = time.perf_counter() - t_start
-        return OfflineReport(detections=detections, windows=window_results,
-                             duration_seconds=duration,
-                             elapsed_seconds=elapsed)
+            with tracing.span("offline.results"):
+                for j in range(min(b, n_win - start)):
+                    w = start + j
+                    begin = w * hop / self.model_rate
+                    end = begin + self.clip_seconds
+                    wr = WindowResult(
+                        window_index=w, begin_seconds=begin,
+                        end_seconds=end,
+                        model_id=self.classifier.model_id,
+                        indices=[int(i) for i in idx[j]],
+                        confidences=[float(v) for v in vals[j]])
+                    window_results.append(wr)
+                    detections.extend(self._detections_for(wr))
+        return window_results, detections
 
     def _device_windows(self, samples: np.ndarray, sample_rate: int,
                         hop: int) -> torch.Tensor:
@@ -116,11 +122,13 @@ class OfflineAnalyzer:
         model's rate on the classifier's device, with the zero-padded tail
         of the JAX analyzer's ``_host_slice``: a signal shorter than a clip
         still gives one window."""
-        x = torch.as_tensor(np.asarray(samples, np.float32),
-                            device=self.classifier.device)
+        with tracing.span("offline.upload"):
+            x = torch.as_tensor(np.asarray(samples, np.float32),
+                                device=self.classifier.device)
         if sample_rate != self.model_rate:
-            x = polyphase_resample(x, ResampleConfig(sample_rate,
-                                                     self.model_rate))
+            with tracing.span("offline.resample"):
+                x = polyphase_resample(x, ResampleConfig(sample_rate,
+                                                         self.model_rate))
         if x.shape[-1] < self.clip_samples:
             x = F.pad(x, (0, self.clip_samples - x.shape[-1]))
         return slice_overlapped_windows(x, self.clip_samples, hop)

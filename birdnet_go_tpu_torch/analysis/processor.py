@@ -35,6 +35,7 @@ from birdnet_go_tpu_torch.analysis.dynamic_threshold import DynamicThresholds
 from birdnet_go_tpu_torch.analysis.results import Detection
 from birdnet_go_tpu_torch.config.settings import Settings
 from birdnet_go_tpu_torch.taxonomy.labels import LabelSet, Species
+from birdnet_go_tpu_torch.utils import tracing
 
 log = logging.getLogger("birdnet_tpu.processor")
 
@@ -336,6 +337,15 @@ class Processor:
         (reference processes per-result in Go, process.go:423-470; the
         Python-native equivalent of 'fast' is numpy over the batch).
         Returns how many windows took the scalar path."""
+        with tracing.span("submit.batch"):
+            n_scalar = self._submit_batch(model_id, source_ids, start_times,
+                                          end_times, confidences, indices,
+                                          ultrasonic_cv)
+        tracing.count("submit.scalar_rows", n_scalar)
+        return n_scalar
+
+    def _submit_batch(self, model_id, source_ids, start_times, end_times,
+                      confidences, indices, ultrasonic_cv) -> int:
         labels = self.labels_by_model.get(model_id)
         if labels is None:
             log.warning("no labels for model %s", model_id)
@@ -627,6 +637,10 @@ class Processor:
     def flush(self, now: float | None = None) -> list[Detection]:
         """One flush cycle: approve/discard items past their deadline.
         Returns approved detections (actions already dispatched)."""
+        with tracing.span("flush"):
+            return self._flush(now)
+
+    def _flush(self, now: float | None) -> list[Detection]:
         now = self.clock() if now is None else now
         approved: list[tuple[Detection, PendingDetection]] = []
         with self._lock:

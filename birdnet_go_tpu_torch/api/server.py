@@ -1331,6 +1331,10 @@ class ApiServer(ExtendedHandlers, AuthHandlers, TerminalHandlers):
             for k in ("enqueued", "completed", "failed", "dropped"):
                 REGISTRY.gauge(f"birdnet_jobqueue_{k}_total").set(
                     getattr(st, k))
+        # every span and counter of the port's recorder (utils/tracing.py)
+        from birdnet_go_tpu_torch.utils.tracing import GLOBAL_SPANS
+
+        GLOBAL_SPANS.set_metrics(REGISTRY)
         # live migration progress (reference migration_telemetry.go); read
         # from the persisted state row so it reports across restarts too
         ds = self.ctx.datastore

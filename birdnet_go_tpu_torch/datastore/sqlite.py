@@ -21,6 +21,7 @@ from pathlib import Path
 from typing import Any
 
 from birdnet_go_tpu_torch.analysis.results import Detection
+from birdnet_go_tpu_torch.utils import tracing
 
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS detections (
@@ -223,7 +224,8 @@ class Datastore:
             self._bump_daily_events(when.strftime("%Y-%m-%d"),
                                     when.strftime("%H:%M:%S"),
                                     d.species.scientific)
-            self._conn.commit()
+            with tracing.span("db.commit"):
+                self._conn.commit()
             return int(det_id)
 
     def _bump_daily_events(self, date: str, time_s: str, sci: str) -> None:

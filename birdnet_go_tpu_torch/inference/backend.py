@@ -15,6 +15,7 @@ from birdnet_go_tpu_torch.ops.postprocess import (
     sigmoid_confidence,
     top_k_results,
 )
+from birdnet_go_tpu_torch.utils import tracing
 
 
 class TorchClassifier:
@@ -44,13 +45,17 @@ class TorchClassifier:
         is used where it lies."""
         k = min(k, self.num_species)
         with torch.inference_mode():
-            x = torch.as_tensor(pcm, dtype=torch.float32, device=self.device)
-            conf = sigmoid_confidence(self.model.apply(x)["logits"],
-                                      sensitivity)
-            if self._range_mask is not None:
-                conf = conf * self._range_mask
-            vals, idx = top_k_results(conf, k)
-            return vals.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
+            with tracing.span("predict.step"):
+                x = torch.as_tensor(pcm, dtype=torch.float32,
+                                    device=self.device)
+                conf = sigmoid_confidence(self.model.apply(x)["logits"],
+                                          sensitivity)
+                if self._range_mask is not None:
+                    conf = conf * self._range_mask
+                vals, idx = top_k_results(conf, k)
+            # the copies wait for the card
+            with tracing.span("predict.sync"):
+                return vals.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
 
     def embed(self, pcm: np.ndarray) -> np.ndarray:
         with torch.inference_mode():

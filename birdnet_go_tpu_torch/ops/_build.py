@@ -20,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from birdnet_go_tpu_torch.utils import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -91,6 +93,7 @@ def load() -> ctypes.CDLL:
         path = library_path()
         if not path.is_file():
             _build(path)
+            tracing.count("kernels.built")
         lib = ctypes.CDLL(str(path))
         _declare(lib)
         _lib = lib

@@ -4,12 +4,14 @@ on a torch device.
 ``PendingWindow``, ``BatcherStats``, ``HostBatcher`` and ``DeviceLoop`` are
 copies of the JAX package's host plane (``birdnet_go_tpu/scheduler/loop.py``),
 so that the port imports nothing of it; ``tests/test_torch_hostplane.py``
-holds them to the originals. A batch's span goes to the port's
-``utils.tracing.GLOBAL_SPANS``, and a persistent tick failure is tagged
-through the port's ``utils.errors``. ``TorchModelBatcher`` supplies only
-the device interaction. ``DeviceLoop.remove_batcher`` (and the lock that
-makes each tick atomic against it) is the port's own: it serves the
-windows an unloaded model still holds, which JAX's app drops.
+holds them to the originals. A batch's record goes to the port's
+``utils.tracing.GLOBAL_SPANS``, beside the spans of each tick, fill,
+commit, launch and harvest (``utils/tracing.py``), and a persistent tick
+failure is tagged through the port's ``utils.errors``.
+``TorchModelBatcher`` supplies only the device interaction.
+``DeviceLoop.remove_batcher`` (and the lock that makes each tick atomic
+against it) is the port's own: it serves the windows an unloaded model
+still holds, which JAX's app drops.
 
 Per model: a fixed batch shape [B, clip_samples] int16 (int16 halves the
 host→device transfer vs float32; conversion happens on the device inside the
@@ -53,10 +55,23 @@ from birdnet_go_tpu_torch.ops.ultrasonic import (
     UltrasonicConfig,
     ultrasonic_frame_cv,
 )
-from birdnet_go_tpu_torch.utils import errors
+from birdnet_go_tpu_torch.utils import errors, tracing
 from birdnet_go_tpu_torch.utils.tracing import GLOBAL_SPANS
 
 log = logging.getLogger("birdnet_tpu.scheduler")
+
+
+def _count_ingest(end_times: np.ndarray, nbytes: int) -> None:
+    """Count windows staged for a batch, their bytes, and how long after
+    its end (its start time on the wall clock + its length) each was
+    staged, summed."""
+    k = len(end_times)
+    if k == 0:
+        return
+    wait_s = time.time() * k - float(end_times.sum())
+    tracing.count("ingest.windows", k)
+    tracing.count("ingest.bytes", nbytes)
+    tracing.count("ingest.wait_ns", round(wait_s * 1e9))
 
 
 @dataclasses.dataclass
@@ -170,11 +185,15 @@ class HostBatcher:
         self._staged[n:n + k] = pcm_block[:k]
         rate = self.spec.sample_rate
         dur = self.spec.clip_samples / rate
-        for j in range(k):
-            st = float(start_times[j])
-            self._meta.append(PendingWindow(
-                source_id=source_ids[j], start_time=st, end_time=st + dur,
-                pcm=pcm_block[j] if keep_pcm else None, pcm_rate=rate))
+        with tracing.span("loop.commit"):
+            for j in range(k):
+                st = float(start_times[j])
+                self._meta.append(PendingWindow(
+                    source_id=source_ids[j], start_time=st,
+                    end_time=st + dur,
+                    pcm=pcm_block[j] if keep_pcm else None, pcm_rate=rate))
+            _count_ingest(np.asarray(start_times[:k], np.float64) + dur,
+                          k * self._staged.shape[1] * 2)
         return k
 
     # zero-copy ingest: the C++ farm packs windows STRAIGHT into the
@@ -193,11 +212,14 @@ class HostBatcher:
         (metadata only — the PCM is already in place)."""
         rate = self.spec.sample_rate
         dur = self.spec.clip_samples / rate
-        for j in range(k):
-            st = float(start_times[j])
-            self._meta.append(PendingWindow(
-                source_id=source_ids[j], start_time=st, end_time=st + dur,
-                pcm_rate=rate))
+        with tracing.span("loop.commit"):
+            for j in range(k):
+                st = float(start_times[j])
+                self._meta.append(PendingWindow(
+                    source_id=source_ids[j], start_time=st,
+                    end_time=st + dur, pcm_rate=rate))
+            _count_ingest(np.asarray(start_times[:k], np.float64) + dur,
+                          k * self._staged.shape[1] * 2)
 
     # -- device loop --------------------------------------------------------------
 
@@ -216,8 +238,11 @@ class HostBatcher:
         n = len(self._meta)
         if n == 0:
             return 0
-        handle = self._launch(self._staged, n)
-        self._inflight.append((handle, self._meta, time.monotonic()))
+        batch = tracing.new_batch()
+        with tracing.span("batch.launch", batch=batch):
+            handle = self._launch(self._staged, n)
+        self._inflight.append((handle, self._meta, time.perf_counter_ns(),
+                               batch))
         self._meta = []
         # rotate staging buffers: the batch just dispatched aliases the
         # current buffer; subsequent offer() calls write the next one
@@ -232,19 +257,27 @@ class HostBatcher:
         results; newer batches keep running on device."""
         if not self._inflight:
             return 0
-        handle, meta, t0 = self._inflight.pop(0)
-        vals_np, idx_np, cv_np = self._collect(handle, meta)
-        latency = time.monotonic() - t0
-        self.stats.last_latency_ms = latency * 1000.0
-        # prediction span (tracing.go startPredictSpan analogue): one span
-        # per device batch, ring-buffered for /system/inference/spans
-        GLOBAL_SPANS.record(self.spec.model_id, len(meta),
-                            len(meta) / self.max_batch, latency * 1000.0)
-        if latency > self.budget_seconds:
-            self.stats.overruns += 1
-            log.warning("%s batch latency %.0f ms exceeds realtime budget"
-                        " %.0f ms", self.spec.model_id, latency * 1000,
-                        self.budget_seconds * 1000)
+        handle, meta, t0, batch = self._inflight.pop(0)
+        t1 = time.perf_counter_ns()
+        tracing.add("batch.inflight", t0, t1, batch=batch)
+        with tracing.span("batch.harvest", batch=batch):
+            vals_np, idx_np, cv_np = self._collect(handle, meta)
+            # dispatch to results on the host, on the spans' clock
+            latency = (time.perf_counter_ns() - t0) / 1e9
+            self.stats.last_latency_ms = latency * 1000.0
+            # prediction record (tracing.go startPredictSpan analogue): one
+            # per device batch, ring-buffered for /system/inference/spans
+            GLOBAL_SPANS.record(self.spec.model_id, len(meta),
+                                len(meta) / self.max_batch, latency * 1000.0)
+            if latency > self.budget_seconds:
+                self.stats.overruns += 1
+                log.warning("%s batch latency %.0f ms exceeds realtime "
+                            "budget %.0f ms", self.spec.model_id,
+                            latency * 1000, self.budget_seconds * 1000)
+            with tracing.span("harvest.fanout"):
+                return self._fan_out(meta, vals_np, idx_np, cv_np)
+
+    def _fan_out(self, meta, vals_np, idx_np, cv_np) -> int:
         if self.on_batch is not None:
             # vectorized fan-out: one callback per device batch (pairs
             # with Processor.submit_batch) — no per-window Python
@@ -392,21 +425,25 @@ class TorchModelBatcher(HostBatcher):
 
     def _launch(self, staged: np.ndarray, n: int):
         with self._closed():
-            vals, idx, cv = self._step(self._to_device(staged),
-                                       self.sensitivity, self.top_k,
-                                       self.classifier._range_mask)
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+            with tracing.span("launch.h2d"):
+                x = self._to_device(staged)
+            with tracing.span("launch.step"):
+                vals, idx, cv = self._step(x, self.sensitivity, self.top_k,
+                                           self.classifier._range_mask)
+                event = None
+                if self.device.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(self.device))
         return vals, idx, event, cv
 
     def _collect(self, handle, meta):
         vals, idx, event, cv = handle
         if event is not None:
-            event.synchronize()
-        return (vals.cpu().numpy(), idx.to(torch.int32).cpu().numpy(),
-                cv.cpu().numpy() if cv is not None else None)
+            with tracing.span("harvest.wait"):
+                event.synchronize()
+        with tracing.span("harvest.d2h"):
+            return (vals.cpu().numpy(), idx.to(torch.int32).cpu().numpy(),
+                    cv.cpu().numpy() if cv is not None else None)
 
     def _ready(self, handle):
         # the CPU step ran synchronously inside _launch
@@ -530,8 +567,9 @@ class DeviceLoop:
         max_dispatches_per_tick batches per model; only beyond that does
         overflow land in the bounded retry backlog. Holds ``gate``
         closed throughout, where there is one."""
-        with self._tick_lock, (self.gate.closed() if self.gate is not None
-                               else contextlib.nullcontext()):
+        with tracing.span("loop.tick"), self._tick_lock, (
+                self.gate.closed() if self.gate is not None
+                else contextlib.nullcontext()):
             return self._tick()
 
     def _tick(self) -> int:
@@ -547,7 +585,8 @@ class DeviceLoop:
             items.extend(backlog)           # retry last tick's overflow first
         self._backlog = {}
         for provider in self._providers:
-            items.extend(provider())
+            with tracing.span("loop.fill"):
+                items.extend(provider())
         dispatched = 0
         # snapshot: runtime model load/unload (API threads) mutates the
         # dict while this thread iterates
@@ -568,14 +607,16 @@ class DeviceLoop:
                     budget[model_id] -= 1
                     dispatched += b.dispatch()
                     continue
-                n, sids, sts = fill(view)
+                with tracing.span("loop.fill"):
+                    n, sids, sts = fill(view)
                 if n == 0:
                     break
                 b.commit_block(n, sids, sts)
         # packed blocks from the native ingest plane first (bulk traffic)
         for model_id, provider in list(self._block_providers):
             b = batchers.get(model_id)
-            block, sids, sts = provider()
+            with tracing.span("loop.fill"):
+                block, sids, sts = provider()
             n_rows = len(block)
             if n_rows == 0:
                 continue
@@ -604,30 +645,8 @@ class DeviceLoop:
                         else:
                             self.windows_dropped += 1
                     break
-        for item in items:
-            model_id, pcm, source_id, start_time = item[:4]
-            rate = item[4] if len(item) > 4 else 0
-            b = batchers.get(model_id)
-            if b is None:
-                # model unloaded (or warmup failed) while windows were in
-                # flight: still a loss — count it (CLAUDE.md: every queue
-                # drop is accounted)
-                self.windows_dropped += 1
-                continue
-            if not b.offer(pcm, source_id, start_time, rate):
-                # full megabatch: dispatch it now and retry into the
-                # fresh staging buffer (dispatch budget permitting)
-                retried = False
-                if budget.get(model_id, 0) > 0:
-                    budget[model_id] -= 1
-                    dispatched += b.dispatch()
-                    retried = b.offer(pcm, source_id, start_time, rate)
-                if not retried:
-                    q = self._backlog.setdefault(model_id, [])
-                    if len(q) < 4 * b.max_batch:
-                        q.append(item)
-                    else:                   # overload: drop WITH accounting
-                        self.windows_dropped += 1
+        if items:
+            dispatched += self._offer_items(items, batchers, budget)
         for model_id, b in batchers.items():
             n = b.dispatch() if budget.get(model_id, 0) > 0 else 0
             dispatched += n
@@ -648,6 +667,43 @@ class DeviceLoop:
         self.tick_busy_ms += 0.05 * (busy - self.tick_busy_ms)
         if busy > self.tick_busy_ms_max:
             self.tick_busy_ms_max = busy
+        return dispatched
+
+    def _offer_items(self, items: list, batchers: dict, budget: dict) -> int:
+        """Stage windows one at a time (the ``add_provider`` path) as one
+        ``loop.commit`` span; returns windows dispatched meanwhile."""
+        dispatched = 0
+        ends, nbytes = [], 0
+        with tracing.span("loop.commit"):
+            for item in items:
+                model_id, pcm, source_id, start_time = item[:4]
+                rate = item[4] if len(item) > 4 else 0
+                b = batchers.get(model_id)
+                if b is None:
+                    # model unloaded (or warmup failed) while windows were
+                    # in flight: still a loss — count it (every queue drop
+                    # is accounted)
+                    self.windows_dropped += 1
+                    continue
+                staged = b.offer(pcm, source_id, start_time, rate)
+                if not staged:
+                    # full megabatch: dispatch it now and retry into the
+                    # fresh staging buffer (dispatch budget permitting)
+                    if budget.get(model_id, 0) > 0:
+                        budget[model_id] -= 1
+                        dispatched += b.dispatch()
+                        staged = b.offer(pcm, source_id, start_time, rate)
+                    if not staged:
+                        q = self._backlog.setdefault(model_id, [])
+                        if len(q) < 4 * b.max_batch:
+                            q.append(item)
+                        else:               # overload: drop WITH accounting
+                            self.windows_dropped += 1
+                if staged:
+                    ends.append(start_time
+                                + len(pcm) / (rate or b.spec.sample_rate))
+                    nbytes += 2 * len(pcm)
+            _count_ingest(np.asarray(ends, np.float64), nbytes)
         return dispatched
 
     def drain(self) -> None:
@@ -741,6 +797,12 @@ class DeviceLoop:
             next_tick += self._cur_period
             delay = next_tick - time.monotonic()
             if delay > 0:
-                self._stop.wait(delay)
+                with tracing.span("loop.sleep") as sleep:
+                    stopped = self._stop.wait(delay)
+                if not stopped:
+                    # how late the timed wait returned: the loop thread's
+                    # wait for the GIL and the operating system
+                    tracing.count("loop.wake_late_ns", max(
+                        0, sleep.t1 - sleep.t0 - round(delay * 1e9)))
             else:
                 next_tick = time.monotonic()   # fell behind: don't spiral

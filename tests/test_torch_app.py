@@ -1541,7 +1541,7 @@ def test_runtime_load_and_unload(tmp_path, monkeypatch, tiny_v24):
     app.device_loop.max_dispatches_per_tick = 1
     app.device_loop.run_tick()
     b3 = app.device_loop.batchers["BirdNET_V3.0"]
-    held = len(b3._meta) + sum(len(m) for _, m, _ in b3._inflight) \
+    held = len(b3._meta) + sum(len(e[1]) for e in b3._inflight) \
         + len(app.device_loop._backlog.get("BirdNET_V3.0", []))
     assert held > 0
     before = len([m for m, _ in served if m == "BirdNET_V3.0"])
